@@ -2,16 +2,19 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, drives the
-main path (``ChipServer`` serving ``cifar9_s1`` at full width beside
-``mnist5``, through the megakernel and through the staged kernels), checks
-the answers against the float reference, and times every kernel beside
-its bound, its plain version and a PyTorch library yardstick.  Needs one
-CUDA device and no arguments; exits non-zero on any failure, and without
-a CUDA device or outside a checkout of the repository.
+main paths (``ChipServer`` serving ``cifar9_s1`` at full width beside
+``mnist5``, through the megakernel and through the staged kernels; a
+shared ``ChipServer`` serving the 4 x S=4 composite; the face ->
+owner ``CascadePipeline``, fused and host-side), checks the answers
+against the float reference, and times every kernel beside its bound,
+its plain version and a PyTorch library yardstick.  Needs one CUDA device
+and no arguments; exits non-zero on any failure, and without a CUDA
+device or outside a checkout of the repository.
 
 Phases: 1 environment, 2 build, 3 kernels vs plain versions, 4 end to end
-(staged == megakernel == float reference), 5 serve, 6 times.  The line
-before the last is ``{"kernels": [...]}``; the last line is
+(staged == megakernel == composite member == float reference; the fused
+cascade vs the float references and the host rule), 5 serve, 6 times.
+The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -39,13 +42,25 @@ REPLACES = {
     "xnor_matmul": "src/repro/kernels/xnor_matmul.py:137",
     "xnor_matmul_pack": "src/repro/kernels/xnor_matmul.py:123",
     "megakernel": "src/repro/kernels/megakernel.py:366",
+    "composite": "src/repro/kernels/megakernel.py:366",
+    "cascade": "src/repro/kernels/megakernel.py:593",
 }
 SOURCES = {
     "conv_block": "src/repro_torch/csrc/conv_block.cu",
     "xnor_matmul": "src/repro_torch/csrc/xnor_matmul.cu",
     "xnor_matmul_pack": "src/repro_torch/csrc/xnor_matmul.cu",
     "megakernel": "src/repro_torch/csrc/megakernel.cu",
+    "composite": "src/repro_torch/csrc/megakernel.cu",
+    "cascade": "src/repro_torch/csrc/cascade.cu",
 }
+# every exact tiling of the 256-channel array by REGISTRY programs
+TILINGS = (("cifar9_s4", "cifar9_s4t", "mnist5", "face_detector"),
+           ("cifar9_s2", "face_angles"),
+           ("cifar9_s2", "mnist5", "face_detector"))
+RAGGED_MEMBERS = (8, 5, 3, 1)
+CASCADE = ("face_detector", "owner_detector")
+MARGINS = (float("-inf"), -3.5, 0.0, 7.0, float("inf"))
+SCHEDULES = ((8, 8, 1), (8, 3, 2), (4, 2, 5))        # (bb, rb, check_every)
 
 
 def sh(*cmd: str) -> str:
@@ -109,6 +124,36 @@ def words(gen, *shape) -> torch.Tensor:
                          dtype=torch.int64).to(torch.int32)
 
 
+def max_abs_err_all(got, want) -> int:
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def member_word_ops(stages, batch: int) -> int:
+    """xor+popc word-ops of ``batch`` frames through one member's stages
+    (each 2x2 tap of each channel word of each output bit, and each FC
+    weight word of each output)."""
+    ops = 0
+    for st in stages:
+        if st[0] == "conv":
+            _, h, w, c, f, pool = st[:6]
+            pos = (4 * ((h - 1) // 2) * ((w - 1) // 2) if pool
+                   else (h - 1) * (w - 1))
+            ops += batch * pos * f * 4 * (c // 32)
+        elif st[0] == "fc":
+            ops += batch * st[2] * -(-st[1] // 32)
+    return ops
+
+
+def median_margin(margins_of, det_logits) -> float:
+    """The median detector margin of a batch: about half its frames
+    escalate at it."""
+    return float(np.median(margins_of(det_logits.cpu().numpy())))
+
+
+def image_bytes(image) -> int:
+    return 4 * sum(v.numel() for v in image.values())
+
+
 def random_image(interpreter, program, gen):
     """A weight image from init_params with spread-out BN statistics, so
     thresholds and both comparator directions occur."""
@@ -134,6 +179,7 @@ def main() -> None:
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels import xnor_matmul as xm
     from repro_torch.launch.chip_serve import build_params, frame_stream
+    from repro_torch.serving.cascade import CascadePipeline, margins_of
     from repro_torch.serving.server import ChipServer
 
     dev = torch.device("cuda", 0)
@@ -169,10 +215,11 @@ def main() -> None:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 kernel = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
             if m:
-                spills = f"spills {m.group(1)}/{m.group(2)} B"
+                spills = (f"stack {m.group(1)} B, spills "
+                          f"{m.group(2)}/{m.group(3)} B")
             m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
                           line)
             if m and kernel:
@@ -232,6 +279,46 @@ def main() -> None:
             errs["megakernel"] = max(errs["megakernel"],
                                      max_abs_err(got, want))
         print(f"  megakernel {name} B={BATCH} and B={RAGGED}: equal")
+    for names in TILINGS:
+        cplan, cimage = interpreter.pack_programs(
+            {n: programs[n] for n in names}, {n: images[n] for n in names})
+        cimage = {k: v.to(dev) for k, v in cimage.items()}
+        for batches in ((BATCH,) * len(names), RAGGED_MEMBERS[:len(names)]):
+            frames = tuple(torch.from_numpy(frame_stream(programs[n], b, b))
+                           .to(dev) for n, b in zip(names, batches))
+            want = mk.composite_plain(cimage, frames, spec=cplan.spec)
+            got = mk.composite_forward(cimage, frames, spec=cplan.spec)
+            torch.cuda.synchronize()
+            errs["composite"] = max(errs["composite"],
+                                    max_abs_err_all(got, want))
+        print(f"  composite {'+'.join(names)} B={BATCH} each and ragged "
+              f"{RAGGED_MEMBERS[:len(names)]}: equal")
+    cplan, cimage = interpreter.pack_cascade(
+        {n: programs[n] for n in CASCADE}, {n: images[n] for n in CASCADE},
+        detector=CASCADE[0], recognizer=CASCADE[1])
+    cimage = {k: v.to(dev) for k, v in cimage.items()}
+    for b in (BATCH, RAGGED):
+        frames = torch.from_numpy(frame_stream(programs[CASCADE[0]], b,
+                                               10 + b)).to(dev)
+        n_real = b if b == BATCH else b - 1       # a masked padding lane
+        det_l = mk.cascade_plain(cimage, frames,
+                                 cplan.margin_ctrl(0.0, b).to(dev),
+                                 spec=cplan.spec)[0]
+        margins = MARGINS + (median_margin(margins_of, det_l),)
+        escalated = []
+        for margin in margins:
+            ctrl = cplan.margin_ctrl(margin, n_real).to(dev)
+            for bb, rb, ce in SCHEDULES:
+                kw = dict(spec=cplan.spec, bb=bb, rb=rb, check_every=ce)
+                want = mk.cascade_plain(cimage, frames, ctrl, **kw)
+                got = mk.cascade_forward(cimage, frames, ctrl, **kw)
+                torch.cuda.synchronize()
+                errs["cascade"] = max(errs["cascade"],
+                                      max_abs_err_all(got, want))
+            escalated.append(int(got[3][0]))
+        print(f"  cascade {'->'.join(CASCADE)} B={b} (n_real {n_real}), "
+              f"margins {margins} (escalated {escalated}), schedules "
+              f"{SCHEDULES}: det, rec, queue and counts equal")
 
     # -- 4. end to end -------------------------------------------------------
     phase(4, "end to end: staged == megakernel == float reference")
@@ -258,6 +345,69 @@ def main() -> None:
         print(f"  {name}: {len(frames)} frames, logits {tuple(ref_l.shape)}, "
               f"staged == megakernel == float reference (label counts "
               f"{np.bincount(offline[name], minlength=10).tolist()})")
+
+    # composite members == solo megakernel == float reference, every tiling
+    tiled = sorted({n for names in TILINGS for n in names} | set(CASCADE))
+    params = {n: build_params(programs[n], seed=10 + i, warm_bn=True,
+                              device=dev) for i, n in enumerate(tiled)}
+    packed = {n: interpreter.fold_params(params[n], programs[n], packed=True)
+              for n in tiled}
+    for names in TILINGS:
+        cplan, cimage = interpreter.pack_programs(
+            {n: programs[n] for n in names}, {n: packed[n] for n in names})
+        frames = {n: frame_stream(programs[n], 16 - 3 * i, 200 + i)
+                  for i, n in enumerate(names)}
+        c_l, c_y = cplan.forward(cimage, frames, device=dev)
+        for i, n in enumerate(names):
+            prog = programs[n]
+            ref_l, ref_y = interpreter.forward_infer(
+                interpreter.fold_params(params[n], prog), prog, frames[n],
+                device=dev)
+            mg_l, _ = interpreter.compile_plan(prog).forward_mega(
+                interpreter.ensure_image(packed[n], prog), frames[n],
+                device=dev)
+            if not (torch.equal(c_l[i], ref_l) and torch.equal(c_y[i], ref_y)
+                    and torch.equal(mg_l, ref_l)):
+                raise AssertionError(f"composite {'+'.join(names)}: member "
+                                     f"{n} != solo megakernel / float "
+                                     f"reference")
+        print(f"  composite {'+'.join(names)}: members "
+              f"{[len(frames[n]) for n in names]} frames, each == solo "
+              f"megakernel == float reference")
+
+    # the fused cascade vs the float references and the host rule
+    det, rec = (programs[n] for n in CASCADE)
+    frames = frame_stream(det, 4 * BATCH, 300)
+    ref_det, _ = interpreter.forward_infer(
+        interpreter.fold_params(params[CASCADE[0]], det), det, frames,
+        device=dev)
+    ref_rec, _ = interpreter.forward_infer(
+        interpreter.fold_params(params[CASCADE[1]], rec), rec, frames,
+        device=dev)
+    cplan, cimage = interpreter.pack_cascade(
+        {n: programs[n] for n in CASCADE}, {n: packed[n] for n in CASCADE},
+        detector=CASCADE[0], recognizer=CASCADE[1])
+    bpad, rb = mk.cascade_schedule(len(frames), 8, 0)
+    for margin in (float("-inf"), 0.0, median_margin(margins_of, ref_det)):
+        d_l, _, r_l, _, queue, counts = cplan.forward_fused(
+            cimage, frames, cplan.margin_ctrl(margin, len(frames)),
+            device=dev)
+        want_q = np.nonzero(margins_of(ref_det.cpu().numpy())
+                            >= margin)[0]
+        e = len(want_q)
+        q = queue.cpu().numpy()
+        if not (torch.equal(d_l, ref_det) and int(counts[0]) == e
+                and np.array_equal(q[:e], want_q) and not q[e:].any()
+                and torch.equal(r_l[:e], ref_rec[torch.from_numpy(want_q)
+                                                 .to(dev)])
+                and not r_l[e:].any()
+                and int(counts[1]) == mk.drain_slots(e, bpad, rb, 1)):
+            raise AssertionError(f"fused cascade at margin {margin} != "
+                                 f"float references + host rule")
+        print(f"  cascade {'->'.join(CASCADE)} margin {margin}: "
+              f"{len(frames)} frames, {e} escalated, counts "
+              f"{counts.tolist()}; det == float reference, queue == host "
+              f"rule, rec[:E] == float reference on the queued frames")
 
     # -- 5. serve ------------------------------------------------------------
     phase(5, f"serve {SERVE_REQUESTS} requests through ChipServer "
@@ -312,6 +462,88 @@ def main() -> None:
               f"(first serve, includes warm-up), chip-model bill "
               f"{st.chip.uj_per_frame:.2f} uJ/frame, "
               f"{st.chip.frames_per_s:,.0f} frames/s at Emin [{card.smi}]")
+
+    # the 4 x S=4 group through a shared ChipServer vs a solo one
+    quad = TILINGS[0]
+    lane_frames = {n: frame_stream(programs[n], 16 - 3 * i, 400 + i)
+                   for i, n in enumerate(quad)}
+    served = {}
+    for shared in (True, False):
+        server = ChipServer({n: programs[n] for n in quad},
+                            {n: packed[n] for n in quad}, batch=BATCH,
+                            megakernel=True, prefetch=2, device=dev,
+                            shared=shared)
+        for n in quad:
+            server.submit_many(n, lane_frames[n])
+        ops.reset_launch_counts()
+        results = server.drain()
+        counts = ops.launch_counts()
+        server.close()
+        st = server.stats()
+        if st.billed != st.total_served + sum(st.padded.values()):
+            raise AssertionError("shared ledger: billed != served + padded")
+        solo = st.dispatches - st.shared_dispatches
+        if (counts["composite"] != st.shared_dispatches
+                or counts["megakernel"] != solo):
+            raise AssertionError(f"shared={shared}: launches {counts}, want "
+                                 f"{st.shared_dispatches} composite and "
+                                 f"{solo} megakernel")
+        served[shared] = {r.rid: (r.program, r.label) for r in results}
+        if shared:
+            if server.shared_groups != (quad,) or not st.shared_dispatches:
+                raise AssertionError(f"shared groups {server.shared_groups},"
+                                     f" {st.shared_dispatches} shared "
+                                     f"dispatches")
+            launches["composite"] = counts["composite"]
+        print(f"  {'shared' if shared else 'solo'} {'+'.join(quad)}: "
+              f"{st.total_served} served in {st.dispatches} dispatches "
+              f"({st.shared_dispatches} shared), billed {st.billed} == "
+              f"served + padded; utilization {st.array_utilization:.2f}; "
+              f"launches composite {counts['composite']}, megakernel "
+              f"{counts['megakernel']}")
+    if served[True] != served[False] or len(served[True]) != sum(
+            len(f) for f in lane_frames.values()):
+        raise AssertionError("shared server labels != solo server labels")
+    print("  shared labels == solo labels")
+
+    # the face -> owner cascade, fused and host-side, on one stream
+    stream = frame_stream(programs[CASCADE[0]], SERVE_REQUESTS, 500)
+    margin = median_margin(margins_of, interpreter.forward_infer(
+        interpreter.fold_params(params[CASCADE[0]], det), det, stream,
+        device=dev)[0])
+    answers = {}
+    for fused in (True, False):
+        server = ChipServer({n: programs[n] for n in CASCADE},
+                            {n: packed[n] for n in CASCADE}, batch=BATCH,
+                            megakernel=True, device=dev)
+        casc = CascadePipeline(server, *CASCADE, margin=margin, fused=fused)
+        casc.submit_many(stream)
+        ops.reset_launch_counts()
+        results = casc.drain()
+        counts = ops.launch_counts()
+        server.close()
+        st = server.stats()
+        bill = casc.report()
+        if st.billed != st.total_served + sum(st.padded.values()):
+            raise AssertionError("cascade ledger: billed != served + padded")
+        want = ({"cascade": casc.fused_dispatches, "megakernel": 0} if fused
+                else {"cascade": 0, "megakernel": st.dispatches})
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"fused={fused}: launches {counts}, want "
+                                 f"{want}")
+        if fused:
+            launches["cascade"] = counts["cascade"]
+        answers[fused] = sorted((r.rid, r.label, r.escalated)
+                                for r in results)
+        print(f"  cascade {'fused' if fused else 'host'} at margin "
+              f"{margin}: {bill.frames} frames, {bill.escalated} escalated, "
+              f"{st.dispatches} "
+              f"dispatches, billed {st.billed} == served + padded "
+              f"{sum(st.padded.values())}; launches {want}; bill "
+              f"{bill.uj_per_frame:.2f} uJ/frame")
+    if answers[True] != answers[False] or len(answers[True]) != len(stream):
+        raise AssertionError("fused cascade answers != host cascade answers")
+    print("  fused labels and escalations == host-side")
 
     # -- 6. times ------------------------------------------------------------
     phase(6, f"times (CUDA events, warm L2) [{card.smi}]")
@@ -388,24 +620,15 @@ def main() -> None:
     io = plan.mega[0]
     nbytes = 4 * (frames.numel() + sum(v.numel() for v in image.values())
                   + io[5] // io[3] + BATCH * plan.mega[-1][2])
-    smem = 2 * 4 * mk.stage_table(plan.mega, tuple(image["fw"].shape))[-1]
+    smem = mk.smem_bytes(mk.solo_member_spec(plan.mega)[0])
     print(f"  megakernel cifar9_s1: {BATCH} blocks of {mk.WARPS} warps, "
           f"{smem} B dynamic shared memory each")
-    word_ops = 0
-    for st in plan.mega:
-        if st[0] == "conv":
-            _, h, w, c, f, pool = st
-            pos = 4 * ((h - 1) // 2) * ((w - 1) // 2) if pool else \
-                (h - 1) * (w - 1)
-            word_ops += BATCH * pos * f * 4 * (c // 32)
-        elif st[0] == "fc":
-            word_ops += BATCH * st[2] * -(-st[1] // 32)
     row("megakernel",
         time_ms(lambda: mk.megakernel_forward(image, frames, spec=plan.mega),
                 20),
         time_ms(lambda: mk.megakernel_plain(image, frames, spec=plan.mega),
                 3),
-        nbytes, word_ops, None)
+        nbytes, member_word_ops(plan.mega, BATCH), None)
 
     for batch, n_req in ((BATCH, 128), (256, 1024)):
         server = ChipServer({"cifar9_s1": cifar},
@@ -422,6 +645,96 @@ def main() -> None:
         print(f"  serve cifar9_s1 megakernel batch {batch}: "
               f"{st.host_frames_per_s:,.1f} frames/s host ({n_req} frames, "
               f"{st.dispatches} dispatches, prefetch 2) [{card.smi}]")
+
+    # composite: the 4 x S=4 quad at B=8 per member
+    cplan, cimage = interpreter.pack_programs(
+        {n: programs[n] for n in quad}, {n: packed[n] for n in quad})
+    cimage = {k: v.to(dev) for k, v in cimage.items()}
+    frames = tuple(torch.from_numpy(frame_stream(programs[n], BATCH, 600 + i))
+                   .to(dev) for i, n in enumerate(quad))
+    nbytes = 4 * (sum(f.numel() for f in frames) + BATCH * sum(cplan.classes)
+                  + sum(st[0][5] // st[0][3] for st in cplan.spec))
+    print(f"  composite {'+'.join(quad)}: {len(quad)} x {BATCH} blocks, "
+          f"{max(mk.smem_bytes(st) for st in cplan.spec)} B dynamic shared "
+          f"memory each")
+    row("composite",
+        time_ms(lambda: mk.composite_forward(cimage, frames,
+                                             spec=cplan.spec), 20),
+        time_ms(lambda: mk.composite_plain(cimage, frames, spec=cplan.spec),
+                3),
+        nbytes + image_bytes(cimage),
+        sum(member_word_ops(st, BATCH) for st in cplan.spec), None)
+
+    # cascade: face -> owner at B=8; the row is margin -inf (every frame
+    # escalates, so E = counts[1] = B and the recognizer work is the same
+    # under either count); margin 0 and the batch's median margin are
+    # timed beside it
+    cplan, cimage = interpreter.pack_cascade(
+        {n: programs[n] for n in CASCADE}, {n: packed[n] for n in CASCADE},
+        detector=CASCADE[0], recognizer=CASCADE[1])
+    cimage = {k: v.to(dev) for k, v in cimage.items()}
+    frames = torch.from_numpy(frame_stream(det, BATCH, 700)).to(dev)
+    det_spec, rec_spec = cplan.spec
+    det_l = mk.cascade_plain(cimage, frames, cplan.margin_ctrl(0.0, BATCH)
+                             .to(dev), spec=cplan.spec)[0]
+    for margin in (float("-inf"), 0.0, median_margin(margins_of, det_l)):
+        ctrl = cplan.margin_ctrl(margin, BATCH).to(dev)
+        call = lambda: mk.cascade_forward(cimage, frames, ctrl,
+                                          spec=cplan.spec)
+        counts = call()[3].tolist()
+        e = counts[0]
+        nbytes = 4 * (frames.numel() + 2 + BATCH * (sum(cplan.classes) + 1)
+                      + 2 + det_spec[0][5] // det_spec[0][3]
+                      + rec_spec[0][5] // rec_spec[0][3])
+        ops_e = (member_word_ops(det_spec, BATCH)
+                 + member_word_ops(rec_spec, e))
+        ms = time_ms(call, 20)
+        if margin == float("-inf"):
+            row("cascade", ms,
+                time_ms(lambda: mk.cascade_plain(cimage, frames, ctrl,
+                                                 spec=cplan.spec), 3),
+                nbytes + image_bytes(cimage), ops_e, None)
+        else:
+            bound_e, _ = card.bound(nbytes + image_bytes(cimage), ops_e)
+            bound_bill, _ = card.bound(
+                nbytes + image_bytes(cimage),
+                member_word_ops(det_spec, BATCH)
+                + member_word_ops(rec_spec, counts[1]))
+            print(f"  cascade margin {margin}: {ms:.4f} ms, E {e}, counts[1] "
+                  f"{counts[1]}; bound {bound_e:.5f} ms on E recognizer "
+                  f"frames, {bound_bill:.5f} ms on counts[1] [{card.smi}]")
+
+    quad_stream = {n: frame_stream(programs[n], 256, 800 + i)
+                   for i, n in enumerate(quad)}
+    server = ChipServer({n: programs[n] for n in quad},
+                        {n: packed[n] for n in quad}, batch=BATCH,
+                        megakernel=True, prefetch=2, device=dev, shared=True)
+    for _ in range(2):                           # warm-up, then measured
+        server.reset_stats()
+        for n in quad:
+            server.submit_many(n, quad_stream[n])
+        server.drain()
+    st = server.stats()
+    server.close()
+    print(f"  serve shared {'+'.join(quad)} batch {BATCH}: "
+          f"{st.host_frames_per_s:,.1f} frames/s host ({st.total_served} "
+          f"frames, {st.dispatches} dispatches, {st.shared_dispatches} "
+          f"shared, prefetch 2) [{card.smi}]")
+    casc_stream = frame_stream(det, 256, 900)
+    server = ChipServer({n: programs[n] for n in CASCADE},
+                        {n: packed[n] for n in CASCADE}, batch=BATCH,
+                        megakernel=True, device=dev)
+    casc = CascadePipeline(server, *CASCADE, margin=margin, fused=True)
+    for _ in range(2):                           # warm-up, then measured
+        server.reset_stats()
+        casc.submit_many(casc_stream)
+        casc.drain()
+    st = server.stats()
+    server.close()
+    print(f"  serve fused cascade {'->'.join(CASCADE)} batch {BATCH}: "
+          f"{st.served[CASCADE[0]] / st.host_wall_s:,.1f} frames/s host "
+          f"({st.served[CASCADE[0]]} frames, {st.served[CASCADE[1]]} "
+          f"escalated, {st.dispatches} dispatches) [{card.smi}]")
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(card.smi)

@@ -12,7 +12,14 @@ single-program deployment path:
   pipeline (``forward``: one fused conv kernel per conv layer, one XNOR
   matmul per FC layer) and the whole-network megakernel
   (``forward_mega``).
-* ``forward_infer`` — the float +/-1 reference both are bit-exact against.
+* :class:`CompositePlan` from :func:`pack_programs` — several programs
+  whose S-modes tile the 256-channel array, packed side by side into one
+  weight image and run in one launch per batch (``forward``).
+* :class:`CascadePlan` from :func:`pack_cascade` — a detector and a
+  recognizer in one image, the escalation decided on the device and the
+  recognizer run on the escalated frames only (``forward_fused``).
+* ``forward_infer`` — the float +/-1 reference all of them are bit-exact
+  against.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``, in
 which case every kernel runs its plain PyTorch version.  Packed words are
@@ -26,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -242,6 +249,12 @@ def _frames(images, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(images, device=dev)
 
 
+def _labels(logits: torch.Tensor):
+    """(float32 logits, int64 argmax labels) of int32 logits."""
+    logits = logits.to(torch.float32)
+    return logits, torch.argmax(logits, dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class InferencePlan:
     """A program compiled to a static pipeline of fused packed stages.
@@ -297,10 +310,8 @@ class InferencePlan:
         Returns (float32 logits, int64 labels)."""
         dev = _device.resolve(device)
         image = _device.to_device(image, dev)
-        logits = kops.megakernel_forward(image, _frames(images, dev),
-                                         spec=self.mega)
-        logits = logits.to(torch.float32)
-        return logits, torch.argmax(logits, dim=-1)
+        return _labels(kops.megakernel_forward(image, _frames(images, dev),
+                                               spec=self.mega))
 
     def make_fn(self, megakernel: bool = False, device=None):
         """(artifact, images) -> (logits, labels) on ``device``:
@@ -346,6 +357,287 @@ def compile_plan(program: isa.Program) -> InferencePlan:
                          ins.final, pack_out))
     return InferencePlan(program=program, stages=tuple(stages),
                          mega=tuple(mega))
+
+
+# ---------------------------------------------------------------------------
+# Composite plans: sub-array sharing across resident programs
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CompositePlan:
+    """Several programs compiled as ONE shared-array dispatch unit.
+
+    The chip's S-mode recombination runs its sub-arrays concurrently (4xS4,
+    2xS2, 1xS2 + 2xS4, ...), each on its own program and frame stream.  The
+    members' weight images pack side by side on the F axis into one
+    composite image (:func:`pack_programs`), each member's stages carry
+    their row offsets into it, and :meth:`forward` runs every member's
+    frames in one launch per batch (``kernels.megakernel.composite_forward``),
+    bit-exact with dispatching each member alone.
+    """
+    names: Tuple[str, ...]
+    programs: Tuple[isa.Program, ...]
+    plans: Tuple[InferencePlan, ...]
+    spec: Tuple[Any, ...]          # per-member stage specs with offsets
+
+    @property
+    def classes(self) -> Tuple[int, ...]:
+        return tuple(sp[-1][2] for sp in self.spec)
+
+    @property
+    def n_groups(self) -> int:
+        """Member groups of the spec (members with identical IO and conv
+        chains; ``repro`` convolves each group as one contraction)."""
+        return len(kops.member_groups(self.spec))
+
+    def forward(self, image, frames, device=None):
+        """Shared dispatch: per-member frames -> per-member (logits, labels).
+
+        ``frames`` is a mapping keyed by member name or a sequence in
+        ``names`` order; member batches may be ragged.  Returns (float32
+        logits, int64 labels) as tuples in ``names`` order.
+        """
+        dev = _device.resolve(device)
+        image = _device.to_device(image, dev)
+        if isinstance(frames, Mapping):
+            frames = [frames[n] for n in self.names]
+        outs = kops.composite_forward(
+            image, tuple(_frames(f, dev) for f in frames), spec=self.spec)
+        logits = tuple(o.to(torch.float32) for o in outs)
+        return logits, tuple(torch.argmax(lg, dim=-1) for lg in logits)
+
+    def make_serve_fn(self, device=None):
+        """(composite image, frames tuple) -> (logits, labels) tuples on
+        ``device``."""
+        return functools.partial(self.forward, device=_device.resolve(device))
+
+
+def pack_programs(programs: Mapping[str, isa.Program],
+                  artifacts: Mapping[str, Any], *,
+                  exact_tiling: bool = True):
+    """Compile a shared-array composite: (CompositePlan, composite image).
+
+    ``programs`` maps member names to validated ISA programs whose S-modes
+    must tile the 256-channel array exactly (sum of 256/S == 256);
+    ``artifacts`` maps the same names to any artifact form.
+    ``exact_tiling=False`` lifts the tiling constraint for members that run
+    one after another in a dispatch rather than side by side (the fused
+    cascade).  The image stays on the artifacts' device:
+
+      ``cw``: (Lc, F_total, 4, Cw_max) int32, member m's conv-layer-i words
+          at rows [f_off_m, f_off_m + 256/S_m); rows past a member's depth
+          and unused trailing channel words stay zero and are never read;
+      ``ct``/``cf``: (Lc, F_total) int32 thresholds / directions;
+      ``fw``: (Lf, N_total, Kw_max) int32 FC words, members side by side
+          on the N axis per FC ordinal.
+    """
+    names = tuple(programs)
+    if not names:
+        raise ValueError("pack_programs needs at least one program")
+    progs = tuple(programs[n] for n in names)
+    for p in progs:
+        isa.validate(p)
+    widths = [isa.ARRAY_CHANNELS // p.s for p in progs]
+    if exact_tiling and len(progs) > 1 and sum(widths) != isa.ARRAY_CHANNELS:
+        raise isa.ProgramError(
+            f"S-modes {[p.s for p in progs]} do not tile the array "
+            f"exactly: sum(256/S) = {sum(widths)} != {isa.ARRAY_CHANNELS}")
+    plans = tuple(compile_plan(p) for p in progs)
+    images = [ensure_image(artifacts[n], p) for n, p in zip(names, progs)]
+    dev = images[0]["fw"].device
+    images = [_device.to_device(img, dev) for img in images]
+
+    f_offs, off = [], 0
+    for w in widths:
+        f_offs.append(off)
+        off += w
+    lc = max(img["cw"].shape[0] for img in images)
+    kwc = max(img["cw"].shape[3] for img in images)
+    cw = torch.zeros((lc, off, 4, kwc), dtype=torch.int32, device=dev)
+    ct = torch.zeros((lc, off), dtype=torch.int32, device=dev)
+    cf = torch.zeros((lc, off), dtype=torch.int32, device=dev)
+    for img, fo in zip(images, f_offs):
+        ncm, fm, _, kwm = img["cw"].shape
+        cw[:ncm, fo:fo + fm, :, :kwm] = img["cw"]
+        ct[:ncm, fo:fo + fm] = img["ct"]
+        cf[:ncm, fo:fo + fm] = img["cf"]
+
+    # FC rows: true (N, Kw) per member per FC ordinal, packed side by side
+    fc_geoms = [[(st[2], -(-st[1] // binarize.PACK_WIDTH))
+                 for st in plan.mega if st[0] == "fc"] for plan in plans]
+    lf = max(len(g) for g in fc_geoms)
+    n_offs, row = [], [0] * lf
+    for g in fc_geoms:
+        offs = []
+        for li, (n, _kw) in enumerate(g):
+            offs.append(row[li])
+            row[li] += n
+        n_offs.append(tuple(offs))
+    kw_tot = max(kw for g in fc_geoms for _n, kw in g)
+    fw = torch.zeros((lf, max(row), kw_tot), dtype=torch.int32, device=dev)
+    for img, g, offs in zip(images, fc_geoms, n_offs):
+        for li, ((n, kw), o) in enumerate(zip(g, offs)):
+            fw[li, o:o + n, :kw] = img["fw"][li, :n, :kw]
+
+    mspecs = []
+    for plan, fo, offs in zip(plans, f_offs, n_offs):
+        fi, st_out = 0, []
+        for st in plan.mega:
+            if st[0] == "io":
+                st_out.append(st)
+            elif st[0] == "conv":
+                st_out.append(st + (fo,))
+            else:
+                st_out.append(st + (offs[fi],))
+                fi += 1
+        mspecs.append(tuple(st_out))
+
+    cplan = CompositePlan(names=names, programs=progs, plans=plans,
+                          spec=tuple(mspecs))
+    return cplan, {"cw": cw, "ct": ct, "cf": cf, "fw": fw}
+
+
+# ---------------------------------------------------------------------------
+# Cascade plans: detector -> recognizer escalation on the device
+# ---------------------------------------------------------------------------
+
+_INT32_MIN = -(2 ** 31)
+_INT32_MAX = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CascadePlan:
+    """A detector + recognizer pair compiled as ONE fused dispatch unit.
+
+    Both stages' weight images share one composite image
+    (:func:`pack_cascade`); the detector runs on every frame, the
+    escalation (positive-class logit margin >= threshold) is decided on the
+    device, and the recognizer runs on the escalated frames only
+    (``kernels.megakernel.cascade_forward``), with no host round trip
+    between the stages.  The stages run one after the other, so their
+    S-modes need not tile the 256 channels.
+
+    The escalation rule is bit-exact with the host cascade's float rule:
+    integer margins satisfy ``m >= margin  <=>  m >= ceil(margin)``, and
+    :meth:`margin_ctrl` folds the float margin into the int32 threshold the
+    kernel compares against (``+/-inf`` map to sentinels beyond any
+    reachable margin).
+    """
+    detector: str
+    recognizer: str
+    programs: Tuple[isa.Program, ...]          # (det, rec)
+    plans: Tuple[InferencePlan, ...]
+    spec: Tuple[Any, ...]                      # 2-member composite spec
+    positive_class: int = 1
+
+    @property
+    def classes(self) -> Tuple[int, int]:
+        return tuple(sp[-1][2] for sp in self.spec)
+
+    @property
+    def n_groups(self) -> int:
+        return len(kops.member_groups(self.spec))
+
+    @staticmethod
+    def margin_ctrl(margin: float, n_real: int) -> torch.Tensor:
+        """Fold a host float escalation margin into the kernel's ``(1, 2)``
+        int32 control word ``[threshold, n_real]`` (on the CPU).
+
+        For integer margins m, ``m >= margin`` holds iff
+        ``m >= ceil(margin)``; ``-inf`` (escalate all) and ``+inf``
+        (escalate none) clamp to the int32 extremes, both unreachable by
+        real margins.  ``n_real`` masks padding lanes out of escalation.
+        """
+        if math.isnan(margin):
+            raise ValueError("escalation margin must not be NaN")
+        thr = (_INT32_MIN if margin == float("-inf") else
+               _INT32_MAX if margin == float("inf") else
+               int(min(max(math.ceil(margin), _INT32_MIN), _INT32_MAX)))
+        return torch.tensor([[thr, int(n_real)]], dtype=torch.int32)
+
+    def forward_fused(self, image, frames, ctrl, device=None,
+                      bb: Optional[int] = None, rb: Optional[int] = None,
+                      check_every: int = 1):
+        """One fused dispatch: frames -> both stages' answers.
+
+        ``ctrl`` is :meth:`margin_ctrl`'s control word (its n_real at most
+        the batch).  Returns ``(det_logits, det_labels, rec_logits,
+        rec_labels, queue, counts)``: logits float32, labels int64;
+        ``counts[0] = E`` escalated frames, ``queue[:E]`` their ascending
+        frame indices, ``rec_*[k]`` answering frame ``queue[k]``;
+        ``counts[1]`` the recognizer slots billed.  ``bb`` (default 8, the
+        pad granule), ``rb`` (default ``bb``) and ``check_every`` set the
+        drain schedule ``counts[1]`` follows; nothing else depends on them.
+        """
+        dev = _device.resolve(device)
+        image = _device.to_device(image, dev)
+        frames = _frames(frames, dev)
+        ctrl = torch.as_tensor(ctrl, dtype=torch.int32)
+        if ctrl.device.type == "cpu" and not (
+                0 <= int(ctrl.reshape(-1)[1]) <= frames.shape[0]):
+            raise ValueError(f"ctrl n_real {int(ctrl.reshape(-1)[1])} not in "
+                             f"[0, {frames.shape[0]}]")
+        det, rec, queue, counts = kops.cascade_forward(
+            image, frames, ctrl.to(dev), spec=self.spec,
+            bb=8 if bb is None else bb, rb=0 if rb is None else rb,
+            check_every=check_every, positive_class=self.positive_class)
+        det_l, det_y = _labels(det)
+        rec_l, rec_y = _labels(rec)
+        return det_l, det_y, rec_l, rec_y, queue, counts
+
+    def make_serve_fn(self, device=None):
+        """(image, frames, ctrl) -> the fused cascade outputs on
+        ``device``."""
+        return functools.partial(self.forward_fused,
+                                 device=_device.resolve(device))
+
+
+def pack_cascade(programs: Mapping[str, isa.Program],
+                 artifacts: Mapping[str, Any], *,
+                 detector: str, recognizer: str,
+                 positive_class: int = 1):
+    """Compile a fused cascade pair: (CascadePlan, composite image).
+
+    ``programs``/``artifacts`` are keyed like :func:`pack_programs`;
+    ``detector``/``recognizer`` name the two members.  The stages must
+    agree on frame geometry (one stream feeds both) and the detector must
+    have >= 2 classes with ``positive_class`` among them.  The image is
+    the side-by-side pack with the detector at offset 0, built with
+    ``exact_tiling=False`` because the stages run one after the other.
+    """
+    if detector == recognizer:
+        raise isa.ProgramError(
+            "cascade stages must be distinct programs, got "
+            f"{detector!r} twice")
+    for name in (detector, recognizer):
+        if name not in programs:
+            raise KeyError(f"cascade stage {name!r} missing from programs "
+                           f"(have {sorted(programs)})")
+    det_prog, rec_prog = programs[detector], programs[recognizer]
+    iod, ior = det_prog.instrs[0], rec_prog.instrs[0]
+    gd = (iod.height, iod.width, iod.in_channels, iod.bits)
+    gr = (ior.height, ior.width, ior.in_channels, ior.bits)
+    if gd != gr:
+        raise isa.ProgramError(
+            f"cascade stages disagree on frame geometry: detector takes "
+            f"(h, w, c, bits) = {gd}, recognizer takes {gr} — one frame "
+            "stream must feed both stages")
+    ncd = det_prog.instrs[-1].out_features
+    if ncd < 2:
+        raise isa.ProgramError(
+            f"detector needs >= 2 classes for a logit margin, got {ncd}")
+    if not 0 <= positive_class < ncd:
+        raise isa.ProgramError(
+            f"positive_class {positive_class} out of range for the "
+            f"detector's {ncd} classes")
+    cplan, image = pack_programs(
+        {detector: det_prog, recognizer: rec_prog},
+        {detector: artifacts[detector], recognizer: artifacts[recognizer]},
+        exact_tiling=False)
+    plan = CascadePlan(detector=detector, recognizer=recognizer,
+                       programs=cplan.programs, plans=cplan.plans,
+                       spec=cplan.spec, positive_class=positive_class)
+    return plan, image
 
 
 def forward_infer(folded, program: isa.Program, images, device=None):

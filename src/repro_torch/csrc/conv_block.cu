@@ -36,7 +36,7 @@ conv_block_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ w
   const int fw = blockIdx.y;
   const int f = fw * 32 + lane;
   uint32_t wr[4 * repro_torch::kMaxCw];
-  repro_torch::load_taps(w, f, cw, wr);
+  repro_torch::load_taps(w, f, cw, cw, wr);
   const int t = tau[f];
   const int fl = flip[f];
   const int ho = pool ? (h - 1) / 2 : h - 1;

@@ -1,6 +1,6 @@
 // The fused binary conv layer's per-word arithmetic, shared by the staged
-// conv kernel (conv_block.cu) and the whole-network megakernel
-// (megakernel.cu), so both run the identical integer arithmetic.
+// conv kernel (conv_block.cu) and the whole-network member body
+// (megakernel.cuh), so both run the identical integer arithmetic.
 //
 // Conventions (those of repro.core.binarize): +1 -> bit 0, -1 -> bit 1,
 // 32 channels per uint32 word, LSB first.  A map is (H, W, CW) words, row
@@ -15,14 +15,17 @@ constexpr int kMaxCw = 8;      // 256 channels: the widest map the chip has
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // Loads the 4 taps x cw words of feature f into registers (lane-private).
+// The weights are (F, 4, stride) words, of which the first cw of each tap
+// are read: stride is cw for one layer's own weights and the image's
+// widest channel-word count for a composite weight image.
 __device__ __forceinline__ void load_taps(const uint32_t* __restrict__ w,
-                                          int f, int cw,
+                                          int f, int cw, int stride,
                                           uint32_t (&wr)[4 * kMaxCw]) {
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
 #pragma unroll
     for (int i = 0; i < kMaxCw; ++i) {
-      wr[t * kMaxCw + i] = i < cw ? w[(f * 4 + t) * cw + i] : 0u;
+      wr[t * kMaxCw + i] = i < cw ? w[(f * 4 + t) * stride + i] : 0u;
     }
   }
 }

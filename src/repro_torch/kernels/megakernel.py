@@ -1,28 +1,46 @@
-"""Whole-network megakernel for one program: CUDA kernel and plain version.
+"""Whole-network megakernels: solo programs, shared-array composites and
+the fused detector -> recognizer cascade; CUDA kernels and plain versions.
 
-The counterpart of ``repro.kernels.megakernel`` in its solo case
-(``megakernel_forward``, the one-member ``_composite_kernel``): raw frames
-in, int32 logits out, with the thermometer encode, every conv layer and
-the FC tail in one launch.  The kernel is ``csrc/megakernel.cu`` (one
-thread block per frame, feature maps in shared memory);
-:func:`megakernel_plain` chains the plain pieces below, the same arithmetic
-as the staged path's plain versions.
+The counterpart of ``repro.kernels.megakernel``: raw frames in, int32
+logits out, with the thermometer encode, every conv layer and the FC tail
+in one dispatch.
 
-Stage spec entries (hashable; built by ``interpreter.compile_plan``)::
+* :func:`composite_forward` runs several programs whose S-modes tile the
+  256-channel array, each on its own frame batch and its own rows of one
+  composite weight image (``interpreter.pack_programs``), in one launch of
+  ``csrc/megakernel.cu``.  :func:`megakernel_forward` is its one-member
+  case.
+* :func:`cascade_forward` runs a detector on every frame, escalates the
+  frames whose logit margin reaches a threshold, and runs a recognizer on
+  the escalated frames only, with no host round trip between the stages
+  (``csrc/cascade.cu``).
+
+Each has its plain PyTorch version (:func:`composite_plain`,
+:func:`megakernel_plain`, :func:`cascade_plain`), built from the same
+plain pieces as the staged path.
+
+Member stage spec entries (hashable; built by the interpreter)::
 
     ("io",   h, w, cin, bits, channels)
-    ("conv", h, w, c, f, pool)        h/w = input map size
-    ("fc",   k, n, final, pack_out)
+    ("conv", h, w, c, f, pool, f_off)      h/w = input map size; f_off = the
+                                           member's row offset on the
+                                           image's F axis
+    ("fc",   k, n, final, pack_out, n_off) n_off = row offset on the FC
+                                           image's N axis
 
-Multi-program composites, f-tiling and frame tiles are not ported: the
-first are a later slice, the other two were TPU schedule knobs.
+A composite spec is a tuple of member specs.  ``InferencePlan.mega`` is
+the offset-less spec of one program; :func:`solo_member_spec` lifts it to a
+one-member composite with all offsets 0.  ``repro``'s TPU schedule knobs
+have no counterpart: member grouping (``_run_group``) and f-tiling are
+schedules of the same arithmetic, and of the frame tile ``bb`` only its
+effect on the cascade's bill is kept (the pad granule ``bpad``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -34,16 +52,48 @@ from repro_torch.kernels.binary_conv2x2_block import (MAX_CHANNEL_WORDS,
                                                       conv_block_body)
 from repro_torch.kernels import _build
 
-WARPS = 16                   # warps per block in csrc/megakernel.cu
+WARPS = 16                   # warps per block in csrc/megakernel.cuh
 MAX_LAYERS = 16              # the chip's 16-slot program memory
+MAX_MEMBERS = 4              # 4 x S=4 sub-arrays tile the 256 channels
 SMEM_LIMIT = 232448          # shared memory one H100 block may use
+INT32_MIN = -2 ** 31
 
-# kernel launches since the last reset
-LAUNCHES = {"megakernel": 0}
+# kernel launches since the last reset: one per solo dispatch, per
+# composite dispatch and per cascade dispatch
+LAUNCHES = {"megakernel": 0, "composite": 0, "cascade": 0}
 
 
 # ---------------------------------------------------------------------------
-# The plain version
+# Specs
+# ---------------------------------------------------------------------------
+
+def solo_member_spec(spec):
+    """Lift ``InferencePlan.mega``'s offset-less stage tuples to a
+    one-member composite spec (all offsets 0)."""
+    return (tuple(st if st[0] == "io" else st + (0,) for st in spec),)
+
+
+def _split_stages(stages):
+    """(io+conv prefix, fc tail) of a member spec."""
+    n = sum(1 for st in stages if st[0] != "fc")
+    return stages[:n], stages[n:]
+
+
+def member_groups(spec):
+    """Partition member indices into sub-array groups: members whose
+    IO+conv chains are shape-identical (F offsets stripped).  ``repro``
+    convolves a group as one stacked contraction; here it only sizes
+    ``CompositePlan.n_groups``."""
+    classes = {}
+    for m, stages in enumerate(spec):
+        head, _ = _split_stages(stages)
+        key = tuple(st[:6] for st in head)     # strips the conv f_off
+        classes.setdefault(key, []).append(m)
+    return tuple(tuple(v) for v in classes.values())
+
+
+# ---------------------------------------------------------------------------
+# The plain versions
 # ---------------------------------------------------------------------------
 
 def _fc_body(x: torch.Tensor, wfc: torch.Tensor, k: int) -> torch.Tensor:
@@ -52,13 +102,13 @@ def _fc_body(x: torch.Tensor, wfc: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _run_fc_tail(fm: torch.Tensor, fw: torch.Tensor, fc_stages) -> torch.Tensor:
-    """The FC chain on a packed map (flattened in (H, W, F/32) order, which
-    is the FC's K order) or on packed rows."""
+    """The FC chain of one member on a packed map (flattened in
+    (H, W, F/32) order, which is the FC's K order) or on packed rows."""
     x = fm.reshape(fm.shape[0], -1) if fm.ndim == 4 else fm
     for fi, st in enumerate(fc_stages):
-        _, k, n, final, _pack_out = st
+        _, k, n, final, _pack_out, n_off = st
         kw = -(-k // PACK_WIDTH)
-        s = _fc_body(x, fw[fi, :n, :kw], k)
+        s = _fc_body(x, fw[fi, n_off:n_off + n, :kw], k)
         if final:
             return s
         bits = s < 0
@@ -66,74 +116,242 @@ def _run_fc_tail(fm: torch.Tensor, fw: torch.Tensor, fc_stages) -> torch.Tensor:
             bits = torch.nn.functional.pad(bits, (0, (-n) % PACK_WIDTH),
                                            value=False)
         x = pack_bit_lanes(bits)
-    raise AssertionError("stage spec must end with a final FC stage")
-
-
-def _split_stages(stages):
-    """(io+conv prefix, fc tail) of a stage spec."""
-    n = sum(1 for st in stages if st[0] != "fc")
-    return stages[:n], stages[n:]
+    raise AssertionError("member spec must end with a final FC stage")
 
 
 def _run_member(frames, cw, ct, cf, fw, stages) -> torch.Tensor:
-    """The whole network on (B, H, W, Cin) int32 pixels -> (B, classes)."""
+    """One member's network on (B, H, W, Cin) int32 pixels -> (B, classes),
+    reading its own rows of the (composite) image."""
+    if frames.shape[0] == 0:
+        return torch.zeros((0, stages[-1][2]), dtype=torch.int32,
+                           device=frames.device)
     head, tail = _split_stages(stages)
     _, _h, _w, cin, bits, channels = head[0]
     fm = thermometer_pack(frames, bits, cin, channels)
-    for ci, (_, h, w, c, f, pool) in enumerate(head[1:]):
-        fm = conv_block_body(fm, cw[ci, :f, :, :c // PACK_WIDTH],
-                             ct[ci, :f], cf[ci, :f], k4=4 * c, h=h, wd=w,
-                             pool=pool)
+    for ci, (_, h, w, c, f, pool, f_off) in enumerate(head[1:]):
+        rows = slice(f_off, f_off + f)
+        fm = conv_block_body(fm, cw[ci, rows, :, :c // PACK_WIDTH],
+                             ct[ci, rows], cf[ci, rows], k4=4 * c, h=h,
+                             wd=w, pool=pool)
     return _run_fc_tail(fm, fw, tail)
+
+
+def composite_plain(image: Dict[str, torch.Tensor],
+                    frames: Sequence[torch.Tensor], *, spec
+                    ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`composite_forward`: each member on
+    its own frames and its own rows of the image.  Returns a tuple of
+    (B_m, classes_m) int32 logits in member order."""
+    return tuple(_run_member(f.to(torch.int32), image["cw"], image["ct"],
+                             image["cf"], image["fw"], stages)
+                 for f, stages in zip(frames, spec))
 
 
 def megakernel_plain(image: Dict[str, torch.Tensor], frames: torch.Tensor, *,
                      spec) -> torch.Tensor:
-    """Plain PyTorch version: (B, H, W, Cin) frames -> (B, classes) int32
-    logits, through the weight image (``interpreter.build_weight_image``)."""
-    return _run_member(frames.to(torch.int32), image["cw"], image["ct"],
-                       image["cf"], image["fw"], spec)
+    """Plain PyTorch version of :func:`megakernel_forward`: (B, H, W, Cin)
+    frames -> (B, classes) int32 logits through one program's weight
+    image (``interpreter.build_weight_image``)."""
+    return composite_plain(image, (frames,), spec=solo_member_spec(spec))[0]
+
+
+def cascade_schedule(b: int, bb: int, rb: int) -> Tuple[int, int]:
+    """``(bpad, rb)`` of a cascade dispatch of ``b`` frames, resolved as
+    ``repro`` resolves them: the batch pads to whole tiles of ``bb``, and
+    ``rb`` (0 means ``bb``) is clamped to ``[1, bpad]``."""
+    bb = max(1, min(bb, b))
+    bpad = -(-b // bb) * bb
+    return bpad, max(1, min(rb if rb else bb, bpad))
+
+
+def drain_slots(escalated: int, bpad: int, rb: int, check_every: int) -> int:
+    """The recognizer slots ``repro``'s bounded drain loop computes and the
+    serving layer bills: every chunk group ``g0`` (every ``check_every``
+    chunks of ``rb``) that starts below the escalated count runs whole."""
+    n_chunks = -(-bpad // rb)
+    return sum(rb * min(check_every, n_chunks - g0)
+               for g0 in range(0, n_chunks, check_every)
+               if g0 * rb < escalated)
+
+
+def escalation_mask(det: torch.Tensor, ctrl: torch.Tensor,
+                    positive_class: int) -> torch.Tensor:
+    """The in-kernel escalation rule on (B, Cd) int32 detector logits: the
+    int32 margin (positive logit minus the best other) reaches the
+    threshold ``ctrl[0, 0]``, and the lane is below ``ctrl[0, 1]``
+    (n_real)."""
+    thr, n_real = ctrl.reshape(2)
+    cls = torch.arange(det.shape[1], device=det.device)
+    rest = torch.where(cls[None, :] == positive_class,
+                       torch.tensor(INT32_MIN, dtype=torch.int32,
+                                    device=det.device), det).amax(dim=1)
+    margin = det[:, positive_class] - rest
+    lane = torch.arange(det.shape[0], device=det.device)
+    return (margin >= thr) & (lane < n_real)
+
+
+def cascade_plain(image: Dict[str, torch.Tensor], frames: torch.Tensor,
+                  ctrl: torch.Tensor, *, spec, bb: int = 8, rb: int = 0,
+                  check_every: int = 1, positive_class: int = 1):
+    """Plain PyTorch version of :func:`cascade_forward`, same arguments and
+    outputs: ``(det (B, Cd), rec (B, Cr), queue (B,), counts (2,))``, all
+    int32, rows of ``rec`` and ``queue`` from E on zero."""
+    det_spec, rec_spec = spec
+    frames = frames.to(torch.int32)
+    b = frames.shape[0]
+    cw, ct, cf, fw = (image[k] for k in ("cw", "ct", "cf", "fw"))
+    det = _run_member(frames, cw, ct, cf, fw, det_spec)
+    idx = torch.nonzero(escalation_mask(det, ctrl, positive_class))[:, 0]
+    e = int(idx.numel())
+    queue = torch.zeros(b, dtype=torch.int32, device=frames.device)
+    queue[:e] = idx.to(torch.int32)
+    rec = torch.zeros((b, rec_spec[-1][2]), dtype=torch.int32,
+                      device=frames.device)
+    rec[:e] = _run_member(frames[idx], cw, ct, cf, fw, rec_spec)
+    bpad, rb = cascade_schedule(b, bb, rb)
+    counts = torch.tensor([e, drain_slots(e, bpad, rb, check_every)],
+                          dtype=torch.int32, device=frames.device)
+    return det, rec, queue, counts
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel
+# Argument checks (both versions)
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=256)
-def stage_table(spec, fw_shape: Tuple[int, ...]) -> Tuple[int, ...]:
-    """The int32 stage table ``megakernel_launch`` parses, after checking
-    that the kernel takes the program: at most 16 layers of each kind,
-    F/32 dividing the block's 16 warps, C <= 256 and both ping-pong maps
-    inside one block's shared memory."""
-    head, tail = _split_stages(spec)
-    _, h, w, cin, _bits, channels = head[0]
-    cwio = channels // PACK_WIDTH
-    convs = head[1:]
-    if len(convs) > MAX_LAYERS or not 0 < len(tail) <= MAX_LAYERS:
-        raise ValueError(f"megakernel takes <= {MAX_LAYERS} layers of each "
-                         f"kind, got {len(convs)} conv and {len(tail)} fc")
-    words = [h * w * cwio]
-    table = [h, w, cin, channels // cin, cwio, len(convs)]
-    for _, ch, cwd, c, f, pool in convs:
-        if (f % PACK_WIDTH or WARPS % (f // PACK_WIDTH)
-                or c % PACK_WIDTH or c // PACK_WIDTH > MAX_CHANNEL_WORDS):
-            raise ValueError(f"megakernel cannot take conv C={c}, F={f}")
+def check_args(image: Dict[str, torch.Tensor],
+               frames: Sequence[torch.Tensor], spec) -> None:
+    """Raise on operands neither version takes: ``frames`` is one batch
+    per member of the composite ``spec``, each member's rows must lie
+    inside the image."""
+    if len(frames) != len(spec) or not spec:
+        raise ValueError(f"{len(frames)} frame batches for a "
+                         f"{len(spec)}-member spec")
+    dev = frames[0].device
+    for key, ndim in (("cw", 4), ("ct", 2), ("cf", 2), ("fw", 3)):
+        t = image[key]
+        if t.dtype != torch.int32 or t.ndim != ndim:
+            raise ValueError(f"image[{key!r}] is {t.dtype} "
+                             f"{tuple(t.shape)}, want int32 of {ndim} dims")
+        if t.device != dev:
+            raise ValueError(f"image[{key!r}] on {t.device}, frames on {dev}")
+    lc, ftot, taps, cwmax = image["cw"].shape
+    lf, ntot, kwmax = image["fw"].shape
+    if taps != 4 or tuple(image["ct"].shape) != (lc, ftot) or (
+            tuple(image["cf"].shape) != (lc, ftot)):
+        raise ValueError(f"image cw {tuple(image['cw'].shape)}, ct "
+                         f"{tuple(image['ct'].shape)} and cf "
+                         f"{tuple(image['cf'].shape)} do not agree")
+    for f_m, stages in zip(frames, spec):
+        io = stages[0]
+        if io[0] != "io" or stages[-1][0] != "fc" or not stages[-1][3]:
+            raise ValueError("a member spec must run from an io stage to a "
+                             "final fc")
+        if f_m.ndim != 4 or tuple(f_m.shape[1:]) != tuple(io[1:4]):
+            raise ValueError(f"frames {tuple(f_m.shape)} do not match the io "
+                             f"stage (B, {io[1]}, {io[2]}, {io[3]})")
+        if f_m.device != dev:
+            raise ValueError(f"frame batches on {f_m.device} and {dev}")
+        head, tail = _split_stages(stages)
+        if len(head) - 1 > lc or len(tail) > lf:
+            raise ValueError(f"image holds {lc} conv and {lf} fc layers, a "
+                             f"member has {len(head) - 1} and {len(tail)}")
+        for _, _h, _w, c, f, _pool, f_off in head[1:]:
+            if f_off < 0 or f_off + f > ftot or c // PACK_WIDTH > cwmax:
+                raise ValueError(f"conv C={c}, F={f} at row {f_off} does not "
+                                 f"fit image cw {tuple(image['cw'].shape)}")
+        for _, k, n, _final, _pack, n_off in tail:
+            if n_off < 0 or n_off + n > ntot or -(-k // PACK_WIDTH) > kwmax:
+                raise ValueError(f"fc {k}->{n} at row {n_off} does not fit "
+                                 f"image fw {tuple(image['fw'].shape)}")
+    if max(f_m.shape[0] for f_m in frames) < 1:
+        raise ValueError("empty frame batch")
+
+
+def check_cascade_args(image, frames: torch.Tensor, ctrl: torch.Tensor,
+                       spec, *, bb: int, rb: int, check_every: int,
+                       positive_class: int) -> None:
+    """Raise on cascade operands neither version takes."""
+    if len(spec) != 2:
+        raise ValueError(f"cascade spec needs exactly 2 members (detector, "
+                         f"recognizer), got {len(spec)}")
+    check_args(image, (frames, frames), spec)
+    ncd = spec[0][-1][2]
+    if ncd < 2:
+        raise ValueError(f"detector needs >= 2 classes, got {ncd}")
+    if not 0 <= positive_class < ncd:
+        raise ValueError(f"positive_class {positive_class} out of range for "
+                         f"{ncd} detector classes")
+    if bb < 1 or rb < 0 or check_every < 1:
+        raise ValueError(f"bad drain schedule bb={bb}, rb={rb}, "
+                         f"check_every={check_every}")
+    if (ctrl.dtype != torch.int32 or ctrl.numel() != 2
+            or ctrl.device != frames.device):
+        raise ValueError(f"ctrl must be 2 int32 values on {frames.device}, "
+                         f"got {ctrl.dtype} {tuple(ctrl.shape)} on "
+                         f"{ctrl.device}")
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _map_words(stages) -> int:
+    """Words in one of a member's ping-pong map buffers: its largest map
+    (as ``member_smem_words`` in csrc/megakernel.cuh)."""
+    head, tail = _split_stages(stages)
+    _, h, w, _cin, _bits, channels = head[0]
+    words = [h * w * channels // PACK_WIDTH]
+    for _, ch, cwd, _c, f, pool, _off in head[1:]:
         ho, wo = ch - 1, cwd - 1
         if pool:
             ho, wo = ho // 2, wo // 2
         words.append(ho * wo * f // PACK_WIDTH)
-        table += [ch, cwd, c, f, int(pool)]
-    _, nmax, kwmax = fw_shape
-    table.append(len(tail))
-    for _, k, n, _final, _pack_out in tail:
-        if n > nmax or -(-k // PACK_WIDTH) > kwmax:
-            raise ValueError(f"fc {k}->{n} exceeds the image's fw {fw_shape}")
-        words.append(-(-n // PACK_WIDTH))
-        table += [k, n]
-    smem_words = max(words)
-    if 2 * smem_words * 4 > SMEM_LIMIT:
-        raise ValueError(f"maps of {smem_words} words exceed shared memory")
-    return tuple(table + [nmax, kwmax, smem_words])
+    words += [-(-st[2] // PACK_WIDTH) for st in tail]
+    return max(words)
+
+
+def smem_bytes(stages) -> int:
+    """Dynamic shared memory one block of this member takes."""
+    return 2 * 4 * _map_words(stages)
+
+
+@functools.lru_cache(maxsize=256)
+def composite_table(spec, cw_shape: Tuple[int, ...],
+                    fw_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The int32 launch table ``parse_table`` (csrc/megakernel.cuh) reads,
+    after checking that the kernels take the spec: at most 4 members and
+    16 layers of each kind each, F/32 dividing the block's 16 warps,
+    C <= 256 and both ping-pong maps inside one block's shared memory."""
+    if not 0 < len(spec) <= MAX_MEMBERS:
+        raise ValueError(f"the kernels take 1 to {MAX_MEMBERS} members, got "
+                         f"{len(spec)}")
+    table = [len(spec)]
+    for stages in spec:
+        head, tail = _split_stages(stages)
+        _, h, w, cin, _bits, channels = head[0]
+        convs = head[1:]
+        if len(convs) > MAX_LAYERS or not 0 < len(tail) <= MAX_LAYERS:
+            raise ValueError(f"the kernels take <= {MAX_LAYERS} layers of "
+                             f"each kind, got {len(convs)} conv and "
+                             f"{len(tail)} fc")
+        if channels % PACK_WIDTH:
+            raise ValueError(f"io channels {channels} not a multiple of 32")
+        table += [h, w, cin, channels // cin, channels // PACK_WIDTH,
+                  len(convs)]
+        for _, ch, cwd, c, f, pool, f_off in convs:
+            if (f % PACK_WIDTH or WARPS % (f // PACK_WIDTH)
+                    or c % PACK_WIDTH or c // PACK_WIDTH > MAX_CHANNEL_WORDS):
+                raise ValueError(f"the kernels cannot take conv C={c}, F={f}")
+            table += [ch, cwd, c, f, int(pool), f_off]
+        table.append(len(tail))
+        for _, k, n, _final, _pack_out, n_off in tail:
+            table += [k, n, n_off]
+        if smem_bytes(stages) > SMEM_LIMIT:
+            raise ValueError(f"maps of {_map_words(stages)} words exceed "
+                             f"shared memory")
+    _, ftot, _, cwmax = cw_shape
+    _, ntot, kwmax = fw_shape
+    return tuple(table + [ftot, cwmax, ntot, kwmax])
 
 
 @functools.lru_cache(maxsize=64)
@@ -141,71 +359,155 @@ def _thresholds(bits: int, per: int, device: torch.device) -> torch.Tensor:
     return thermometer_thresholds(bits, per, device=device)
 
 
+def _member_thresholds(stages, device) -> torch.Tensor:
+    _, _h, _w, cin, bits, channels = stages[0]
+    return _thresholds(bits, channels // cin, device)
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.library("megakernel").megakernel_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+def _composite_launcher():
+    fn = _build.library("megakernel").composite_launch
+    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 2
+                   + [ctypes.c_void_p] * 4
+                   + [ctypes.POINTER(ctypes.c_void_p),
+                      ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def check_args(image: Dict[str, torch.Tensor], frames: torch.Tensor,
-               spec) -> None:
-    """Raise on operands neither version takes."""
-    io = spec[0]
-    if io[0] != "io" or spec[-1][0] != "fc" or not spec[-1][3]:
-        raise ValueError("stage spec must run from an io stage to a final fc")
-    if frames.ndim != 4 or tuple(frames.shape[1:]) != tuple(io[1:4]):
-        raise ValueError(f"frames {tuple(frames.shape)} do not match the io "
-                         f"stage (B, {io[1]}, {io[2]}, {io[3]})")
-    if frames.shape[0] < 1:
-        raise ValueError("empty frame batch")
-    convs = [st for st in spec if st[0] == "conv"]
-    n_fc = sum(1 for st in spec if st[0] == "fc")
-    for key, ndim, layers in (("cw", 4, len(convs)), ("ct", 2, len(convs)),
-                              ("cf", 2, len(convs)), ("fw", 3, n_fc)):
-        t = image[key]
-        if t.dtype != torch.int32 or t.ndim != ndim or t.shape[0] < layers:
-            raise ValueError(f"image[{key!r}] is {t.dtype} "
-                             f"{tuple(t.shape)}, which does not fit the spec")
-        if t.device != frames.device:
-            raise ValueError(f"image[{key!r}] on {t.device}, frames on "
-                             f"{frames.device}")
-    for _, _h, _w, c, f, _pool in convs:
-        if tuple(image["cw"].shape[1:]) != (f, 4, c // PACK_WIDTH):
-            raise ValueError(f"image cw {tuple(image['cw'].shape)} does not "
-                             f"fit a conv with C={c}, F={f}")
+@functools.lru_cache(maxsize=None)
+def _cascade_launcher():
+    fn = _build.library("cascade").cascade_launch
+    fn.argtypes = ([ctypes.c_void_p] * 12
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ints(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _ptrs(values) -> ctypes.Array:
+    return (ctypes.c_void_p * len(values))(*values)
+
+
+def _image_words(image):
+    return tuple(image[k].contiguous() for k in ("cw", "ct", "cf", "fw"))
+
+
+def _need_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                         f"{t.device}")
+
+
+def _launch_composite(image, frames, spec) -> Tuple[torch.Tensor, ...]:
+    """One launch of csrc/megakernel.cu's composite kernel (uncounted)."""
+    check_args(image, frames, spec)
+    _need_cuda(frames[0])
+    cw, ct, cf, fw = _image_words(image)
+    table = composite_table(spec, tuple(cw.shape), tuple(fw.shape))
+    dev = frames[0].device
+    frames = [f.to(torch.int32).contiguous() for f in frames]
+    thr = [_member_thresholds(st, dev) for st in spec]
+    outs = [torch.empty((f.shape[0], st[-1][2]), dtype=torch.int32,
+                        device=dev) for f, st in zip(frames, spec)]
+    # an empty member batch launches no block; its pointer is never read
+    with torch.cuda.device(dev):
+        err = _composite_launcher()(
+            _ptrs([f.data_ptr() for f in frames]),
+            _ptrs([t.data_ptr() for t in thr]),
+            cw.data_ptr(), ct.data_ptr(), cf.data_ptr(), fw.data_ptr(),
+            _ptrs([o.data_ptr() for o in outs]),
+            _ints([f.shape[0] for f in frames]), _ints(table), len(table),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"composite launch failed: CUDA error {err}")
+    return tuple(outs)
+
+
+def composite_forward(image: Dict[str, torch.Tensor],
+                      frames: Sequence[torch.Tensor], *, spec
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Launch the composite kernel on CUDA tensors (raises on any other
+    device).
+
+    image: the composite weight image (``interpreter.pack_programs``):
+    ``cw`` (Lc, F_total, 4, Cw_max), ``ct``/``cf`` (Lc, F_total),
+    ``fw`` (Lf, N_total, Kw_max), all int32; frames: one (B_m, H_m, W_m,
+    Cin_m) integer batch per member, ragged batches allowed; spec: the
+    composite spec.  Returns a tuple of (B_m, classes_m) int32 logits.
+    """
+    outs = _launch_composite(image, tuple(frames), spec)
+    LAUNCHES["composite"] += 1
+    return outs
 
 
 def megakernel_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
                        *, spec) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors (raises on any other device).
+    """Launch the kernel for one program on CUDA tensors (raises on any
+    other device): the one-member composite.
 
     image: the weight image (``cw`` (Lc, F, 4, F/32), ``ct``/``cf``
     (Lc, F), ``fw`` (Lf, Nmax, Kwmax), all int32); frames: (B, H, W, Cin)
     integer pixels; spec: ``InferencePlan.mega``.  Returns (B, classes)
     int32 logits.
     """
-    check_args(image, frames, spec)
-    if frames.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
-                         f"{frames.device}")
-    table = stage_table(spec, tuple(image["fw"].shape))
-    frames = frames.to(torch.int32).contiguous()
-    cw, ct, cf, fw = (image[k].contiguous() for k in ("cw", "ct", "cf", "fw"))
-    _, _h, _w, cin, bits, channels = spec[0]
-    thr = _thresholds(bits, channels // cin, frames.device)
-    b = frames.shape[0]
-    out = torch.empty((b, spec[-1][2]), dtype=torch.int32,
-                      device=frames.device)
-    c_table = (ctypes.c_int * len(table))(*table)
-    with torch.cuda.device(frames.device):
-        err = _launcher()(frames.data_ptr(), thr.data_ptr(), cw.data_ptr(),
-                          ct.data_ptr(), cf.data_ptr(), fw.data_ptr(),
-                          out.data_ptr(), c_table, len(table), b,
-                          torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    out, = _launch_composite(image, (frames,), solo_member_spec(spec))
     LAUNCHES["megakernel"] += 1
     return out
+
+
+def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
+                    ctrl: torch.Tensor, *, spec, bb: int = 8, rb: int = 0,
+                    check_every: int = 1, positive_class: int = 1):
+    """Launch the fused cascade on CUDA tensors (raises on any other
+    device): one ``cascade_launch``, three kernels on the current stream.
+
+    image: the detector + recognizer composite image
+    (``interpreter.pack_cascade``); frames: (B, H, W, Cin) integer pixels,
+    one stream for both stages; ctrl: (1, 2) int32 ``[threshold, n_real]``
+    on the device (``CascadePlan.margin_ctrl``; n_real <= B); spec: the
+    2-member composite spec, detector first; bb/rb/check_every: the drain
+    schedule of ``repro`` that ``counts[1]`` bills (bb is only the pad
+    granule here, rb = 0 means bb).
+
+    Returns ``(det (B, Cd), rec (B, Cr), queue (B,), counts (2,))``, all
+    int32: ``counts[0]`` = E escalated frames, ``queue[:E]`` their indices
+    in ascending order, ``rec[k]`` answering frame ``queue[k]``, rows of
+    ``rec`` and ``queue`` from E on zero; ``counts[1]`` the recognizer
+    slots billed (:func:`drain_slots`).
+    """
+    check_cascade_args(image, frames, ctrl, spec, bb=bb, rb=rb,
+                       check_every=check_every,
+                       positive_class=positive_class)
+    _need_cuda(frames)
+    cw, ct, cf, fw = _image_words(image)
+    table = composite_table(spec, tuple(cw.shape), tuple(fw.shape))
+    dev = frames.device
+    frames = frames.to(torch.int32).contiguous()
+    ctrl = ctrl.reshape(2).contiguous()
+    b = frames.shape[0]
+    bpad, rb = cascade_schedule(b, bb, rb)
+    det_spec, rec_spec = spec
+    det = torch.empty((b, det_spec[-1][2]), dtype=torch.int32, device=dev)
+    rec = torch.empty((b, rec_spec[-1][2]), dtype=torch.int32, device=dev)
+    queue = torch.empty(b, dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _cascade_launcher()(
+            frames.data_ptr(), _member_thresholds(det_spec, dev).data_ptr(),
+            _member_thresholds(rec_spec, dev).data_ptr(),
+            cw.data_ptr(), ct.data_ptr(), cf.data_ptr(), fw.data_ptr(),
+            ctrl.data_ptr(), det.data_ptr(), rec.data_ptr(),
+            queue.data_ptr(), counts.data_ptr(), _ints(table), len(table),
+            b, bpad, rb, check_every, positive_class,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"cascade launch failed: CUDA error {err}")
+    LAUNCHES["cascade"] += 1
+    return det, rec, queue, counts

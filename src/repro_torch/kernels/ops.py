@@ -8,7 +8,7 @@ launches its kernel or raises, and a tensor on any other device raises.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -58,8 +58,40 @@ def megakernel_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
     launch on the GPU."""
     if _on_cuda(frames):
         return _mk.megakernel_forward(image, frames, spec=spec)
-    _mk.check_args(image, frames, spec)
+    _mk.check_args(image, (frames,), _mk.solo_member_spec(spec))
     return _mk.megakernel_plain(image, frames, spec=spec)
+
+
+def composite_forward(image: Dict[str, torch.Tensor],
+                      frames: Sequence[torch.Tensor], *, spec
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Shared-array inference: one frame batch per member of the composite
+    ``spec`` (``CompositePlan.spec``) -> one int32 logits tensor per
+    member, every member in one launch on the GPU."""
+    frames = tuple(frames)
+    if _on_cuda(frames[0]):
+        return _mk.composite_forward(image, frames, spec=spec)
+    _mk.check_args(image, frames, spec)
+    return _mk.composite_plain(image, frames, spec=spec)
+
+
+def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
+                    ctrl: torch.Tensor, *, spec, bb: int = 8, rb: int = 0,
+                    check_every: int = 1, positive_class: int = 1):
+    """Fused detector -> recognizer cascade (``CascadePlan.spec``): frames
+    -> ``(det, rec, queue, counts)``, the escalation decided on the device
+    and the recognizer run on the escalated frames only."""
+    kw = dict(spec=spec, bb=bb, rb=rb, check_every=check_every,
+              positive_class=positive_class)
+    if _on_cuda(frames):
+        return _mk.cascade_forward(image, frames, ctrl, **kw)
+    _mk.check_cascade_args(image, frames, ctrl, spec, bb=bb, rb=rb,
+                           check_every=check_every,
+                           positive_class=positive_class)
+    return _mk.cascade_plain(image, frames, ctrl, **kw)
+
+
+member_groups = _mk.member_groups
 
 
 def launch_counts() -> Dict[str, int]:

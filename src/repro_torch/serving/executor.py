@@ -1,13 +1,17 @@
 """Dispatch executor: the mechanism that runs a policy's decisions.
 
-The counterpart of ``repro.serving.executor`` for single-program
+The counterpart of ``repro.serving.executor`` for static-policy
 dispatches.  It owns everything between a :class:`~repro_torch.serving.
 policy.Dispatch` decision and host-side results:
 
-* **launch** — pad the lane's pull to the dispatch's batch (the always-on
-  pipeline never idles: short lanes pad with the last real frame, empty
-  lanes with zeros), copy the frames host -> device, and run the
-  program's serve function (the staged plan or the megakernel).
+* **launch** — pad each member lane's pull to the dispatch's batch (the
+  always-on pipeline never idles: short lanes pad with the last real
+  frame, empty lanes with zeros), copy the frames host -> device, and run
+  the program's serve function (the staged plan or the megakernel).  A
+  multi-lane dispatch runs as ONE shared-array composite launch
+  (``interpreter.pack_programs``); composites, and fused cascades
+  (``interpreter.pack_cascade``), are packed lazily per ordered variant
+  tuple and cached.
 * **materialize / finish** — sync a dispatch's device tensors to host
   numpy (``.cpu()``) and unpack them into per-request
   :class:`FrameResult`\\ s.
@@ -52,6 +56,7 @@ class Executor:
         self.clock = clock
         self.device = _device.resolve(device)
         self.programs: Dict[str, isa.Program] = dict(programs)
+        self._raw_artifacts: Dict[str, Any] = dict(artifacts)
         self.plans: Dict[str, interpreter.InferencePlan] = {}
         self.artifacts: Dict[str, Any] = {}
         self._fns: Dict[str, Any] = {}
@@ -69,6 +74,8 @@ class Executor:
             self._geom[name] = (io.height, io.width, io.in_channels)
             self._fns[name] = plan.make_serve_fn(megakernel=megakernel,
                                                  device=self.device)
+        self._composites: Dict[Tuple[str, ...], Dict[str, Any]] = {}
+        self._cascades: Dict[Tuple[str, str, int], Dict[str, Any]] = {}
         self._inflight: collections.deque = collections.deque()
         # background fetch only pays off at depth >= 2: with one handle in
         # flight the consumer blocks on it at once
@@ -79,6 +86,52 @@ class Executor:
 
     def geometry(self, variant: str) -> Tuple[int, int, int]:
         return self._geom[variant]
+
+    # -- composite and cascade packing --------------------------------------
+
+    def composite_for(self, variants: Tuple[str, ...]) -> Dict[str, Any]:
+        """The packed shared-array composite for an ordered variant tuple
+        (lazy; cached): its plan, its image on the device and its serve
+        function."""
+        comp = self._composites.get(variants)
+        if comp is None:
+            cplan, cimage = interpreter.pack_programs(
+                {v: self.programs[v] for v in variants},
+                {v: self._raw_artifacts[v] for v in variants})
+            comp = dict(plan=cplan,
+                        image=_device.to_device(cimage, self.device),
+                        fn=cplan.make_serve_fn(device=self.device))
+            self._composites[variants] = comp
+        return comp
+
+    def cascade_for(self, detector: str, recognizer: str, *,
+                    positive_class: int = 1) -> Dict[str, Any]:
+        """The packed fused detector -> recognizer cascade for a variant
+        pair (lazy; cached like :meth:`composite_for`, keyed with the
+        positive class)."""
+        key = (detector, recognizer, positive_class)
+        casc = self._cascades.get(key)
+        if casc is None:
+            cplan, cimage = interpreter.pack_cascade(
+                {v: self.programs[v] for v in (detector, recognizer)},
+                {v: self._raw_artifacts[v] for v in (detector, recognizer)},
+                detector=detector, recognizer=recognizer,
+                positive_class=positive_class)
+            casc = dict(plan=cplan,
+                        image=_device.to_device(cimage, self.device),
+                        fn=cplan.make_serve_fn(device=self.device))
+            self._cascades[key] = casc
+        return casc
+
+    def warm_composites(self, groups) -> None:
+        """Pack the composites of admission-time groups up front (the chip
+        loads every resident program's weights before serving)."""
+        for members in groups:
+            self.composite_for(tuple(members))
+
+    @property
+    def compiled_composites(self) -> Tuple[Tuple[str, ...], ...]:
+        return tuple(self._composites)
 
     # -- launch / materialize / finish --------------------------------------
 
@@ -103,12 +156,17 @@ class Executor:
         """Run one policy decision on the device; returns the in-flight
         handle (device tensors, not yet synced)."""
         size = dispatch.batch if dispatch.batch is not None else self.batch
-        ld, = dispatch.lanes
-        frames = torch.from_numpy(np.ascontiguousarray(
+        frames = [torch.from_numpy(np.ascontiguousarray(
             self.pad_frames(list(ld.requests), self._geom[ld.variant], size),
-            dtype=np.int32)).to(self.device)
-        logits, labels = self._fns[ld.variant](self.artifacts[ld.variant],
-                                               frames)
+            dtype=np.int32)).to(self.device) for ld in dispatch.lanes]
+        if dispatch.composite:
+            comp = self.composite_for(
+                tuple(ld.variant for ld in dispatch.lanes))
+            logits, labels = comp["fn"](comp["image"], tuple(frames))
+        else:
+            ld, = dispatch.lanes
+            logits, labels = self._fns[ld.variant](
+                self.artifacts[ld.variant], frames[0])
         done = None
         if self.device.type == "cuda":
             # the fetch thread copies on its own stream, so it waits on
@@ -124,9 +182,10 @@ class Executor:
         on the fetch thread when prefetching)."""
         if handle["done"] is not None:
             handle["done"].synchronize()
-        labels = handle["labels"].cpu().numpy()
-        logits = handle["logits"].cpu().numpy()
-        return logits, labels
+        if handle["dispatch"].composite:
+            return (tuple(lg.cpu().numpy() for lg in handle["logits"]),
+                    tuple(y.cpu().numpy() for y in handle["labels"]))
+        return handle["logits"].cpu().numpy(), handle["labels"].cpu().numpy()
 
     def finish(self, handle: Dict[str, Any]) -> List[FrameResult]:
         """Block on an in-flight dispatch and materialize its results."""
@@ -136,11 +195,13 @@ class Executor:
             logits, labels = self.materialize(handle)
         dispatch: Dispatch = handle["dispatch"]
         t_done = self.clock()        # label available on the host, now
-        ld, = dispatch.lanes
-        return [FrameResult(rid=r.rid, program=ld.lane, label=int(labels[i]),
-                            logits=logits[i], dispatch=handle["index"],
-                            variant=ld.variant,
+        if not dispatch.composite:
+            logits, labels = (logits,), (labels,)
+        return [FrameResult(rid=r.rid, program=ld.lane,
+                            label=int(labels[mi][i]), logits=logits[mi][i],
+                            dispatch=handle["index"], variant=ld.variant,
                             t_submit=r.t_submit, t_done=t_done)
+                for mi, ld in enumerate(dispatch.lanes)
                 for i, r in enumerate(ld.requests)]
 
     # -- the prefetch pipeline ----------------------------------------------

@@ -1,18 +1,19 @@
 """Dispatch policies: *what to run next* on the serving mechanism.
 
 The counterpart of ``repro.serving.policy``, copied apart from imports,
-for the static policy this slice serves with:
+for the static policy:
 
 * :class:`DispatchPolicy` — the interface: given the queue, return the
   next :class:`Dispatch` (which lane(s), which resident program variant
   per lane, which frames).  The mechanism guarantees whatever the policy
   selects is executed and billed; the policy guarantees fairness (it must
   serve the round-robin head lane and advance the pointer past it).
-* :class:`StaticPolicy` — every lane is served by its own program.
+* :class:`StaticPolicy` — every lane is served by its own program;
+  lanes of a shared-array group (``ChipServer(shared=True)``) dispatch
+  together as one composite.
 
-The operating-point controller and continuous batching, and the
-shared-array composites the static policy forms in ``repro``, come in
-later slices; with no shared groups bound, every dispatch here is solo.
+The operating-point controller and continuous batching are not ported
+yet (ROADMAP.md item 4.3).
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
 """Frame queue mechanism: per-lane FIFOs + the round-robin pointer.
 
-The counterpart of ``repro.serving.queue``, copied apart from imports;
-``plan_shared_groups`` comes with the composite slice.
+The counterpart of ``repro.serving.queue``, copied apart from imports.
 
 This is the *mechanism* half of the serving scheduler (policies live in
 :mod:`repro.serving.policy`): lanes hold submitted frames in FIFO order
@@ -41,6 +40,8 @@ import dataclasses
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.core.chip import isa
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,3 +248,30 @@ class FrameQueue:
         backlogged = [m for m in members if self._lanes[m]]
         take_from = backlogged if len(backlogged) >= 2 else [name]
         return {m: self.take(m, capacity) for m in take_from}
+
+
+def plan_shared_groups(programs: Mapping[str, isa.Program]
+                       ) -> Tuple[Tuple[str, ...], ...]:
+    """Partition resident programs into shared-array groups.
+
+    First-fit-decreasing bin packing on sub-array width (256/S channels)
+    into 256-channel bins; only bins that end *exactly* full with >= 2
+    members become composite groups (the chip can only recombine
+    sub-arrays that tile the array), everything else dispatches solo.
+    Deterministic given admission order, so every server replica forms
+    the same groups.
+    """
+    # stable sort: widest sub-arrays (smallest S) first, admission order
+    # preserved within a width class
+    items = sorted(programs.items(), key=lambda kv: kv[1].s)
+    bins: List[Tuple[int, List[str]]] = []    # (free channels, members)
+    for name, prog in items:
+        width = isa.ARRAY_CHANNELS // prog.s
+        for i, (free, members) in enumerate(bins):
+            if width <= free:
+                bins[i] = (free - width, members + [name])
+                break
+        else:
+            bins.append((isa.ARRAY_CHANNELS - width, [name]))
+    return tuple(tuple(members) for free, members in bins
+                 if free == 0 and len(members) >= 2)

@@ -14,25 +14,28 @@ resident programs, one lane each, on one device:
   ``energy.serve_report``).
 
 ``megakernel=True`` runs dispatches through the whole-network kernel,
-``prefetch=k`` pipelines submission to depth k.  The server runs on the
-GPU unless ``device="cpu"`` is passed.  Options of ``repro``'s server that
-this slice does not port (shared-array groups, program families and their
-policies, serving meshes) raise ``NotImplementedError`` naming their
-ROADMAP.md item rather than being ignored.
+``prefetch=k`` pipelines submission to depth k, and ``shared=True`` forms
+shared-array groups at admission (programs whose S-modes tile the array
+exactly), each served as one composite launch per batch.  The server runs
+on the GPU unless ``device="cpu"`` is passed.  Options of ``repro``'s
+server that are not ported yet (program families and their policies,
+serving meshes) raise ``NotImplementedError`` naming their ROADMAP.md item
+rather than being ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.chip import energy, isa
 from repro_torch.serving.executor import Executor
 from repro_torch.serving.policy import PolicyContext, StaticPolicy
-from repro_torch.serving.queue import FrameQueue, FrameRequest, FrameResult
+from repro_torch.serving.queue import (FrameQueue, FrameRequest, FrameResult,
+                                       plan_shared_groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +48,9 @@ class ServeStats:
     host_wall_s: float                # wall time inside dispatches
     host_frames_per_s: float
     chip: energy.ServeReport          # µJ/frame, frames/s, power analogue
-    array_utilization: float = 0.0    # mean 1/S of the dispatched programs
+    array_utilization: float = 0.0    # mean sum(1/S) of live sub-arrays
+                                      # per dispatch (1.0 = full array)
+    shared_dispatches: int = 0        # dispatches serving >= 2 programs
     policy: str = "static"
     variant_dispatches: Dict[str, int] = dataclasses.field(
         default_factory=dict)         # program -> dispatches it ran
@@ -73,7 +78,8 @@ class ChipServer:
     ``artifacts`` maps the same names to their deployment artifacts (any
     form of ``fold_params``; float-folded ones are packed on admission).
     ``batch`` is the static dispatch size; ``prefetch`` takes a pipeline
-    depth (``True`` = 1).
+    depth (``True`` = 1); ``shared=True`` forms shared-array composite
+    groups at admission.
     """
 
     def __init__(self, programs: Mapping[str, isa.Program],
@@ -83,8 +89,6 @@ class ChipServer:
                  clock=time.perf_counter,
                  shared: bool = False, families=None, policy=None,
                  mesh=None):
-        if shared:
-            raise _not_ported("shared=True", "1.5")
         if families or policy not in (None, "static"):
             raise _not_ported("families=/policy=", "4.3")
         if mesh is not None:
@@ -99,6 +103,7 @@ class ChipServer:
         self.batch = batch
         self.f_hz = f_hz
         self.prefetch = int(prefetch)        # pipeline depth, 0 = sync
+        self.shared = shared
         self.clock = clock                   # injectable for latency tests
         self.programs: Dict[str, isa.Program] = dict(programs)
         self._lanes = tuple(self.programs)
@@ -116,6 +121,14 @@ class ChipServer:
                       for lane in self._lanes}
 
         # -- policy ---------------------------------------------------------
+        groups: Dict[str, Tuple[str, ...]] = {}
+        self._groups_plan: Tuple[Tuple[str, ...], ...] = ()
+        if shared:
+            self._groups_plan = plan_shared_groups(self.programs)
+            for members in self._groups_plan:
+                for m in members:
+                    groups[m] = members
+            self.executor.warm_composites(self._groups_plan)
         self.policy = StaticPolicy()
         self._reports = {n: energy.analyze_net(p, f_hz)
                          for n, p in self.programs.items()}
@@ -123,11 +136,17 @@ class ChipServer:
             batch=batch, lanes=self._lanes,
             variants={n: (n,) for n in self._lanes},
             programs=dict(self.programs), reports=dict(self._reports),
-            groups={}, clock=clock))
+            groups=groups, clock=clock))
 
         # -- accounting -----------------------------------------------------
         self._next_rid = 0
         self.reset_stats()
+
+    @property
+    def shared_groups(self) -> Tuple[Tuple[str, ...], ...]:
+        """The compiled shared-array groups (empty unless ``shared=True``
+        and some resident S-modes tile the array exactly)."""
+        return self._groups_plan
 
     # -- request side -------------------------------------------------------
 
@@ -166,12 +185,20 @@ class ChipServer:
         self._dispatches += 1
         handle = self.executor.launch(dispatch, index)
         size = dispatch.batch if dispatch.batch is not None else self.batch
-        ld, = dispatch.lanes
-        n = len(ld.requests)
-        self._served[ld.lane] += n
-        self._padded[ld.lane] += size - n
-        self._billed += size
-        self._util_sum += 1.0 / self.programs[ld.variant].s
+        live = []
+        for ld in dispatch.lanes:
+            n = len(ld.requests)
+            self._served[ld.lane] += n
+            self._padded[ld.lane] += size - n
+            self._billed += size
+            if n:
+                live.append(self.programs[ld.variant])
+        if dispatch.composite:
+            self._shared_dispatches += 1
+            self._util_sum += energy.array_occupancy(live)
+        else:
+            self._util_sum += 1.0 / self.programs[
+                dispatch.lanes[0].variant].s
         return handle
 
     def step(self) -> List[FrameResult]:
@@ -214,6 +241,7 @@ class ChipServer:
         """Zero the serving counters and latency books, keeping all
         compiled state."""
         self._dispatches = 0
+        self._shared_dispatches = 0
         self._util_sum = 0.0
         self._served = {lane: 0 for lane in self._lanes}
         self._padded = {lane: 0 for lane in self._lanes}
@@ -248,6 +276,7 @@ class ChipServer:
                           host_frames_per_s=fps,
                           chip=chip,
                           array_utilization=util,
+                          shared_dispatches=self._shared_dispatches,
                           policy=self.policy.name,
                           variant_dispatches=dict(
                               self.policy.variant_dispatches),

@@ -71,6 +71,63 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
         assert torch.equal(got.cpu(), want), name
 
 
+def _random_image(prog, gen):
+    params = interpreter.init_params(gen, prog, device="cpu")
+    for p in params["conv"]:
+        f = p["gamma"].shape[0]
+        p["gamma"] = torch.randn(f, generator=gen)
+        p["mean"] = torch.randn(f, generator=gen) * 16
+    return interpreter.fold_params(params, prog, image=True)
+
+
+def _frames(rng, prog, b):
+    io = prog.instrs[0]
+    return torch.from_numpy(rng.integers(
+        0, 2 ** io.bits, (b, io.height, io.width, io.in_channels),
+        dtype=np.int32))
+
+
+@pytest.mark.gpu
+def test_composite_and_cascade_match_plain_versions_on_the_card():
+    """Every exact REGISTRY tiling with ragged member batches, and the
+    face -> owner cascade over margins, a masked padding lane and drain
+    schedules: whole outputs equal the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    gen = torch.Generator().manual_seed(10)
+    progs = {n: networks.REGISTRY[n]() for n in networks.REGISTRY}
+    images = {n: _random_image(p, gen) for n, p in progs.items()}
+    for names in (("cifar9_s4", "cifar9_s4t", "mnist5", "face_detector"),
+                  ("cifar9_s2", "face_angles"),
+                  ("cifar9_s2", "mnist5", "face_detector")):
+        cplan, cimage = interpreter.pack_programs(
+            {n: progs[n] for n in names}, {n: images[n] for n in names})
+        frames = [_frames(rng, progs[n], b)
+                  for n, b in zip(names, (6, 3, 1, 4))]
+        want = mk.composite_plain(cimage, frames, spec=cplan.spec)
+        got = mk.composite_forward(
+            {k: v.to(dev) for k, v in cimage.items()},
+            [f.to(dev) for f in frames], spec=cplan.spec)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), names
+    cplan, cimage = interpreter.pack_cascade(
+        {n: progs[n] for n in ("face_detector", "owner_detector")}, images,
+        detector="face_detector", recognizer="owner_detector")
+    dimage = {k: v.to(dev) for k, v in cimage.items()}
+    frames = _frames(rng, progs["face_detector"], 7)
+    for margin in (float("-inf"), 0.0, 5.5, float("inf")):
+        ctrl = cplan.margin_ctrl(margin, 6)
+        for bb, rb, ce in ((8, 8, 1), (3, 2, 2), (4, 1, 3)):
+            kw = dict(spec=cplan.spec, bb=bb, rb=rb, check_every=ce)
+            want = mk.cascade_plain(cimage, frames, ctrl, **kw)
+            got = mk.cascade_forward(dimage, frames.to(dev), ctrl.to(dev),
+                                     **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (margin, bb, rb, ce)
+
+
 @pytest.mark.gpu
 def test_serving_on_a_side_stream_matches_the_default_stream():
     """With prefetch 2 the fetch thread copies results on its own stream;

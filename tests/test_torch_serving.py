@@ -81,8 +81,7 @@ def test_unported_options_raise():
     prog = tnets.mnist5()
     art = chip_serve.build_artifact(prog, seed=0, warm_bn=False,
                                     device="cpu")
-    for kw, item in ((dict(shared=True), "1.5"),
-                     (dict(families={"f": ("mnist5",)}), "4.3"),
+    for kw, item in ((dict(families={"f": ("mnist5",)}), "4.3"),
                      (dict(policy="operating-point"), "4.3"),
                      (dict(mesh=object()), "1.8")):
         with pytest.raises(NotImplementedError, match=item):
