@@ -5,15 +5,18 @@ each kernel against its plain PyTorch version on the card, drives the
 main paths (``ChipServer`` serving ``cifar9_s1`` at full width beside
 ``mnist5``, through the megakernel and through the staged kernels; a
 shared ``ChipServer`` serving the 4 x S=4 composite; the face ->
-owner ``CascadePipeline``, fused and host-side), checks the answers
-against the float reference, and times every kernel beside its bound,
-its plain version and a PyTorch library yardstick.  Needs one CUDA device
+owner ``CascadePipeline``, fused and host-side; the delta-gated
+``TemporalPipeline`` on 8 ``cifar9_s1`` video streams, and on the
+``cifar10`` family under the operating-point controller), checks the
+answers against the float reference, and times every kernel beside its
+bound, its plain version and a PyTorch library yardstick.  Needs one CUDA device
 and no arguments; exits non-zero on any failure, and without a CUDA
 device or outside a checkout of the repository.
 
 Phases: 1 environment, 2 build, 3 kernels vs plain versions, 4 end to end
-(staged == megakernel == composite member == float reference; the fused
-cascade vs the float references and the host rule), 5 serve, 6 times.
+(staged == megakernel == composite member == delta gate at threshold 0 ==
+float reference; the fused cascade vs the float references and the host
+rule), 5 serve, 6 times.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -44,6 +47,7 @@ REPLACES = {
     "megakernel": "src/repro/kernels/megakernel.py:366",
     "composite": "src/repro/kernels/megakernel.py:366",
     "cascade": "src/repro/kernels/megakernel.py:593",
+    "delta": "src/repro/kernels/megakernel.py:799",
 }
 SOURCES = {
     "conv_block": "src/repro_torch/csrc/conv_block.cu",
@@ -52,6 +56,7 @@ SOURCES = {
     "megakernel": "src/repro_torch/csrc/megakernel.cu",
     "composite": "src/repro_torch/csrc/megakernel.cu",
     "cascade": "src/repro_torch/csrc/cascade.cu",
+    "delta": "src/repro_torch/csrc/delta.cu",
 }
 # every exact tiling of the 256-channel array by REGISTRY programs
 TILINGS = (("cifar9_s4", "cifar9_s4t", "mnist5", "face_detector"),
@@ -61,6 +66,17 @@ RAGGED_MEMBERS = (8, 5, 3, 1)
 CASCADE = ("face_detector", "owner_detector")
 MARGINS = (float("-inf"), -3.5, 0.0, 7.0, float("inf"))
 SCHEDULES = ((8, 8, 1), (8, 3, 2), (4, 2, 5))        # (bb, rb, check_every)
+# delta-gate thresholds: both sentinels, zero (= the plain megakernel), a
+# fractional value (the ceil in delta_ctrl) and interior values
+THRESHOLDS = (float("-inf"), 0.0, 1.0, 2.5, 64.0, float("inf"))
+# (program, B, n_real) the delta gate is held at: cifar9_s1 and each
+# variant of the cifar10 family lane at the serves' B=8, mnist5 ragged
+DELTA_CASES = (("cifar9_s1", BATCH, BATCH), ("cifar9_s2", BATCH, BATCH),
+               ("cifar9_s4", BATCH, BATCH), ("cifar9_s4t", BATCH, BATCH),
+               ("mnist5", RAGGED, 3))
+# SCHEDULES plus the temporal serves' own (bb 8, rb 2, check_every 1)
+DELTA_SCHEDULES = SCHEDULES + ((8, 2, 1),)
+VIDEO_STEPS = 16
 
 
 def sh(*cmd: str) -> str:
@@ -108,6 +124,40 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_profile(fn, iters: int):
+    """Host wall time of ``iters`` calls of ``fn`` (ending in a
+    synchronize) and the device time of the CUDA kernels they ran, from
+    ``torch.profiler``: ``(wall_ms, {kernel name: device ms})``, the dict
+    empty when the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.name] = (kernels.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us() / 1e3)
+    return wall_ms, kernels
+
+
+def kernel_split(kernels, iters: int, names) -> str:
+    """Device microseconds per call of the named kernels (substrings of
+    the mangled names) and of everything else the profile holds."""
+    per = {n: 0.0 for n in names + ("other",)}
+    for k, ms in kernels.items():
+        hit = next((n for n in names if n in k), "other")
+        per[hit] += ms * 1e3 / iters
+    return ", ".join(f"{n} {us:.1f} us" for n, us in per.items())
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -167,13 +217,37 @@ def random_image(interpreter, program, gen):
     return interpreter.fold_params(params, program, image=True)
 
 
+def warm_delta_state(pack, prog, frames, classes, gen):
+    """A warm delta-gate state whose deltas spread: lane i's last frame is
+    its current frame with an i x i corner patch shifted by half the
+    intensity range (lane 0 unchanged); random cached logits.  (last,
+    llog) on the frames' device."""
+    io = prog.instrs[0]
+    levels = 2 ** io.bits
+    prev = frames.clone()
+    for i in range(1, len(frames)):
+        prev[i, :i, :i] = (prev[i, :i, :i] + levels // 2) % levels
+    last = pack(prev, io.bits, io.in_channels, io.channels)
+    llog = torch.randint(-50, 50, (len(frames), classes), generator=gen,
+                         dtype=torch.int32).to(frames.device)
+    return last, llog
+
+
+def fresh_rows(counts, queue, bpad: int) -> int:
+    """Member frames a delta dispatch recomputes: the K changed lanes, plus
+    lane 0 when the drain covers a queue row at or past K (it holds index
+    0) and lane 0 is not among the K."""
+    k, slots = counts
+    return k + int(min(slots, bpad) > k and queue[0] != 0)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one "
                          "GPU")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.binarize import unpack_signs
-    from repro_torch.core.chip import interpreter, networks
+    from repro_torch.core.binarize import thermometer_pack, unpack_signs
+    from repro_torch.core.chip import energy, interpreter, networks
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import binary_conv2x2_block as bcb
     from repro_torch.kernels import megakernel as mk
@@ -181,6 +255,8 @@ def main() -> None:
     from repro_torch.launch.chip_serve import build_params, frame_stream
     from repro_torch.serving.cascade import CascadePipeline, margins_of
     from repro_torch.serving.server import ChipServer
+    from repro_torch.serving.temporal import TemporalPipeline
+    from repro_torch.serving.traffic import video_trace
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -320,6 +396,79 @@ def main() -> None:
               f"margins {margins} (escalated {escalated}), schedules "
               f"{SCHEDULES}: det, rec, queue and counts equal")
 
+    # the delta gate at every shape a main path gives it: cifar9_s1 (the
+    # video serve), each variant of the cifar10 family lane, all at B=8,
+    # and mnist5 ragged
+    for name, b, n_real in DELTA_CASES:
+        prog = programs[name]
+        io = prog.instrs[0]
+        dplan, dimage = interpreter.pack_delta(prog, images[name], name=name)
+        dimage = {k: v.to(dev) for k, v in dimage.items()}
+        frames = torch.from_numpy(frame_stream(prog, b, 20 + b)).to(dev)
+        last, llog = warm_delta_state(thermometer_pack, prog, frames,
+                                      dplan.classes, gen)
+        deltas = mk.delta_plain(dimage, frames, last, llog,
+                                dplan.delta_ctrl(0.0, n_real).to(dev),
+                                spec=dplan.spec)[4]
+        median = float(deltas[:n_real].float().median())
+        changed = []
+        for thr in THRESHOLDS + (median,):
+            ctrl = dplan.delta_ctrl(thr, n_real).to(dev)
+            for bb, rb, ce in DELTA_SCHEDULES:
+                kw = dict(spec=dplan.spec, bb=bb, rb=rb, check_every=ce)
+                want = mk.delta_plain(dimage, frames, last, llog, ctrl, **kw)
+                got = mk.delta_forward(dimage, frames, last, llog, ctrl, **kw)
+                torch.cuda.synchronize()
+                errs["delta"] = max(errs["delta"], max_abs_err_all(got, want))
+            changed.append(int(got[3][0]))
+        print(f"  delta {name} B={b} (n_real {n_real}), thresholds "
+              f"{THRESHOLDS + (median,)} (changed {changed}), schedules "
+              f"{DELTA_SCHEDULES}: logits, new_last, queue, counts and "
+              f"deltas equal")
+        # three steps carrying the state on the device, kernel and plain
+        # apart, at the serve's drain schedule and at a wider one
+        kw = dict(spec=dplan.spec, bb=8, rb=2, check_every=2)
+        kstate = pstate = dplan.init_state(b, device=dev)
+        steps = []
+        for step, thr in enumerate((float("-inf"), 1.0, 1.0)):
+            ctrl = dplan.delta_ctrl(thr, n_real).to(dev)
+            got = mk.delta_forward(dimage, frames, *kstate, ctrl, **kw)
+            want = mk.delta_plain(dimage, frames, *pstate, ctrl, **kw)
+            torch.cuda.synchronize()
+            errs["delta"] = max(errs["delta"], max_abs_err_all(got, want))
+            kstate, pstate = (got[1], got[0]), (want[1], want[0])
+            steps.append(got[3].tolist())
+            frames = frames.clone()
+            frames[step::3] = (frames[step::3] + 3) % 2 ** io.bits
+        print(f"  delta {name} three steps, state carried on the device "
+              f"(counts {steps}): equal at every step")
+        if b != BATCH:
+            continue
+        # only lane 1 changes; bb = 8, rb = 2: the drain covers row 1
+        # (index 0) and recomputes lane 0 over its sentinel cache, as
+        # repro's does
+        frames = torch.from_numpy(frame_stream(prog, b, 31)).to(dev)
+        prev = frames.clone()
+        prev[1] = (prev[1] + 1) % 2 ** io.bits
+        last = thermometer_pack(prev, io.bits, io.in_channels, io.channels)
+        llog = torch.full((b, dplan.classes), 777, dtype=torch.int32,
+                          device=dev)
+        ctrl = dplan.delta_ctrl(1.0, b).to(dev)
+        kw = dict(spec=dplan.spec, bb=8, rb=2)
+        want = mk.delta_plain(dimage, frames, last, llog, ctrl, **kw)
+        got = mk.delta_forward(dimage, frames, last, llog, ctrl, **kw)
+        torch.cuda.synchronize()
+        errs["delta"] = max(errs["delta"], max_abs_err_all(got, want))
+        fresh = mk.megakernel_plain(dimage, frames[:2], spec=dplan.plan.mega)
+        if not (got[3].tolist() == [1, 2] and torch.equal(got[0][:2], fresh)
+                and (got[0][2:] == 777).all()
+                and torch.equal(got[1][0], last[0])):
+            raise AssertionError(f"delta {name} lane-0 drain case: counts "
+                                 f"{got[3].tolist()}")
+        print(f"  delta {name} lane-0 drain case (only lane 1 changed, rb "
+              f"2): lane 0 recomputed over its cache, its last words kept; "
+              f"equal")
+
     # -- 4. end to end -------------------------------------------------------
     phase(4, "end to end: staged == megakernel == float reference")
     artifacts, offline = {}, {}
@@ -341,6 +490,21 @@ def main() -> None:
                 raise AssertionError(f"{name}: {what} != float reference")
         if not torch.isfinite(ref_l).all():
             raise AssertionError(f"{name}: non-finite logits")
+        if name == "cifar9_s1":
+            cifar_params = params
+            dplan, dimage = interpreter.pack_delta(prog, artifacts[name])
+            for thr in (0.0, float("-inf")):
+                out = dplan.forward_delta(
+                    dimage, frames, *dplan.init_state(len(frames), device=dev),
+                    dplan.delta_ctrl(thr, len(frames)), device=dev)
+                if not (torch.equal(out[0], ref_l)
+                        and torch.equal(out[1], ref_y)
+                        and torch.equal(out[0], mg_l)
+                        and int(out[5][0]) == len(frames)):
+                    raise AssertionError(f"delta gate at threshold {thr} != "
+                                         f"megakernel / float reference")
+            print(f"  {name}: delta gate at thresholds 0 and -inf == "
+                  f"megakernel == float reference")
         offline[name] = ref_y.cpu().numpy()
         print(f"  {name}: {len(frames)} frames, logits {tuple(ref_l.shape)}, "
               f"staged == megakernel == float reference (label counts "
@@ -545,6 +709,131 @@ def main() -> None:
         raise AssertionError("fused cascade answers != host cascade answers")
     print("  fused labels and escalations == host-side")
 
+    # the delta-gated video path: 8 cifar9_s1 streams, on the card and
+    # through the plain versions (a CPU server), and vs the float reference
+    io = cifar.instrs[0]
+    trace = video_trace((io.height, io.width, io.in_channels), VIDEO_STEPS,
+                        streams=BATCH, seed=1000, change_rate=0.25,
+                        levels=2 ** io.bits)
+    flat = trace.frames.reshape((-1,) + trace.frames.shape[2:])
+    ref_y = interpreter.forward_infer(
+        interpreter.fold_params(cifar_params, cifar), cifar, flat,
+        device=dev)[1].cpu().numpy()
+    video = {}
+    for where in (dev, torch.device("cpu")):
+        server = ChipServer({"cifar9_s1": cifar},
+                            {"cifar9_s1": artifacts["cifar9_s1"]},
+                            batch=BATCH, megakernel=True, device=where)
+        pipe = TemporalPipeline(server, "cifar9_s1", threshold=1.0, rb=2)
+        for t in range(len(trace)):
+            pipe.submit_many(trace.frames[t])
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = pipe.drain()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        st = server.stats()
+        bill = pipe.report()
+        if st.billed != st.total_served + sum(st.padded.values()):
+            raise AssertionError("temporal ledger: billed != served + padded")
+        want = {k: 0 for k in counts}
+        if where.type == "cuda":
+            want["delta"] = pipe.gated_dispatches
+            launches["delta"] = counts["delta"]
+        if counts != want or pipe.gated_dispatches != VIDEO_STEPS:
+            raise AssertionError(f"temporal on {where}: launches {counts}, "
+                                 f"want {want}")
+        video[where.type] = [(r.rid, r.label, r.computed, r.delta)
+                             for r in results]
+        labels = np.array([r.label for r in sorted(results,
+                                                   key=lambda r: r.rid)])
+        if not np.array_equal(labels, ref_y):
+            raise AssertionError(f"temporal labels on {where} != float "
+                                 f"reference (threshold 1)")
+        print(f"  temporal cifar9_s1 on {where.type}: {bill.frames} frames "
+              f"({BATCH} streams x {VIDEO_STEPS} steps, change rate 0.25), "
+              f"{bill.computed} computed + {bill.computed_padded} drain "
+              f"padding, skip ratio {bill.skip_ratio:.4f}; billed "
+              f"{st.billed} == served + padded; {bill.uj_per_frame:.4f} "
+              f"uJ/frame vs {bill.uj_per_frame_ungated:.4f} ungated; "
+              f"{bill.frames / wall:,.1f} frames/s host; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; labels == "
+              f"float reference" + (f" [{card.smi}]" if where.type == "cuda"
+                                    else ""))
+    if video["cuda"] != video["cpu"]:
+        raise AssertionError("temporal results on the card != plain versions")
+    print("  temporal results (label, computed, delta) on the card == plain "
+          "versions")
+
+    # the cifar10 family lane under the operating-point controller, with a
+    # budget between the S=1 and S=2 powers so the variant switches
+    fam = networks.FAMILIES["cifar10"]
+    fparams = {n: build_params(programs[n], seed=40 + i, warm_bn=True,
+                               device=dev) for i, n in enumerate(fam)}
+    powers = {n: energy.analyze_net(programs[n]).power_w * 1e6 for n in fam}
+    budget = (powers["cifar9_s1"] + powers["cifar9_s2"]) / 2
+    fart = {n: interpreter.fold_params(fparams[n], programs[n], packed=True)
+            for n in fam}
+    ftrace = video_trace((io.height, io.width, io.in_channels), 8,
+                         streams=BATCH, seed=1001, change_rate=0.25,
+                         levels=2 ** io.bits)
+    fflat = ftrace.frames.reshape((-1,) + ftrace.frames.shape[2:])
+    family = {}
+    for where in (dev, torch.device("cpu")):
+        server = ChipServer({n: programs[n] for n in fam}, fart, batch=BATCH,
+                            device=where, families={"cifar10": fam},
+                            budget_uj_s=budget)
+        pipe = TemporalPipeline(server, "cifar10", threshold=1.0, rb=2)
+        for t in range(len(ftrace)):
+            pipe.submit_many(ftrace.frames[t])
+        ops.reset_launch_counts()
+        results = pipe.drain()
+        counts = ops.launch_counts()
+        st = server.stats()
+        want = {k: 0 for k in counts}
+        if where.type == "cuda":
+            want["delta"] = pipe.gated_dispatches
+        if counts != want:
+            raise AssertionError(f"family lane on {where}: launches {counts}, "
+                                 f"want {want}")
+        used = sorted({r.variant for r in results})
+        if len(used) < 2:
+            raise AssertionError(f"family lane served only {used}")
+        if not (st.billed == st.total_served + sum(st.padded.values()) == sum(
+                server._vserved[v] + server._vpadded[v] for v in fam)):
+            raise AssertionError("family ledger: billed != served + padded, "
+                                 "per lane and per variant")
+        refs = {v: interpreter.forward_infer(
+            interpreter.fold_params(fparams[v], programs[v]), programs[v],
+            fflat, device=dev)[1].cpu().numpy() for v in used}
+        for r in results:
+            if r.label != refs[r.variant][r.rid]:
+                raise AssertionError(f"family frame {r.rid} on {where}: "
+                                     f"label != float reference of "
+                                     f"{r.variant}")
+        bill = pipe.report()
+        family[where.type] = (
+            [(r.rid, r.label, r.computed, r.delta, r.variant,
+              tuple(np.asarray(r.logits).tolist())) for r in results],
+            st.billed, dict(server._vserved), dict(server._vpadded),
+            dict(st.variant_dispatches), (bill.frames, bill.computed,
+                                          bill.computed_padded,
+                                          bill.uj_per_frame))
+        print(f"  temporal cifar10 family on {where.type} under "
+              f"operating-point (budget {budget:,.1f} uJ/s): {bill.frames} "
+              f"frames, variants "
+              f"{ {v: n for v, n in st.variant_dispatches.items() if n} }, "
+              f"downshift ratio {st.downshift_ratio:.3f}, skip ratio "
+              f"{bill.skip_ratio:.4f}, {bill.computed} computed + "
+              f"{bill.computed_padded} drain padding, "
+              f"{bill.uj_per_frame:.4f} uJ/frame; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; labels == float "
+              f"reference of each chosen variant")
+    if family["cuda"] != family["cpu"]:
+        raise AssertionError("family lane on the card != plain versions")
+    print("  family results (label, computed, delta, variant, logits), "
+          "per-variant ledger and bill on the card == plain versions")
+
     # -- 6. times ------------------------------------------------------------
     phase(6, f"times (CUDA events, warm L2) [{card.smi}]")
     rows = {}
@@ -703,6 +992,90 @@ def main() -> None:
             print(f"  cascade margin {margin}: {ms:.4f} ms, E {e}, counts[1] "
                   f"{counts[1]}; bound {bound_e:.5f} ms on E recognizer "
                   f"frames, {bound_bill:.5f} ms on counts[1] [{card.smi}]")
+
+    # delta: cifar9_s1 at B=8 on a warm state; the row is threshold -inf
+    # (E = 8 recomputed), E = 0 (+inf) and the median delta are timed
+    # beside it
+    dplan, dimage = interpreter.pack_delta(cifar, artifacts["cifar9_s1"])
+    dimage = {k: v.to(dev) for k, v in dimage.items()}
+    frames = torch.from_numpy(frame_stream(cifar, BATCH, 1100)).to(dev)
+    last, llog = warm_delta_state(thermometer_pack, cifar, frames,
+                                  dplan.classes, gen)
+    member = dplan.spec[0]
+    items = last[0].numel()
+    deltas = mk.delta_plain(dimage, frames, last, llog,
+                            dplan.delta_ctrl(0.0, BATCH).to(dev),
+                            spec=dplan.spec)[4]
+    for thr in (float("inf"), float(deltas.float().median()),
+                float("-inf")):
+        ctrl = dplan.delta_ctrl(thr, BATCH).to(dev)
+        call = lambda: mk.delta_forward(dimage, frames, last, llog, ctrl,
+                                        spec=dplan.spec)
+        out = call()
+        counts, queue = out[3].tolist(), out[2].tolist()
+        n_fresh = fresh_rows(counts, queue, BATCH)
+        # frames, the thermometer table, last, llog, ctrl in; logits,
+        # new_last, queue, counts, deltas out; the image only when a
+        # member frame runs
+        nbytes = 4 * (frames.numel() + member[0][5] // member[0][3]
+                      + 2 * last.numel() + 2 * llog.numel() + 2
+                      + 2 * BATCH + 2)
+        if n_fresh:
+            nbytes += image_bytes(dimage)
+        word_ops = BATCH * items + member_word_ops(member, n_fresh)
+        ms = time_ms(call, 20)
+        wall_ms, kernels = device_profile(call, 20)
+        if kernels:
+            busy = sum(kernels.values())
+            print(f"  delta threshold {thr} profiled: host {wall_ms / 20:.4f} "
+                  f"ms a call, device {busy / 20:.4f} ms a call (idle share "
+                  f"{1 - busy / wall_ms:.4f}); "
+                  + kernel_split(kernels, 20, ("gate_kernel",
+                                               "change_scan_kernel",
+                                               "recompute_kernel")))
+        else:
+            print(f"  delta threshold {thr} profiled: no device activity "
+                  f"recorded, device time not measured")
+        if thr == float("-inf"):
+            row("delta", ms,
+                time_ms(lambda: mk.delta_plain(dimage, frames, last, llog,
+                                               ctrl, spec=dplan.spec), 3),
+                nbytes, word_ops, None)
+        else:
+            bound, by = card.bound(nbytes, word_ops)
+            print(f"  delta threshold {thr}: {ms:.4f} ms, E {counts[0]}, "
+                  f"counts[1] {counts[1]}, member frames run {n_fresh}; bound "
+                  f"{bound:.5f} ms ({by}) [{card.smi}]")
+
+    # the temporal serve of phase 5 on the card, profiled: host frames/s
+    # and the device's busy and idle share over whole passes
+    server = ChipServer({"cifar9_s1": cifar},
+                        {"cifar9_s1": artifacts["cifar9_s1"]}, batch=BATCH,
+                        megakernel=True, device=dev)
+    pipe = TemporalPipeline(server, "cifar9_s1", threshold=1.0, rb=2)
+
+    def serve_video():
+        pipe.reset()
+        for t in range(len(trace)):
+            pipe.submit_many(trace.frames[t])
+        pipe.drain()
+
+    wall_ms, kernels = device_profile(serve_video, 3)
+    frames_per_pass = len(trace) * trace.streams
+    line = (f"  serve temporal cifar9_s1 {BATCH} streams x {VIDEO_STEPS} "
+            f"steps: {3 * frames_per_pass / wall_ms * 1e3:,.1f} frames/s "
+            f"host ({wall_ms / 3:.3f} ms a pass)")
+    if kernels:
+        busy = sum(kernels.values())
+        line += (f", device busy {busy / 3:.3f} ms a pass (idle share "
+                 f"{1 - busy / wall_ms:.4f}); "
+                 + kernel_split(kernels, 3, ("gate_kernel",
+                                             "change_scan_kernel",
+                                             "recompute_kernel")))
+    else:
+        line += ", device time not measured (no device activity recorded)"
+    print(line + f" [{card.smi}]")
+    server.close()
 
     quad_stream = {n: frame_stream(programs[n], 256, 800 + i)
                    for i, n in enumerate(quad)}

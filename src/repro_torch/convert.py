@@ -1,13 +1,14 @@
-"""Carry ``repro``'s parameters and deployment artifacts into the port.
+"""Carry ``repro``'s parameters, deployment artifacts and delta-gate
+state into the port, and the gate state back.
 
-Both functions take numpy arrays only (the caller does the ``np.asarray``
-on the JAX side), so this module imports neither JAX nor ``repro``.
-uint32 words become int32 tensors holding the same 32 bits.
+The functions take and give numpy arrays only (the caller does the
+``np.asarray`` on the JAX side), so this module imports neither JAX nor
+``repro``.  uint32 words become int32 tensors holding the same 32 bits.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -55,3 +56,23 @@ def artifact_from_numpy(np_artifact, device=None):
     return {part: [{k: _leaf(v, dev) for k, v in layer.items()}
                    for layer in np_artifact[part]]
             for part in ("conv", "fc")}
+
+
+def state_from_numpy(last, llog, device=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``repro``'s delta-gate state -> the port's: uint32 last-frame words
+    (B, H, W, C/32) become bit-identical int32 words, int32 cached logits
+    (B, classes) stay int32."""
+    dev = _device.resolve(device)
+    last = np.asarray(last)
+    if last.dtype != np.uint32:
+        raise ValueError(f"last-frame words must be uint32, got {last.dtype}")
+    return _leaf(last, dev), _leaf(np.asarray(llog, dtype=np.int32), dev)
+
+
+def state_to_numpy(last: torch.Tensor, llog: torch.Tensor
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The port's delta-gate state -> ``repro``'s layout: uint32 last-frame
+    words and int32 cached logits."""
+    return (last.cpu().numpy().view(np.uint32),
+            llog.cpu().numpy().astype(np.int32))

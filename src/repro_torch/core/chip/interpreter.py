@@ -18,6 +18,11 @@ single-program deployment path:
 * :class:`CascadePlan` from :func:`pack_cascade` — a detector and a
   recognizer in one image, the escalation decided on the device and the
   recognizer run on the escalated frames only (``forward_fused``).
+* :class:`DeltaPlan` from :func:`pack_delta` — one program gated per
+  stream on the packed Hamming distance to its resident last frame, only
+  the changed streams recomputed (``forward_delta``).
+* :func:`compile_family` — one task compiled at several operating points,
+  for the serving layer's operating-point controller.
 * ``forward_infer`` — the float +/-1 reference all of them are bit-exact
   against.
 
@@ -359,6 +364,41 @@ def compile_plan(program: isa.Program) -> InferencePlan:
                          mega=tuple(mega))
 
 
+def compile_family(variants: Mapping[str, isa.Program]
+                   ) -> Dict[str, InferencePlan]:
+    """Compile a program *family*: one task at several operating points.
+
+    Family members (e.g. cifar9 at S=1/S=2/S=4 and truncated depth, see
+    ``networks.FAMILIES``) must be interchangeable per frame: identical IO
+    geometry (height, width, raw channels, input precision) so any
+    submitted frame can be served by any member, and an identical class
+    count so their labels live in one space.  Validates both and returns
+    ``{variant name: InferencePlan}``.
+    """
+    if not variants:
+        raise ValueError("compile_family needs at least one variant")
+    plans: Dict[str, InferencePlan] = {}
+    ref_name = ref_io = ref_classes = None
+    for name, prog in variants.items():
+        isa.validate(prog)
+        io = prog.instrs[0]
+        geom = (io.height, io.width, io.in_channels, io.bits)
+        classes = prog.instrs[-1].out_features
+        if ref_io is None:
+            ref_name, ref_io, ref_classes = name, geom, classes
+        elif geom != ref_io:
+            raise isa.ProgramError(
+                f"family variants disagree on IO geometry: {ref_name} takes "
+                f"(h, w, c, bits) = {ref_io}, {name} takes {geom} — one "
+                "frame stream must be servable by every variant")
+        elif classes != ref_classes:
+            raise isa.ProgramError(
+                f"family variants disagree on class count: {ref_name} has "
+                f"{ref_classes}, {name} has {classes}")
+        plans[name] = compile_plan(prog)
+    return plans
+
+
 # ---------------------------------------------------------------------------
 # Composite plans: sub-array sharing across resident programs
 # ---------------------------------------------------------------------------
@@ -548,12 +588,7 @@ class CascadePlan:
         (escalate none) clamp to the int32 extremes, both unreachable by
         real margins.  ``n_real`` masks padding lanes out of escalation.
         """
-        if math.isnan(margin):
-            raise ValueError("escalation margin must not be NaN")
-        thr = (_INT32_MIN if margin == float("-inf") else
-               _INT32_MAX if margin == float("inf") else
-               int(min(max(math.ceil(margin), _INT32_MIN), _INT32_MAX)))
-        return torch.tensor([[thr, int(n_real)]], dtype=torch.int32)
+        return _ctrl_word(margin, n_real, "escalation margin")
 
     def forward_fused(self, image, frames, ctrl, device=None,
                       bb: Optional[int] = None, rb: Optional[int] = None,
@@ -573,10 +608,7 @@ class CascadePlan:
         image = _device.to_device(image, dev)
         frames = _frames(frames, dev)
         ctrl = torch.as_tensor(ctrl, dtype=torch.int32)
-        if ctrl.device.type == "cpu" and not (
-                0 <= int(ctrl.reshape(-1)[1]) <= frames.shape[0]):
-            raise ValueError(f"ctrl n_real {int(ctrl.reshape(-1)[1])} not in "
-                             f"[0, {frames.shape[0]}]")
+        _check_n_real(ctrl, frames.shape[0])
         det, rec, queue, counts = kops.cascade_forward(
             image, frames, ctrl.to(dev), spec=self.spec,
             bb=8 if bb is None else bb, rb=0 if rb is None else rb,
@@ -638,6 +670,151 @@ def pack_cascade(programs: Mapping[str, isa.Program],
                        programs=cplan.programs, plans=cplan.plans,
                        spec=cplan.spec, positive_class=positive_class)
     return plan, image
+
+
+# ---------------------------------------------------------------------------
+# Delta plans: frame-delta gating for always-on video streams
+# ---------------------------------------------------------------------------
+
+def _ctrl_word(threshold: float, n_real: int, what: str) -> torch.Tensor:
+    """``[ceil(threshold), n_real]`` as a (1, 2) int32 tensor on the CPU,
+    ``-inf``/``+inf`` clamped to the int32 extremes."""
+    if math.isnan(threshold):
+        raise ValueError(f"{what} must not be NaN")
+    thr = (_INT32_MIN if threshold == float("-inf") else
+           _INT32_MAX if threshold == float("inf") else
+           int(min(max(math.ceil(threshold), _INT32_MIN), _INT32_MAX)))
+    return torch.tensor([[thr, int(n_real)]], dtype=torch.int32)
+
+
+def _check_n_real(ctrl: torch.Tensor, batch: int) -> None:
+    """A CPU control word's n_real must lie in [0, batch] (a device one is
+    not read back)."""
+    if ctrl.device.type == "cpu" and not (
+            0 <= int(ctrl.reshape(-1)[1]) <= batch):
+        raise ValueError(f"ctrl n_real {int(ctrl.reshape(-1)[1])} not in "
+                         f"[0, {batch}]")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaPlan:
+    """One program compiled for delta-gated always-on serving.
+
+    Consecutive frames of a quiet scene are nearly identical, so the plan
+    pairs the program's whole-network kernel with resident per-stream state
+    — the last packed thermometer frame and the cached logits — and gates
+    the recompute on the device (``kernels.megakernel.delta_forward``): the
+    packed Hamming distance ``popcount(cur XOR last)`` of each stream is
+    compared with an int32 threshold, the changed streams compact into a
+    queue and recompute, and the others emit their cached logits.
+
+    The gate is bit-exact with a host reference: distances are integers, so
+    ``d >= threshold  <=>  d >= ceil(threshold)``, and :meth:`delta_ctrl`
+    folds the float threshold into the int32 control word (``-inf``
+    recomputes everything, the cold-state dispatch, and ``+inf`` skips
+    everything).  At threshold 0 the merged logits equal the plain
+    megakernel's bit for bit.
+    """
+    name: str
+    program: isa.Program
+    plan: InferencePlan
+    spec: Tuple[Any, ...]                      # 1-member composite spec
+
+    @property
+    def classes(self) -> int:
+        return self.spec[0][-1][2]
+
+    @property
+    def geometry(self) -> Tuple[int, int, int]:
+        io = self.spec[0][0]
+        return io[1], io[2], io[3]
+
+    @property
+    def packed_words(self) -> Tuple[int, int, int]:
+        """(H, W, channels//32): one stream's last-frame state shape."""
+        io = self.spec[0][0]
+        return io[1], io[2], io[5] // binarize.PACK_WIDTH
+
+    @staticmethod
+    def delta_ctrl(threshold: float, n_real: int) -> torch.Tensor:
+        """Fold a host float change threshold into the kernel's ``(1, 2)``
+        int32 control word ``[threshold, n_real]`` (on the CPU).
+
+        For integer distances d, ``d >= threshold`` holds iff
+        ``d >= ceil(threshold)``; ``-inf`` (recompute all) and ``+inf``
+        (skip all) clamp to the int32 extremes, both unreachable by real
+        distances.  ``n_real`` masks padding lanes out of the queue.
+        """
+        return _ctrl_word(threshold, n_real, "delta threshold")
+
+    def init_state(self, n: int, device=None):
+        """Cold state for ``n`` streams on ``device``: zeroed last-frame
+        words (int32 views of ``repro``'s uint32) and zeroed cached logits.
+        Cold state is no gate reference: pair the first dispatch with a
+        ``-inf`` threshold so every lane recomputes."""
+        dev = _device.resolve(device)
+        h, w, cw = self.packed_words
+        return (torch.zeros((n, h, w, cw), dtype=torch.int32, device=dev),
+                torch.zeros((n, self.classes), dtype=torch.int32,
+                            device=dev))
+
+    def forward_delta(self, image, frames, last, llog, ctrl, device=None,
+                      bb: Optional[int] = None, rb: Optional[int] = None,
+                      check_every: int = 1):
+        """One gated dispatch: advance every stream by one time step.
+
+        ``ctrl`` is :meth:`delta_ctrl`'s control word (its n_real at most
+        the batch).  Returns ``(logits, labels, new_last, new_llog, queue,
+        counts, deltas)``: float32 logits and int64 labels merge fresh
+        answers for changed lanes with cached ones for skipped lanes;
+        ``new_last``/``new_llog`` are the next dispatch's state;
+        ``counts[0] = K`` changed lanes, ``queue[:K]`` their ascending
+        indices, ``counts[1]`` the frame slots billed; ``deltas`` the
+        per-lane packed Hamming distances.  ``bb`` (default 8, the pad
+        granule), ``rb`` (default ``bb``) and ``check_every`` set the drain
+        schedule ``counts[1]`` follows.
+        """
+        dev = _device.resolve(device)
+        image = _device.to_device(image, dev)
+        frames = _frames(frames, dev)
+        ctrl = torch.as_tensor(ctrl, dtype=torch.int32)
+        _check_n_real(ctrl, frames.shape[0])
+        logits, new_last, queue, counts, deltas = kops.delta_forward(
+            image, frames, _frames(last, dev), _frames(llog, dev),
+            ctrl.to(dev),
+            spec=self.spec, bb=8 if bb is None else bb,
+            rb=0 if rb is None else rb, check_every=check_every)
+        lf, labels = _labels(logits)
+        return lf, labels, new_last, logits, queue, counts, deltas
+
+    def make_serve_fn(self, device=None, rb: Optional[int] = None,
+                      check_every: int = 1):
+        """(image, frames, last, llog, ctrl) -> the gated outputs on
+        ``device``, with the drain schedule fixed."""
+        return functools.partial(self.forward_delta,
+                                 device=_device.resolve(device), rb=rb,
+                                 check_every=check_every)
+
+
+def pack_delta(program: isa.Program, artifact, *, name: str = "program"):
+    """Compile a delta-gated serving unit: (DeltaPlan, weight image).
+
+    The image is the program's own megakernel weight image
+    (:func:`ensure_image`) and the spec is the one-member lift of
+    ``InferencePlan.mega``, so the recompute runs the megakernel's member
+    body and is bit-exact with ``forward_mega``.
+    """
+    isa.validate(program)
+    io = program.instrs[0]
+    if io.channels % binarize.PACK_WIDTH:
+        raise isa.ProgramError(
+            f"delta gating needs IO channels % {binarize.PACK_WIDTH} == 0 "
+            f"(packed Hamming distance), got {io.channels}")
+    plan = compile_plan(program)
+    spec = kops.solo_member_spec(plan.mega)
+    image = ensure_image(artifact, program)
+    return (DeltaPlan(name=name, program=program, plan=plan, spec=spec),
+            image)
 
 
 def forward_infer(folded, program: isa.Program, images, device=None):

@@ -17,9 +17,9 @@
 //  1. detector_kernel: one block per frame, the member body of
 //     megakernel.cuh on the detector's rows of the shared image.
 //  2. escalate_kernel: one block of 1024 threads reads the detector
-//     logits and ctrl, computes the margins and scans the mask in tiles of
-//     1024 frames (a ballot per warp, a shuffle scan over the 32 warp
-//     totals), and writes queue and counts.
+//     logits and ctrl, computes the margins and compacts the mask in frame
+//     order (scan.cuh: tiles of 1024 frames, a ballot per warp, a shuffle
+//     scan over the 32 warp totals), and writes queue and counts.
 //  3. recognizer_kernel: one block per queue row; a block reads E from
 //     counts, zeroes its row and exits if it is at or past E, else runs
 //     the recognizer's member body on frame queue[k].
@@ -37,13 +37,11 @@
 #include <cstdint>
 
 #include "megakernel.cuh"
+#include "scan.cuh"
 
 namespace {
 
-using repro_torch::kFullMask;
 using repro_torch::kMegaWarps;
-
-constexpr int kScanThreads = 1024;
 
 struct CascadeArgs {
   repro_torch::MemberSpec det, rec;
@@ -72,65 +70,29 @@ detector_kernel(const CascadeArgs a) {
       a.smem_det);
 }
 
-__global__ void __launch_bounds__(kScanThreads)
+__global__ void __launch_bounds__(repro_torch::kScanThreads)
 escalate_kernel(const CascadeArgs a) {
-  __shared__ int warp_base[kScanThreads / 32];
-  __shared__ int tile_total;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int thr = a.ctrl[0];
   const int n_real = a.ctrl[1];
   const int ncd = repro_torch::classes(a.det);
   const int pc = a.positive_class;
-  int base = 0;
-  for (int t0 = 0; t0 < a.batch; t0 += kScanThreads) {
-    const int i = t0 + threadIdx.x;
-    bool esc = false;
-    if (i < a.batch && i < n_real) {
-      const int32_t* lg = a.det_out + static_cast<size_t>(i) * ncd;
-      int rest = INT_MIN;
-      for (int c = 0; c < ncd; ++c) {
-        if (c != pc && lg[c] > rest) rest = lg[c];
-      }
-      // int32 wrap-around, as the reference's int32 subtraction
-      const int m = static_cast<int>(static_cast<uint32_t>(lg[pc]) -
-                                     static_cast<uint32_t>(rest));
-      esc = m >= thr;
-    }
-    const uint32_t bal = __ballot_sync(kFullMask, esc);
-    if (lane == 0) warp_base[warp] = __popc(bal);
-    __syncthreads();
-    if (warp == 0) {             // exclusive scan of the 32 warp totals
-      const int v = warp_base[lane];
-      int incl = v;
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(kFullMask, incl, d);
-        if (lane >= d) incl += y;
-      }
-      warp_base[lane] = incl - v;
-      if (lane == 31) tile_total = incl;
-    }
-    __syncthreads();
-    if (esc) {
-      a.queue[base + warp_base[warp] + __popc(bal & ((1u << lane) - 1u))] = i;
-    }
-    base += tile_total;
-    __syncthreads();             // tile_total and warp_base are rewritten
-  }
-  for (int i = base + threadIdx.x; i < a.batch; i += kScanThreads) {
-    a.queue[i] = 0;
-  }
+  const int e = repro_torch::compact_in_order(
+      [&](int i) {
+        if (i >= n_real) return false;
+        const int32_t* lg = a.det_out + static_cast<size_t>(i) * ncd;
+        int rest = INT_MIN;
+        for (int c = 0; c < ncd; ++c) {
+          if (c != pc && lg[c] > rest) rest = lg[c];
+        }
+        // int32 wrap-around, as the reference's int32 subtraction
+        const int m = static_cast<int>(static_cast<uint32_t>(lg[pc]) -
+                                       static_cast<uint32_t>(rest));
+        return m >= thr;
+      },
+      a.batch, a.queue);
   if (threadIdx.x == 0) {
-    const long long n_chunks = (a.bpad + a.rb - 1) / a.rb;
-    long long slots = 0;
-    for (long long g0 = 0; g0 < n_chunks; g0 += a.check_every) {
-      if (g0 * a.rb < base) {
-        const long long n = n_chunks - g0;
-        slots += a.rb * (n < a.check_every ? n : a.check_every);
-      }
-    }
-    a.counts[0] = base;
-    a.counts[1] = static_cast<int>(slots);
+    a.counts[0] = e;
+    a.counts[1] = repro_torch::drain_slots(e, a.bpad, a.rb, a.check_every);
   }
 }
 
@@ -208,7 +170,7 @@ extern "C" int cascade_launch(const void* frames, const void* thr_det,
   detector_kernel<<<batch, kMegaWarps * 32, det_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  escalate_kernel<<<1, kScanThreads, 0, s>>>(a);
+  escalate_kernel<<<1, repro_torch::kScanThreads, 0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   recognizer_kernel<<<batch, kMegaWarps * 32, rec_bytes, s>>>(a);

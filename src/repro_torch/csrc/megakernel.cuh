@@ -1,5 +1,6 @@
 // One member's whole network per thread block, shared by the composite
-// megakernel (megakernel.cu) and the fused cascade (cascade.cu).
+// megakernel (megakernel.cu), the fused cascade (cascade.cu) and the delta
+// gate (delta.cu).
 //
 // A member is one program inside a weight image.  A composite image packs
 // several programs side by side: conv layer l of every member lives in
@@ -10,10 +11,10 @@
 // 0.  Rows past a member's depth are zero and never read.
 //
 // Design: one block of kMegaWarps warps runs one frame of one member.
-//  * The block thermometer-packs its raw pixels into shared memory: lane j
-//    of a warp computes channel 32*i + j of one position as
-//    (float)pixel < t[p] against the host's float32 threshold table, and
-//    the ballot is the packed word.
+//  * The block thermometer-packs its raw pixels into shared memory
+//    (thermometer_word): lane j of a warp computes channel 32*i + j of one
+//    position as (float)pixel < t[p] against the host's float32 threshold
+//    table, and the ballot is the packed word.
 //  * The conv chain ping-pongs the packed maps between two shared-memory
 //    buffers.  Warp w owns feature word w % (F/32) for a whole layer, with
 //    its lane's 4 x C/32 weight words in registers, and strides over
@@ -132,6 +133,27 @@ __host__ __device__ inline int classes(const MemberSpec& s) {
   return s.fc_n[s.n_fc - 1];
 }
 
+// Thermometer-packed word `item` of one frame: position item / cwio,
+// channel word item % cwio.  Lane j computes channel 32 * word + j as
+// (float)pixel < thr[plane] against the host's float32 threshold table
+// (channels past cin * per are the constant +1 bias, bit 0); the ballot is
+// the word, returned to every lane of the warp.  The member body and the
+// delta gate (delta.cu) both pack through it, so the gate's words are the
+// network's input words.
+__device__ __forceinline__ uint32_t thermometer_word(
+    const MemberSpec& spec, const int32_t* __restrict__ frame,
+    const float* __restrict__ thr, int item, int lane) {
+  const int pos = item / spec.cwio;
+  const int ch = (item - pos * spec.cwio) * 32 + lane;
+  uint32_t bit = 0u;
+  if (ch < spec.cin * spec.per) {
+    const int c = ch / spec.per;
+    const int p = ch - c * spec.per;
+    bit = static_cast<float>(frame[pos * spec.cin + c]) < thr[p];
+  }
+  return __ballot_sync(kFullMask, bit);
+}
+
 // One frame (H, W, Cin int32 pixels) of one member -> its int32 logits in
 // out[0 .. classes).  Every thread of the block calls it; smem holds two
 // buffers of smem_words words each.
@@ -146,18 +168,9 @@ __device__ __forceinline__ void run_member(
 
   // 1. thermometer pack: (H, W, Cin) int32 pixels -> (H, W, cwio) words
   {
-    const int used = spec.cin * spec.per;
     const int items = spec.h * spec.w * spec.cwio;
     for (int item = warp; item < items; item += kMegaWarps) {
-      const int pos = item / spec.cwio;
-      const int ch = (item - pos * spec.cwio) * 32 + lane;
-      uint32_t bit = 0u;
-      if (ch < used) {
-        const int c = ch / spec.per;
-        const int p = ch - c * spec.per;
-        bit = static_cast<float>(frame[pos * spec.cin + c]) < thr[p];
-      }
-      const uint32_t word = __ballot_sync(kFullMask, bit);
+      const uint32_t word = thermometer_word(spec, frame, thr, item, lane);
       if (lane == 0) cur[item] = word;
     }
   }

@@ -14,10 +14,14 @@ in one dispatch.
   frames whose logit margin reaches a threshold, and runs a recognizer on
   the escalated frames only, with no host round trip between the stages
   (``csrc/cascade.cu``).
+* :func:`delta_forward` gates every stream of a batch on the packed
+  Hamming distance of its frame to its resident last frame, recomputes
+  the changed streams only and merges their fresh logits over the cached
+  ones (``csrc/delta.cu``).
 
 Each has its plain PyTorch version (:func:`composite_plain`,
-:func:`megakernel_plain`, :func:`cascade_plain`), built from the same
-plain pieces as the staged path.
+:func:`megakernel_plain`, :func:`cascade_plain`, :func:`delta_plain`),
+built from the same plain pieces as the staged path.
 
 Member stage spec entries (hashable; built by the interpreter)::
 
@@ -45,7 +49,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.core.binarize import (PACK_WIDTH, pack_bit_lanes,
-                                       thermometer_pack,
+                                       popcount32, thermometer_pack,
                                        thermometer_thresholds,
                                        xnor_dot_popcount)
 from repro_torch.kernels.binary_conv2x2_block import (MAX_CHANNEL_WORDS,
@@ -59,8 +63,8 @@ SMEM_LIMIT = 232448          # shared memory one H100 block may use
 INT32_MIN = -2 ** 31
 
 # kernel launches since the last reset: one per solo dispatch, per
-# composite dispatch and per cascade dispatch
-LAUNCHES = {"megakernel": 0, "composite": 0, "cascade": 0}
+# composite dispatch, per cascade dispatch and per delta-gated dispatch
+LAUNCHES = {"megakernel": 0, "composite": 0, "cascade": 0, "delta": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +218,47 @@ def cascade_plain(image: Dict[str, torch.Tensor], frames: torch.Tensor,
     return det, rec, queue, counts
 
 
+def delta_plain(image: Dict[str, torch.Tensor], frames: torch.Tensor,
+                last: torch.Tensor, llog: torch.Tensor, ctrl: torch.Tensor,
+                *, spec, bb: int = 8, rb: int = 0, check_every: int = 1):
+    """Plain PyTorch version of :func:`delta_forward`, same arguments and
+    outputs: ``(logits (B, C), new_last (B, H, W, C/32), queue (B,),
+    counts (2,), deltas (B,))``, all int32.
+
+    Stream b's delta is the popcount of its packed frame XOR ``last[b]``;
+    it changes when b < n_real and delta >= threshold.  Changed streams
+    take their fresh logits and their current words; every other stream
+    keeps ``llog[b]`` and ``last[b]``, except lane 0, whose logits are
+    fresh whenever ``repro``'s drain covers a queue row at or past K
+    (``min(counts[1], bpad) > K``): those rows hold index 0.
+    """
+    (member,) = spec
+    _, _h, _w, cin, bits, channels = member[0]
+    frames = frames.to(torch.int32)
+    b = frames.shape[0]
+    dev = frames.device
+    thr, n_real = ctrl.reshape(2)
+    cur = thermometer_pack(frames, bits, cin, channels)
+    d = popcount32(cur ^ last).reshape(b, -1).sum(dim=1, dtype=torch.int32)
+    live = torch.arange(b, device=dev) < n_real
+    mask = (d >= thr) & live
+    deltas = torch.where(live, d, torch.zeros_like(d))
+    new_last = torch.where(mask[:, None, None, None], cur, last)
+    idx = torch.nonzero(mask)[:, 0]
+    k = int(idx.numel())
+    queue = torch.zeros(b, dtype=torch.int32, device=dev)
+    queue[:k] = idx.to(torch.int32)
+    bpad, rb = cascade_schedule(b, bb, rb)
+    slots = drain_slots(k, bpad, rb, check_every)
+    if min(slots, bpad) > k and int(queue[0]) != 0:
+        idx = torch.cat([torch.zeros(1, dtype=idx.dtype, device=dev), idx])
+    cw, ct, cf, fw = (image[key] for key in ("cw", "ct", "cf", "fw"))
+    logits = llog.clone()
+    logits[idx] = _run_member(frames[idx], cw, ct, cf, fw, member)
+    counts = torch.tensor([k, slots], dtype=torch.int32, device=dev)
+    return logits, new_last, queue, counts, deltas
+
+
 # ---------------------------------------------------------------------------
 # Argument checks (both versions)
 # ---------------------------------------------------------------------------
@@ -267,6 +312,20 @@ def check_args(image: Dict[str, torch.Tensor],
         raise ValueError("empty frame batch")
 
 
+def _check_drain(frames: torch.Tensor, ctrl: torch.Tensor, bb: int, rb: int,
+                 check_every: int) -> None:
+    """Raise on a drain schedule or a control word neither version of the
+    cascade or the delta gate takes."""
+    if bb < 1 or rb < 0 or check_every < 1:
+        raise ValueError(f"bad drain schedule bb={bb}, rb={rb}, "
+                         f"check_every={check_every}")
+    if (ctrl.dtype != torch.int32 or ctrl.numel() != 2
+            or ctrl.device != frames.device):
+        raise ValueError(f"ctrl must be 2 int32 values on {frames.device}, "
+                         f"got {ctrl.dtype} {tuple(ctrl.shape)} on "
+                         f"{ctrl.device}")
+
+
 def check_cascade_args(image, frames: torch.Tensor, ctrl: torch.Tensor,
                        spec, *, bb: int, rb: int, check_every: int,
                        positive_class: int) -> None:
@@ -281,14 +340,33 @@ def check_cascade_args(image, frames: torch.Tensor, ctrl: torch.Tensor,
     if not 0 <= positive_class < ncd:
         raise ValueError(f"positive_class {positive_class} out of range for "
                          f"{ncd} detector classes")
-    if bb < 1 or rb < 0 or check_every < 1:
-        raise ValueError(f"bad drain schedule bb={bb}, rb={rb}, "
-                         f"check_every={check_every}")
-    if (ctrl.dtype != torch.int32 or ctrl.numel() != 2
-            or ctrl.device != frames.device):
-        raise ValueError(f"ctrl must be 2 int32 values on {frames.device}, "
-                         f"got {ctrl.dtype} {tuple(ctrl.shape)} on "
-                         f"{ctrl.device}")
+    _check_drain(frames, ctrl, bb, rb, check_every)
+
+
+def check_delta_args(image, frames: torch.Tensor, last: torch.Tensor,
+                     llog: torch.Tensor, ctrl: torch.Tensor, spec, *,
+                     bb: int, rb: int, check_every: int) -> None:
+    """Raise on delta-gate operands neither version takes."""
+    if len(spec) != 1:
+        raise ValueError(f"delta spec needs exactly 1 member, got "
+                         f"{len(spec)}")
+    check_args(image, (frames,), spec)
+    (member,) = spec
+    _, h, w, _cin, _bits, channels = member[0]
+    if channels % PACK_WIDTH:
+        raise ValueError(f"delta gating needs io channels % {PACK_WIDTH} "
+                         f"== 0, got {channels}")
+    b = frames.shape[0]
+    for name, t, shape in (("last-frame", last,
+                            (b, h, w, channels // PACK_WIDTH)),
+                           ("last-logits", llog, (b, member[-1][2]))):
+        if tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"{name} state must be int32 of {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != frames.device:
+            raise ValueError(f"{name} state on {t.device}, frames on "
+                             f"{frames.device}")
+    _check_drain(frames, ctrl, bb, rb, check_every)
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +460,16 @@ def _cascade_launcher():
     fn = _build.library("cascade").cascade_launch
     fn.argtypes = ([ctypes.c_void_p] * 12
                    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _delta_launcher():
+    fn = _build.library("delta").delta_launch
+    fn.argtypes = ([ctypes.c_void_p] * 14
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -511,3 +599,54 @@ def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
         raise RuntimeError(f"cascade launch failed: CUDA error {err}")
     LAUNCHES["cascade"] += 1
     return det, rec, queue, counts
+
+
+def delta_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
+                  last: torch.Tensor, llog: torch.Tensor, ctrl: torch.Tensor,
+                  *, spec, bb: int = 8, rb: int = 0, check_every: int = 1):
+    """Launch the delta-gated megakernel on CUDA tensors (raises on any
+    other device): one ``delta_launch``, three kernels on the current
+    stream.
+
+    image: the program's weight image (``interpreter.pack_delta``);
+    frames: (B, H, W, Cin) integer pixels, slot b = stream b; last:
+    (B, H, W, C/32) int32 words, each stream's resident last frame; llog:
+    (B, classes) int32 cached logits; ctrl: (1, 2) int32 ``[threshold,
+    n_real]`` on the device (``DeltaPlan.delta_ctrl``; n_real <= B); spec:
+    the one-member composite spec; bb/rb/check_every: the drain schedule
+    of ``repro`` that ``counts[1]`` bills (bb is only the pad granule,
+    rb = 0 means bb).
+
+    Returns ``(logits (B, C), new_last, queue (B,), counts (2,),
+    deltas (B,))``, all int32, as :func:`delta_plain`.
+    """
+    check_delta_args(image, frames, last, llog, ctrl, spec, bb=bb, rb=rb,
+                     check_every=check_every)
+    _need_cuda(frames)
+    cw, ct, cf, fw = _image_words(image)
+    table = composite_table(spec, tuple(cw.shape), tuple(fw.shape))
+    dev = frames.device
+    frames = frames.to(torch.int32).contiguous()
+    last, llog = last.contiguous(), llog.contiguous()
+    ctrl = ctrl.reshape(2).contiguous()
+    b = frames.shape[0]
+    bpad, rb = cascade_schedule(b, bb, rb)
+    (member,) = spec
+    logits = torch.empty_like(llog)
+    new_last = torch.empty_like(last)
+    queue = torch.empty(b, dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    deltas = torch.empty(b, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _delta_launcher()(
+            frames.data_ptr(), _member_thresholds(member, dev).data_ptr(),
+            cw.data_ptr(), ct.data_ptr(), cf.data_ptr(), fw.data_ptr(),
+            last.data_ptr(), llog.data_ptr(), ctrl.data_ptr(),
+            logits.data_ptr(), new_last.data_ptr(), queue.data_ptr(),
+            counts.data_ptr(), deltas.data_ptr(), _ints(table), len(table),
+            b, bpad, rb, check_every,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"delta launch failed: CUDA error {err}")
+    LAUNCHES["delta"] += 1
+    return logits, new_last, queue, counts, deltas

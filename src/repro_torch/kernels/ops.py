@@ -91,7 +91,23 @@ def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
     return _mk.cascade_plain(image, frames, ctrl, **kw)
 
 
+def delta_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
+                  last: torch.Tensor, llog: torch.Tensor, ctrl: torch.Tensor,
+                  *, spec, bb: int = 8, rb: int = 0, check_every: int = 1):
+    """Delta-gated whole-network inference (``DeltaPlan.spec``): frames and
+    the resident state -> ``(logits, new_last, queue, counts, deltas)``,
+    the gate decided on the device and only the changed streams
+    recomputed."""
+    kw = dict(spec=spec, bb=bb, rb=rb, check_every=check_every)
+    if _on_cuda(frames):
+        return _mk.delta_forward(image, frames, last, llog, ctrl, **kw)
+    _mk.check_delta_args(image, frames, last, llog, ctrl, spec, bb=bb, rb=rb,
+                         check_every=check_every)
+    return _mk.delta_plain(image, frames, last, llog, ctrl, **kw)
+
+
 member_groups = _mk.member_groups
+solo_member_spec = _mk.solo_member_spec
 
 
 def launch_counts() -> Dict[str, int]:

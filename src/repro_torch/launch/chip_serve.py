@@ -22,9 +22,23 @@ per batch::
     PYTHONPATH=src python -m repro_torch.launch.chip_serve \
         --cascade --fused --requests 64 --batch 8
 
+``--policy operating-point`` serves program *families*: names in
+``--programs`` may be ``networks.FAMILIES`` entries (e.g. ``cifar10``),
+whose variants are served behind one lane by the energy-accuracy
+controller; ``--budget-uj-s`` caps the chip-model average power.
+``--video`` serves a seeded always-on video stream through the delta-gated
+``TemporalPipeline``: one camera stream per batch slot, only the streams
+whose packed frame changed recompute (``--delta-threshold``, or calibrated
+with ``--target-agreement`` / ``--target-skip``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.chip_serve \
+        --policy operating-point --programs cifar10 --budget-uj-s 400
+    PYTHONPATH=src python -m repro_torch.launch.chip_serve \
+        --video --programs cifar9_s1 --batch 8 --megakernel
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
-The operating-point, video, traffic and fleet modes of ``repro``'s driver
-are not ported yet.
+The continuous policy, traffic replay and fleet modes of ``repro``'s
+driver are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,9 +49,11 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.chip import interpreter, networks
+from repro_torch.core.chip import energy, interpreter, networks
+from repro_torch.serving import temporal
 from repro_torch.serving.cascade import CascadePipeline
 from repro_torch.serving.server import ChipServer
+from repro_torch.serving.traffic import video_trace
 
 
 def build_params(program, seed: int, warm_bn: bool, device=None):
@@ -104,6 +120,44 @@ def main(argv=None):
                          "split instead of using --margin: the cheapest "
                          "margin whose escalations capture R of the "
                          "positive frames (detector-labelled)")
+    ap.add_argument("--policy", choices=("static", "operating-point"),
+                    default="static",
+                    help="dispatch policy: 'static' serves each lane with "
+                         "its own program; 'operating-point' serves program "
+                         "families (names in --programs may be "
+                         "networks.FAMILIES entries) at the energy-accuracy "
+                         "point the budget and backlog call for")
+    ap.add_argument("--budget-uj-s", type=float, default=None,
+                    help="operating-point controller energy budget: max "
+                         "chip-model average power in uJ/s (uW); tight "
+                         "budgets force downshifts to cheaper variants")
+    ap.add_argument("--video", action="store_true",
+                    help="serve a seeded video stream through the delta-"
+                         "gated temporal pipeline: skip unchanged frames on "
+                         "the device, answer them from the last-logits "
+                         "cache (first --programs entry, or a family under "
+                         "--policy operating-point; batch = streams)")
+    ap.add_argument("--delta-threshold", type=float, default=1.0,
+                    help="packed-Hamming gate: a stream recomputes when its "
+                         "frame delta vs the resident last frame reaches "
+                         "this many bits (1 = skip only bit-identical "
+                         "frames; -inf = gate off)")
+    ap.add_argument("--target-agreement", type=float, default=None,
+                    metavar="A",
+                    help="calibrate the gate threshold on a held-out video "
+                         "trace: the cheapest threshold whose gated labels "
+                         "agree with ungated inference on at least A of the "
+                         "frames")
+    ap.add_argument("--target-skip", type=float, default=None, metavar="S",
+                    help="calibrate the gate threshold for energy: the "
+                         "smallest threshold reaching skip ratio S on a "
+                         "held-out video trace")
+    ap.add_argument("--change-rate", type=float, default=0.25,
+                    help="video trace: per-stream probability a frame "
+                         "differs from the previous one")
+    ap.add_argument("--scene-every", type=int, default=0,
+                    help="video trace: full scene change every N frames "
+                         "(0 = never)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
@@ -113,10 +167,24 @@ def main(argv=None):
         return run_cascade(args)
 
     names = [n.strip() for n in args.programs.split(",") if n.strip()]
+    families = {}
+    if args.policy == "operating-point":
+        # family names expand to their member variants behind one lane
+        expanded = []
+        for n in names:
+            if n in networks.FAMILIES:
+                families[n] = networks.FAMILIES[n]
+                expanded.extend(networks.FAMILIES[n])
+            else:
+                expanded.append(n)
+        names = expanded
     unknown = [n for n in names if n not in networks.REGISTRY]
     if unknown:
         ap.error(f"unknown programs {unknown}; have "
-                 f"{sorted(networks.REGISTRY)}")
+                 f"{sorted(networks.REGISTRY)} and families "
+                 f"{sorted(networks.FAMILIES)}")
+    if args.video:
+        return run_video(args, names, families)
     dev = _device.resolve(args.device)
 
     programs = {n: networks.REGISTRY[n]() for n in names}
@@ -126,11 +194,21 @@ def main(argv=None):
     server = ChipServer(programs, artifacts, batch=args.batch,
                         megakernel=args.megakernel,
                         prefetch=args.prefetch_depth, device=dev,
-                        shared=args.shared)
+                        shared=args.shared, policy=args.policy,
+                        families=families or None,
+                        budget_uj_s=args.budget_uj_s)
     print(f"resident programs: {names}  (batch={args.batch}, "
           f"device={dev}, S-modes={[programs[n].s for n in names]}, "
           f"megakernel={args.megakernel}, prefetch={args.prefetch_depth}, "
-          f"shared={args.shared}, policy=static)")
+          f"shared={args.shared}, policy={args.policy})")
+    for fam, members in families.items():
+        pts = energy.operating_points({m: programs[m] for m in members},
+                                      networks.ACCURACY)
+        print(f"family {fam}: " + " > ".join(
+            f"{p.name}[{p.uj_per_frame:.2f}uJ/f @{p.accuracy:.1%}]"
+            for p in pts)
+            + (f"  (budget {args.budget_uj_s:,.0f} uJ/s)"
+               if args.budget_uj_s else "  (no budget)"))
     if args.shared:
         groups = server.shared_groups
         print("shared-array groups: "
@@ -138,7 +216,10 @@ def main(argv=None):
                  if groups else "none (S-modes do not tile the array)"))
 
     lanes = list(server.queue.lanes)
-    per = {lane: frame_stream(programs[lane], -(-args.requests // len(lanes)),
+    geom_prog = {lane: programs[server.families.get(lane, (lane,))[0]]
+                 for lane in lanes}
+    per = {lane: frame_stream(geom_prog[lane],
+                              -(-args.requests // len(lanes)),
                               args.seed + 100 + i)
            for i, lane in enumerate(lanes)}
     idx = {lane: 0 for lane in lanes}
@@ -156,10 +237,22 @@ def main(argv=None):
     print(f"\nserved {len(results)} frames in {stats.dispatches} dispatches "
           f"({stats.host_wall_s*1e3:.0f} ms host)")
     for lane in lanes:
-        uj = stats.chip.reports[lane].i2l_energy_per_inference * 1e6
+        members = server.families.get(lane, (lane,))
+        uj = [stats.chip.reports[m].i2l_energy_per_inference * 1e6
+              for m in members]
         print(f"  {lane:>14}: {counts[lane]:3d} served, "
               f"{stats.padded[lane]} padded slots, "
-              f"{uj:.2f} uJ/frame, S={programs[lane].s}")
+              + (f"{uj[0]:.2f} uJ/frame, S={programs[lane].s}"
+                 if len(members) == 1 else
+                 f"{min(uj):.2f}-{max(uj):.2f} uJ/frame across "
+                 f"{len(members)} operating points"))
+    if stats.policy == "operating-point":
+        vd = {v: n for v, n in stats.variant_dispatches.items() if n}
+        print(f"operating points    : {vd} "
+              f"(downshift ratio {stats.downshift_ratio:.2f}, "
+              f"energy {stats.energy_uj:,.0f} uJ"
+              + (f" under budget {stats.budget_uj_s:,.0f} uJ/s)"
+                 if stats.budget_uj_s else ", no budget)"))
     print(f"host throughput     : {stats.host_frames_per_s:,.0f} frames/s "
           f"on {dev}")
     print(f"billing             : {stats.billed} billed == "
@@ -173,6 +266,96 @@ def main(argv=None):
           f"{stats.chip.power_w*1e3:.2f} mW avg "
           f"(paper: up to 1700 f/s, 0.9 mW I2L at S=4)")
     return results, stats
+
+
+def run_video(args, names, families):
+    """Always-on video through the delta-gated temporal pipeline: one
+    camera stream per batch slot over a seeded content trace
+    (``traffic.video_trace``), the gate on the device against each
+    stream's resident last frame, skipped frames answered from the
+    last-logits cache and billed at delta-compute-only cost.
+
+    The lane is the first ``--programs`` entry, or its family under
+    ``--policy operating-point``.  ``--target-agreement`` /
+    ``--target-skip`` calibrate the threshold on a held-out trace of
+    another seed instead of taking ``--delta-threshold`` verbatim.
+    """
+    if args.target_agreement is not None and args.target_skip is not None:
+        raise SystemExit("--target-agreement and --target-skip are "
+                         "mutually exclusive")
+    dev = _device.resolve(args.device)
+    lane = next(iter(families)) if families else names[0]
+    members = families.get(lane, (lane,))
+    programs = {n: networks.REGISTRY[n]() for n in members}
+    program = programs[members[0]]
+    io = program.instrs[0]
+    print(f"folding deployment artifacts for {list(members)} ...")
+    artifacts = {n: build_artifact(p, args.seed + i, True, dev)
+                 for i, (n, p) in enumerate(programs.items())}
+    server = ChipServer(programs, artifacts, batch=args.batch,
+                        megakernel=args.megakernel, device=dev,
+                        policy=args.policy,
+                        families={lane: members} if families else None,
+                        budget_uj_s=args.budget_uj_s)
+    # fine-grained drain chunks: recompute work scales with the changed
+    # count instead of rounding every dispatch up to a full batch
+    pipe = temporal.TemporalPipeline(server, lane,
+                                     threshold=args.delta_threshold,
+                                     rb=max(1, args.batch // 4))
+    steps = -(-args.requests // args.batch)
+    shape = (io.height, io.width, io.in_channels)
+    if args.target_agreement is not None or args.target_skip is not None:
+        cal = video_trace(shape, max(steps, 8), streams=args.batch,
+                          seed=args.seed + 200,
+                          change_rate=args.change_rate,
+                          scene_change_every=args.scene_every,
+                          levels=2 ** io.bits)
+        if args.target_agreement is not None:
+            thr = pipe.calibrate(cal.frames, args.target_agreement)
+            print(f"calibrated threshold: {thr:.0f} bits (target "
+                  f"agreement {args.target_agreement:.2f} on "
+                  f"{len(cal) * cal.streams} held-out frames)")
+        else:
+            thr = temporal.threshold_for_skip(cal.frames, args.target_skip,
+                                              program=program)
+            pipe.threshold = thr
+            print(f"calibrated threshold: {thr:.0f} bits (target skip "
+                  f"{args.target_skip:.2f} on {len(cal) * cal.streams} "
+                  f"held-out frames)")
+    trace = video_trace(shape, steps, streams=args.batch,
+                        seed=args.seed + 100, change_rate=args.change_rate,
+                        scene_change_every=args.scene_every,
+                        levels=2 ** io.bits)
+    print(f"video stream        : {args.batch} streams x {steps} frames "
+          f"(change rate {args.change_rate:.2f}, "
+          f"{trace.change_ratio:.2f} actually changed, seed "
+          f"{args.seed + 100}), gate >= {pipe.threshold:.0f} bits, "
+          f"lane {lane} on {dev}")
+    for t in range(len(trace)):
+        pipe.submit_many(trace.frames[t])
+    results = pipe.drain()
+    server.close()
+    rep = pipe.report()
+    stats = server.stats()
+    print(f"\ntemporal served {len(results)} frames in "
+          f"{pipe.gated_dispatches} gated dispatches: {rep.computed} "
+          f"computed (+{rep.computed_padded} drain padding), "
+          f"{rep.skipped} skipped (skip ratio {rep.skip_ratio:.2f})")
+    if families:
+        vd = {v: n for v, n in stats.variant_dispatches.items() if n}
+        print(f"operating points    : {vd} (downshift ratio "
+              f"{stats.downshift_ratio:.2f}, final activity "
+              f"{pipe.activity:.2f})")
+    print(f"billing             : {stats.billed} billed == "
+          f"{stats.total_served} computed + {sum(stats.padded.values())} "
+          f"drain padding")
+    print(f"host throughput     : {len(results) / stats.host_wall_s:,.0f} "
+          f"frames/s on {dev}")
+    print(f"temporal bill       : {rep.uj_per_frame:.3f} uJ/frame "
+          f"({rep.delta_uj:.3f} delta toll on every frame) vs "
+          f"{rep.uj_per_frame_ungated:.3f} ungated "
+          f"({rep.savings:.2f}x saved)")
+    return results, rep
 
 
 def run_cascade(args):

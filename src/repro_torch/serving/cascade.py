@@ -129,6 +129,11 @@ class CascadePipeline:
             if lane not in server.queue.lanes:
                 raise KeyError(f"lane {lane!r} not resident on the server "
                                f"(have {sorted(server.queue.lanes)})")
+            if len(server._lane_variants[lane]) > 1:
+                raise ValueError(
+                    f"cascade stage {lane!r} is a program family; cascade "
+                    "stages must be single-variant lanes (the energy bill "
+                    "is per stage program)")
         if detector == recognizer:
             raise ValueError("detector and recognizer must be distinct lanes")
         gd = server.executor.geometry(detector)
@@ -239,11 +244,8 @@ class CascadePipeline:
         # on every batch slot, the recognizer on the slots the kernel
         # reports (escalated + drain-chunk padding)
         n = len(reqs)
-        srv._served[self.detector] += n
-        srv._padded[self.detector] += size - n
-        srv._served[self.recognizer] += esc
-        srv._padded[self.recognizer] += slots - esc
-        srv._billed += size + slots
+        srv._bill(self.detector, n, size - n)
+        srv._bill(self.recognizer, esc, slots - esc)
         srv._dispatches += 1
         # the stages run one after the other: slot-weighted occupancy
         sd = srv.programs[self.detector].s

@@ -9,9 +9,9 @@ policy.Dispatch` decision and host-side results:
   frame, empty lanes with zeros), copy the frames host -> device, and run
   the program's serve function (the staged plan or the megakernel).  A
   multi-lane dispatch runs as ONE shared-array composite launch
-  (``interpreter.pack_programs``); composites, and fused cascades
-  (``interpreter.pack_cascade``), are packed lazily per ordered variant
-  tuple and cached.
+  (``interpreter.pack_programs``); composites, fused cascades
+  (``interpreter.pack_cascade``) and delta-gated units
+  (``interpreter.pack_delta``) are packed lazily and cached.
 * **materialize / finish** — sync a dispatch's device tensors to host
   numpy (``.cpu()``) and unpack them into per-request
   :class:`FrameResult`\\ s.
@@ -76,6 +76,7 @@ class Executor:
                                                  device=self.device)
         self._composites: Dict[Tuple[str, ...], Dict[str, Any]] = {}
         self._cascades: Dict[Tuple[str, str, int], Dict[str, Any]] = {}
+        self._deltas: Dict[Tuple[str, Optional[int], int], Dict[str, Any]] = {}
         self._inflight: collections.deque = collections.deque()
         # background fetch only pays off at depth >= 2: with one handle in
         # flight the consumer blocks on it at once
@@ -122,6 +123,26 @@ class Executor:
                         fn=cplan.make_serve_fn(device=self.device))
             self._cascades[key] = casc
         return casc
+
+    def delta_for(self, variant: str, *, rb: Optional[int] = None,
+                  check_every: int = 1) -> Dict[str, Any]:
+        """The delta-gated serving unit for one resident variant (lazy;
+        cached by ``(variant, rb, check_every)``): its ``DeltaPlan``, its
+        weight image on the device and its serve function ``(image, frames,
+        last, llog, ctrl) -> gated outputs`` with the drain schedule
+        fixed."""
+        key = (variant, rb, check_every)
+        dl = self._deltas.get(key)
+        if dl is None:
+            dplan, dimage = interpreter.pack_delta(
+                self.programs[variant], self._raw_artifacts[variant],
+                name=variant)
+            dl = dict(plan=dplan,
+                      image=_device.to_device(dimage, self.device),
+                      fn=dplan.make_serve_fn(device=self.device, rb=rb,
+                                             check_every=check_every))
+            self._deltas[key] = dl
+        return dl
 
     def warm_composites(self, groups) -> None:
         """Pack the composites of admission-time groups up front (the chip

@@ -11,9 +11,22 @@ for the static policy:
 * :class:`StaticPolicy` — every lane is served by its own program;
   lanes of a shared-array group (``ChipServer(shared=True)``) dispatch
   together as one composite.
+* :class:`OperatingPointPolicy` — the paper's energy-accuracy controller:
+  lanes are program *families* (one task compiled at several operating
+  points, ``networks.FAMILIES``), and the controller picks the served
+  variant per dispatch from an energy budget (uJ/s of chip time), the
+  lane's backlog and, when a temporal runtime reports it, the scene's
+  activity.  With ``shared=True`` other backlogged lanes whose chosen
+  variants tile the array exactly ride the same dispatch as a composite.
 
-The operating-point controller and continuous batching are not ported
-yet (ROADMAP.md item 4.3).
+Budget semantics: the controller commits every dispatch's chip-model
+energy and time at *selection* and picks the most accurate variant whose
+inclusion keeps ``spent_uj / chip_time_s`` at or under ``budget_uj_s``;
+when none fits it pins to the cheapest, so for any feasible budget the
+spend never exceeds the allowance by more than one dispatch.
+
+Continuous batching (``ContinuousPolicy``) is not ported yet (ROADMAP.md
+item 4.3).
 """
 
 from __future__ import annotations
@@ -161,5 +174,152 @@ class StaticPolicy(DispatchPolicy):
         else:
             (name, reqs), = pulled.items()
             lanes = (LaneDispatch(name, name, tuple(reqs)),)
+        batch = None if size == self.ctx.batch else size
+        return self._count(Dispatch(lanes, batch=batch))
+
+
+class OperatingPointPolicy(DispatchPolicy):
+    """The energy-accuracy operating-point controller (paper Fig. 5).
+
+    Per family lane the variants are held energy-descending (= accuracy
+    descending along the Pareto front, see ``energy.operating_points``);
+    each dispatch picks the most accurate variant affordable under
+    ``budget_uj_s`` and downshifts one extra step when the lane's backlog
+    reaches ``backlog_high`` frames (catching up at a cheaper, faster
+    point).  With ``shared=True`` other backlogged lanes whose chosen
+    variants tile the 256-channel array exactly ride the same dispatch
+    as an on-the-fly composite.
+
+    A temporal runtime (``serving/temporal.py``) may additionally report
+    each lane's *scene activity* — the fraction of its streams whose
+    frame delta crossed the gate threshold — via :meth:`set_activity`;
+    a lane whose activity sits below ``activity_low`` downshifts one
+    extra step (a quiet scene needs neither the accuracy nor the energy
+    of the top operating point).  Lanes that never report activity are
+    untouched.
+    """
+
+    name = "operating-point"
+
+    def __init__(self, budget_uj_s: Optional[float] = None,
+                 backlog_high: Optional[int] = None,
+                 shared: bool = False,
+                 activity_low: float = 0.25) -> None:
+        super().__init__()
+        if budget_uj_s is not None and budget_uj_s <= 0:
+            raise ValueError(
+                f"budget_uj_s must be positive, got {budget_uj_s}")
+        if not 0.0 <= activity_low <= 1.0:
+            raise ValueError(
+                f"activity_low must be in [0, 1], got {activity_low}")
+        self.budget_uj_s = budget_uj_s
+        self.backlog_high = backlog_high
+        self.shared = shared
+        self.activity_low = activity_low
+        self.spent_uj = 0.0             # committed chip-model energy
+        self.chip_time_s = 0.0          # committed chip-model time
+        self._activity: Dict[str, float] = {}   # lane -> reported activity
+
+    def _bound(self) -> None:
+        ctx = self.ctx
+        # binding attaches the policy to a fresh server: committed totals
+        # reset (a reused instance must not carry another server's spend)
+        self.spent_uj = 0.0
+        self.chip_time_s = 0.0
+        self._activity = {}
+        self._backlog_high = (self.backlog_high if self.backlog_high
+                              is not None else 4 * ctx.batch)
+        # variants energy-descending per lane; one frame of variant v
+        # costs e1[v] uJ and t1[v] seconds of chip time — a dispatch of
+        # n frames commits n * e1 / n * t1, so variable-size dispatches
+        # bill exactly what they run
+        self._e1 = {v: r.i2l_energy_per_inference * 1e6
+                    for v, r in ctx.reports.items()}
+        self._t1 = {v: 1.0 / r.inferences_per_s
+                    for v, r in ctx.reports.items()}
+        self._order = {
+            lane: tuple(sorted(vs, key=lambda v: -self._e1[v]))
+            for lane, vs in ctx.variants.items()}
+
+    def variant_order(self, lane: str) -> Tuple[str, ...]:
+        return self._order[lane]
+
+    def set_activity(self, lane: str, activity: float) -> None:
+        """Report a lane's scene activity in [0, 1] — the fraction of
+        its streams whose frame delta crossed the gate threshold (the
+        temporal runtime's per-step signal, typically an EWMA).  Quiet
+        lanes (below ``activity_low``) downshift one extra operating
+        point on subsequent dispatches."""
+        if lane not in self._order:
+            raise KeyError(f"unknown lane {lane!r} "
+                           f"(have {sorted(self._order)})")
+        if not 0.0 <= activity <= 1.0:
+            raise ValueError(
+                f"activity must be in [0, 1], got {activity}")
+        self._activity[lane] = activity
+
+    def _choose(self, lane: str, pending: int, size: int,
+                spent: float, time: float) -> str:
+        """Most accurate affordable variant for ``lane`` at dispatch size
+        ``size``, given committed totals ``(spent, time)``; backlog
+        pressure and quiet-scene activity each downshift one more step;
+        the cheapest variant is the unconditional floor."""
+        order = self._order[lane]
+        idx = len(order) - 1                      # floor: cheapest
+        for i, v in enumerate(order):
+            if self.budget_uj_s is None or (
+                    (spent + size * self._e1[v])
+                    <= self.budget_uj_s * (time + size * self._t1[v])):
+                idx = i
+                break
+        if pending >= self._backlog_high:
+            idx = min(idx + 1, len(order) - 1)    # catch-up downshift
+        act = self._activity.get(lane)
+        if act is not None and act < self.activity_low:
+            idx = min(idx + 1, len(order) - 1)    # quiet-scene downshift
+        return order[idx]
+
+    def select(self, queue: FrameQueue) -> Optional[Dispatch]:
+        return self.select_sized(queue, self.ctx.batch)
+
+    def select_sized(self, queue: FrameQueue,
+                     size: int) -> Optional[Dispatch]:
+        lane = queue.first_backlogged()
+        if lane is None:
+            return None
+        queue.advance_past(lane)
+        spent, time = self.spent_uj, self.chip_time_s
+
+        head = self._choose(lane, queue.pending(lane), size, spent, time)
+        picks = [(lane, head)]
+        occ = 1.0 / self.ctx.programs[head].s
+        spent += size * self._e1[head]
+        time += size * self._t1[head]
+
+        if self.shared and occ < 1.0 - 1e-9:
+            # riders: other backlogged lanes whose chosen variants fill
+            # the freed sub-array lanes — commit only on an exact tiling
+            for other in queue.rr_lanes():
+                if other == lane or not queue.pending(other):
+                    continue
+                v = self._choose(other, queue.pending(other), size,
+                                 spent, time)
+                w = 1.0 / self.ctx.programs[v].s
+                if occ + w > 1.0 + 1e-9:
+                    continue
+                picks.append((other, v))
+                occ += w
+                spent += size * self._e1[v]
+                time += size * self._t1[v]
+                if occ >= 1.0 - 1e-9:
+                    break
+            if occ < 1.0 - 1e-9 and len(picks) > 1:
+                picks = picks[:1]                 # no exact tiling: solo
+                spent = self.spent_uj + size * self._e1[head]
+                time = self.chip_time_s + size * self._t1[head]
+
+        self.spent_uj, self.chip_time_s = spent, time
+        lanes = tuple(LaneDispatch(l, v, tuple(queue.take(l, size)))
+                      for l, v in picks)
         batch = None if size == self.ctx.batch else size
         return self._count(Dispatch(lanes, batch=batch))

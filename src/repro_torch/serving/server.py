@@ -5,8 +5,11 @@ resident programs, one lane each, on one device:
 
 * :mod:`repro_torch.serving.queue` — per-lane FIFOs + the round-robin
   pointer (who is next);
-* :mod:`repro_torch.serving.policy` — :class:`StaticPolicy`: every lane
-  is served by its own program;
+* :mod:`repro_torch.serving.policy` — which program variant serves the
+  lane: :class:`StaticPolicy` (each lane its own program, shared-array
+  groups composite) or :class:`OperatingPointPolicy` (program families
+  served at the operating point an energy budget, the backlog and the
+  scene activity call for);
 * :mod:`repro_torch.serving.executor` — pad/dispatch/materialize + the
   depth-k prefetch pipeline;
 * :class:`ChipServer` (this module) — wires them together and keeps the
@@ -16,24 +19,27 @@ resident programs, one lane each, on one device:
 ``megakernel=True`` runs dispatches through the whole-network kernel,
 ``prefetch=k`` pipelines submission to depth k, and ``shared=True`` forms
 shared-array groups at admission (programs whose S-modes tile the array
-exactly), each served as one composite launch per batch.  The server runs
-on the GPU unless ``device="cpu"`` is passed.  Options of ``repro``'s
-server that are not ported yet (program families and their policies,
-serving meshes) raise ``NotImplementedError`` naming their ROADMAP.md item
-rather than being ignored.
+exactly), each served as one composite launch per batch.  ``families=``
+registers program families (variant sets of one task) behind a single
+queue lane, served through the operating-point controller (``policy=`` /
+``budget_uj_s=``).  The server runs on the GPU unless ``device="cpu"`` is
+passed.  Options of ``repro``'s server that are not ported yet (the
+continuous policy, serving meshes) raise ``NotImplementedError`` naming
+their ROADMAP.md item rather than being ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.chip import energy, isa
+from repro_torch.core.chip import energy, interpreter, isa
 from repro_torch.serving.executor import Executor
-from repro_torch.serving.policy import PolicyContext, StaticPolicy
+from repro_torch.serving.policy import (DispatchPolicy, OperatingPointPolicy,
+                                        PolicyContext, StaticPolicy)
 from repro_torch.serving.queue import (FrameQueue, FrameRequest, FrameResult,
                                        plan_shared_groups)
 
@@ -55,6 +61,9 @@ class ServeStats:
     variant_dispatches: Dict[str, int] = dataclasses.field(
         default_factory=dict)         # program -> dispatches it ran
     energy_uj: float = 0.0            # chip-model energy billed, all lanes
+    budget_uj_s: Optional[float] = None
+    downshift_ratio: float = 0.0      # family dispatches served below the
+                                      # top operating point
     p50_ms: float = 0.0               # input-to-label latency percentiles
     p95_ms: float = 0.0               # over timestamped frames (0.0 when
     p99_ms: float = 0.0               # nothing was stamped)
@@ -80,6 +89,16 @@ class ChipServer:
     ``batch`` is the static dispatch size; ``prefetch`` takes a pipeline
     depth (``True`` = 1); ``shared=True`` forms shared-array composite
     groups at admission.
+
+    ``families`` maps a family (task) name to a sequence of resident
+    program names that are variants of one task — same input geometry and
+    class count, different operating points (``networks.FAMILIES``,
+    ``interpreter.compile_family``).  Frames are submitted to the *family*
+    name; the policy picks the served variant.  With ``families`` the
+    policy defaults to the operating-point controller (``budget_uj_s``
+    caps the chip-model average power in uJ/s); ``policy`` takes a
+    :class:`DispatchPolicy` instance or ``"static"`` /
+    ``"operating-point"``.
     """
 
     def __init__(self, programs: Mapping[str, isa.Program],
@@ -87,10 +106,13 @@ class ChipServer:
                  megakernel: bool = False, prefetch: bool | int = False,
                  device=None, f_hz: float = energy.F_EMIN,
                  clock=time.perf_counter,
-                 shared: bool = False, families=None, policy=None,
+                 shared: bool = False,
+                 families: Optional[Mapping[str, Sequence[str]]] = None,
+                 policy: Optional[DispatchPolicy | str] = None,
+                 budget_uj_s: Optional[float] = None,
                  mesh=None):
-        if families or policy not in (None, "static"):
-            raise _not_ported("families=/policy=", "4.3")
+        if policy == "continuous":
+            raise _not_ported("policy='continuous'", "4.3")
         if mesh is not None:
             raise _not_ported("mesh=", "1.8")
         if set(programs) != set(artifacts):
@@ -106,7 +128,34 @@ class ChipServer:
         self.shared = shared
         self.clock = clock                   # injectable for latency tests
         self.programs: Dict[str, isa.Program] = dict(programs)
-        self._lanes = tuple(self.programs)
+
+        # -- lanes: families collapse their variants behind one lane -------
+        self._families: Dict[str, Tuple[str, ...]] = {}
+        owned: Dict[str, str] = {}
+        for fam, members in (families or {}).items():
+            members = tuple(members)
+            if fam in self.programs:
+                raise ValueError(
+                    f"family name {fam!r} collides with a resident "
+                    "program name")
+            missing = [m for m in members if m not in self.programs]
+            if missing:
+                raise ValueError(
+                    f"family {fam!r} members {missing} not resident")
+            for m in members:
+                if m in owned:
+                    raise ValueError(
+                        f"program {m!r} belongs to families "
+                        f"{owned[m]!r} and {fam!r}")
+                owned[m] = fam
+            # validates shared geometry/classes across the variants
+            interpreter.compile_family({m: self.programs[m] for m in members})
+            self._families[fam] = members
+        self._lanes: Tuple[str, ...] = tuple(self._families) + tuple(
+            n for n in self.programs if n not in owned)
+        self._lane_variants: Dict[str, Tuple[str, ...]] = {
+            **self._families,
+            **{n: (n,) for n in self.programs if n not in owned}}
 
         # -- mechanism ------------------------------------------------------
         self.executor = Executor(self.programs, artifacts, batch=batch,
@@ -117,24 +166,26 @@ class ChipServer:
         self.plans = self.executor.plans
         self.artifacts = self.executor.artifacts
         self.queue = FrameQueue(self._lanes)
-        self._geom = {lane: self.executor.geometry(lane)
-                      for lane in self._lanes}
+        self._geom = {lane: self.executor.geometry(vs[0])
+                      for lane, vs in self._lane_variants.items()}
 
         # -- policy ---------------------------------------------------------
         groups: Dict[str, Tuple[str, ...]] = {}
         self._groups_plan: Tuple[Tuple[str, ...], ...] = ()
         if shared:
-            self._groups_plan = plan_shared_groups(self.programs)
+            self._groups_plan = plan_shared_groups(
+                {n: self.programs[n] for n in self._lanes
+                 if n in self.programs})
             for members in self._groups_plan:
                 for m in members:
                     groups[m] = members
             self.executor.warm_composites(self._groups_plan)
-        self.policy = StaticPolicy()
+        self.policy = self._make_policy(policy, budget_uj_s)
         self._reports = {n: energy.analyze_net(p, f_hz)
                          for n, p in self.programs.items()}
         self.policy.bind(PolicyContext(
             batch=batch, lanes=self._lanes,
-            variants={n: (n,) for n in self._lanes},
+            variants=dict(self._lane_variants),
             programs=dict(self.programs), reports=dict(self._reports),
             groups=groups, clock=clock))
 
@@ -142,17 +193,41 @@ class ChipServer:
         self._next_rid = 0
         self.reset_stats()
 
+    def _make_policy(self, policy, budget_uj_s) -> DispatchPolicy:
+        if isinstance(policy, DispatchPolicy):
+            return policy
+        if policy is None:
+            policy = "operating-point" if self._families else "static"
+        if policy == "static":
+            if self._families:
+                raise ValueError(
+                    "families need a variant-choosing policy; use "
+                    "policy='operating-point' (or drop families=)")
+            return StaticPolicy()
+        if policy == "operating-point":
+            return OperatingPointPolicy(budget_uj_s=budget_uj_s,
+                                        shared=self.shared)
+        raise ValueError(f"unknown policy {policy!r} (have 'static', "
+                         "'operating-point', or a DispatchPolicy)")
+
     @property
     def shared_groups(self) -> Tuple[Tuple[str, ...], ...]:
         """The compiled shared-array groups (empty unless ``shared=True``
         and some resident S-modes tile the array exactly)."""
         return self._groups_plan
 
+    @property
+    def families(self) -> Dict[str, Tuple[str, ...]]:
+        return dict(self._families)
+
     # -- request side -------------------------------------------------------
 
-    def submit(self, program: str, frame) -> int:
-        """Enqueue one frame on a lane, stamped with the server clock;
-        returns its request id (arrival order)."""
+    def submit(self, program: str, frame,
+               t_submit: Optional[float] = None) -> int:
+        """Enqueue one frame on a lane (program or family name); returns
+        its request id (arrival order).  ``t_submit`` overrides the
+        admission timestamp (``traffic.replay`` stamps the trace's
+        arrival time); by default the server clock stamps *now*."""
         if program not in self._geom:
             raise KeyError(
                 f"program {program!r} not resident "
@@ -165,8 +240,10 @@ class ChipServer:
                 f"got {frame.shape}")
         rid = self._next_rid
         self._next_rid += 1
+        if t_submit is None:
+            t_submit = self.clock()
         self.queue.submit(FrameRequest(rid=rid, program=program, frame=frame,
-                                       t_submit=self.clock()))
+                                       t_submit=t_submit))
         return rid
 
     def submit_many(self, program: str, frames) -> List[int]:
@@ -188,9 +265,7 @@ class ChipServer:
         live = []
         for ld in dispatch.lanes:
             n = len(ld.requests)
-            self._served[ld.lane] += n
-            self._padded[ld.lane] += size - n
-            self._billed += size
+            self._bill(ld.variant, n, size - n)
             if n:
                 live.append(self.programs[ld.variant])
         if dispatch.composite:
@@ -221,13 +296,18 @@ class ChipServer:
         return results
 
     def drain(self) -> List[FrameResult]:
-        """Serve until the queue is empty; results in dispatch order."""
+        """Serve until the queue is empty; results in dispatch order.  The
+        policy is flushed for the duration."""
         out: List[FrameResult] = []
-        while True:
-            got = self.step()
-            if not got and not len(self.queue):
-                return out
-            out.extend(got)
+        self.policy.set_flush(True)
+        try:
+            while True:
+                got = self.step()
+                if not got and not len(self.queue):
+                    return out
+                out.extend(got)
+        finally:
+            self.policy.set_flush(False)
 
     def close(self) -> None:
         """Release the background fetch thread, syncing (and discarding —
@@ -237,14 +317,22 @@ class ChipServer:
 
     # -- accounting ---------------------------------------------------------
 
+    def _bill(self, variant: str, served: int, padded: int) -> None:
+        """Bill ``served + padded`` frame slots launched on ``variant``:
+        the one ledger every dispatch path (static, cascade, delta gate)
+        writes.  Per-lane totals are derived from it in :meth:`stats`."""
+        self._vserved[variant] += served
+        self._vpadded[variant] += padded
+        self._billed += served + padded
+
     def reset_stats(self) -> None:
         """Zero the serving counters and latency books, keeping all
         compiled state."""
         self._dispatches = 0
         self._shared_dispatches = 0
         self._util_sum = 0.0
-        self._served = {lane: 0 for lane in self._lanes}
-        self._padded = {lane: 0 for lane in self._lanes}
+        self._vserved = {name: 0 for name in self.programs}
+        self._vpadded = {name: 0 for name in self.programs}
         self._host_wall_s = 0.0
         self._billed = 0                     # frame slots launched
         self._latencies: List[float] = []    # stamped input-to-label, s
@@ -252,24 +340,26 @@ class ChipServer:
             self.policy.variant_dispatches[v] = 0
 
     def stats(self) -> ServeStats:
-        chip = energy.serve_report(self.programs, self._served,
-                                   self._padded, f_hz=self.f_hz,
+        chip = energy.serve_report(self.programs, self._vserved,
+                                   self._vpadded, f_hz=self.f_hz,
                                    reports=self._reports,
                                    billed=self._billed)
-        total = sum(self._served.values())
+        served = {lane: sum(self._vserved[v] for v in vs)
+                  for lane, vs in self._lane_variants.items()}
+        padded = {lane: sum(self._vpadded[v] for v in vs)
+                  for lane, vs in self._lane_variants.items()}
+        total = sum(served.values())
         fps = total / self._host_wall_s if self._host_wall_s else 0.0
         util = self._util_sum / self._dispatches if self._dispatches else 0.0
         energy_uj = sum(
-            (self._served[v] + self._padded[v])
+            (self._vserved[v] + self._vpadded[v])
             * self._reports[v].i2l_energy_per_inference * 1e6
             for v in self.programs)
         if self._latencies:
             p50, p95, p99 = np.percentile(self._latencies, [50, 95, 99])
         else:
             p50 = p95 = p99 = 0.0
-        padded = sum(self._padded.values())
-        return ServeStats(served=dict(self._served),
-                          padded=dict(self._padded),
+        return ServeStats(served=served, padded=padded,
                           billed=self._billed,
                           dispatches=self._dispatches,
                           host_wall_s=self._host_wall_s,
@@ -281,8 +371,11 @@ class ChipServer:
                           variant_dispatches=dict(
                               self.policy.variant_dispatches),
                           energy_uj=energy_uj,
+                          budget_uj_s=getattr(self.policy, "budget_uj_s",
+                                              None),
+                          downshift_ratio=self.policy.downshift_ratio(),
                           p50_ms=float(p50) * 1e3,
                           p95_ms=float(p95) * 1e3,
                           p99_ms=float(p99) * 1e3,
-                          padding_ratio=(padded / self._billed
+                          padding_ratio=(sum(padded.values()) / self._billed
                                          if self._billed else 0.0))

@@ -153,3 +153,55 @@ def test_serving_on_a_side_stream_matches_the_default_stream():
     with torch.cuda.stream(torch.cuda.Stream()):
         got = serve()
     assert got == want
+
+
+@pytest.mark.gpu
+def test_delta_gate_matches_plain_version_on_the_card():
+    """The delta-gated megakernel on cifar9_s1 and every other variant of
+    the cifar10 family (B=8) and on mnist5 (B=5, n_real 3) over
+    thresholds and drain schedules (the temporal serve's bb 8, rb 2
+    among them), from a warm state whose deltas spread, and over three
+    steps that carry the state on the card: logits, new_last, queue,
+    counts and deltas equal ``delta_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.binarize import thermometer_pack
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    gen = torch.Generator().manual_seed(12)
+    for name, b, n_real in (("cifar9_s1", 8, 8), ("cifar9_s2", 8, 8),
+                            ("cifar9_s4", 8, 8), ("cifar9_s4t", 8, 8),
+                            ("mnist5", 5, 3)):
+        prog = networks.REGISTRY[name]()
+        plan, image = interpreter.pack_delta(prog, _random_image(prog, gen))
+        image = {k: v.to(dev) for k, v in image.items()}
+        io = prog.instrs[0]
+        levels = 2 ** io.bits
+        frames = _frames(rng, prog, b).to(dev)
+        prev = frames.clone()
+        for i in range(1, b):          # lane i: an i x i patch changed
+            prev[i, :i, :i] = (prev[i, :i, :i] + levels // 2) % levels
+        last = thermometer_pack(prev, io.bits, io.in_channels, io.channels)
+        llog = torch.from_numpy(rng.integers(-50, 50, (b, plan.classes),
+                                             dtype=np.int32)).to(dev)
+        # the plain version runs on the same CUDA tensors
+        for thr in (float("-inf"), 0.0, 1.0, 2.5, 64.0, float("inf")):
+            ctrl = plan.delta_ctrl(thr, n_real).to(dev)
+            for bb, rb, ce in ((8, 8, 1), (8, 2, 1), (3, 2, 2), (4, 1, 3)):
+                kw = dict(spec=plan.spec, bb=bb, rb=rb, check_every=ce)
+                want = mk.delta_plain(image, frames, last, llog, ctrl, **kw)
+                got = mk.delta_forward(image, frames, last, llog, ctrl, **kw)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (name, thr, bb, rb, ce)
+        kstate = pstate = plan.init_state(b, device=dev)
+        for step, thr in enumerate((float("-inf"), 1.0, 1.0)):
+            ctrl = plan.delta_ctrl(thr, n_real).to(dev)
+            got = mk.delta_forward(image, frames, *kstate, ctrl,
+                                   spec=plan.spec, rb=2)
+            want = mk.delta_plain(image, frames, *pstate, ctrl,
+                                  spec=plan.spec, rb=2)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (name, step)
+            kstate, pstate = (got[1], got[0]), (want[1], want[0])
+            frames = frames.clone()
+            frames[step::2] = (frames[step::2] + 1) % levels

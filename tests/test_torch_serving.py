@@ -81,8 +81,9 @@ def test_unported_options_raise():
     prog = tnets.mnist5()
     art = chip_serve.build_artifact(prog, seed=0, warm_bn=False,
                                     device="cpu")
-    for kw, item in ((dict(families={"f": ("mnist5",)}), "4.3"),
-                     (dict(policy="operating-point"), "4.3"),
+    for kw, item in ((dict(policy="continuous"), "4.3"),
+                     (dict(families={"f": ("mnist5",)},
+                           policy="continuous"), "4.3"),
                      (dict(mesh=object()), "1.8")):
         with pytest.raises(NotImplementedError, match=item):
             ChipServer({"mnist5": prog}, {"mnist5": art}, device="cpu", **kw)
