@@ -7,16 +7,23 @@ main paths (``ChipServer`` serving ``cifar9_s1`` at full width beside
 shared ``ChipServer`` serving the 4 x S=4 composite; the face ->
 owner ``CascadePipeline``, fused and host-side; the delta-gated
 ``TemporalPipeline`` on 8 ``cifar9_s1`` video streams, and on the
-``cifar10`` family under the operating-point controller), checks the
-answers against the float reference, and times every kernel beside its
-bound, its plain version and a PyTorch library yardstick.  Needs one CUDA device
+``cifar10`` family under the operating-point controller; STE training of
+``face_detector`` and ``owner_detector`` at batch 32, the trained detector
+folded and served through ``ChipServer``, and a BitLinear layer at
+SmolLM-360M's MLP width), checks the answers against the float
+reference, and times every kernel beside its bound, its plain version and
+a PyTorch library yardstick.  Needs one CUDA device
 and no arguments; exits non-zero on any failure, and without a CUDA
 device or outside a checkout of the repository.
 
 Phases: 1 environment, 2 build, 3 kernels vs plain versions, 4 end to end
 (staged == megakernel == composite member == delta gate at threshold 0 ==
 float reference; the fused cascade vs the float references and the host
-rule), 5 serve, 6 times.
+rule), 5 serve, 6 train -> fold -> serve (the STE training of
+``face_detector`` and ``owner_detector``, each step on the card held
+against the same step on the CPU; the packed conv against the float conv
+on the trained weights; the folded detector served through ``ChipServer``;
+BitLinear's packed path against its STE forward), 7 times.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -48,6 +55,8 @@ REPLACES = {
     "composite": "src/repro/kernels/megakernel.py:366",
     "cascade": "src/repro/kernels/megakernel.py:593",
     "delta": "src/repro/kernels/megakernel.py:799",
+    "binary_conv2x2": "src/repro/kernels/binary_conv2x2.py:84",
+    "binarize_pack": "src/repro/kernels/binarize_pack.py:42",
 }
 SOURCES = {
     "conv_block": "src/repro_torch/csrc/conv_block.cu",
@@ -57,6 +66,8 @@ SOURCES = {
     "composite": "src/repro_torch/csrc/megakernel.cu",
     "cascade": "src/repro_torch/csrc/cascade.cu",
     "delta": "src/repro_torch/csrc/delta.cu",
+    "binary_conv2x2": "src/repro_torch/csrc/binary_conv2x2.cu",
+    "binarize_pack": "src/repro_torch/csrc/binarize_pack.cu",
 }
 # every exact tiling of the 256-channel array by REGISTRY programs
 TILINGS = (("cifar9_s4", "cifar9_s4t", "mnist5", "face_detector"),
@@ -77,6 +88,18 @@ DELTA_CASES = (("cifar9_s1", BATCH, BATCH), ("cifar9_s2", BATCH, BATCH),
 # SCHEDULES plus the temporal serves' own (bb 8, rb 2, check_every 1)
 DELTA_SCHEDULES = SCHEDULES + ((8, 2, 1),)
 VIDEO_STEPS = 16
+# repro's own odd binary_conv2x2 shapes (tests/test_kernels_binary_conv2x2.py
+# CASES and its property range): (B, H, W, c, F), B = 0 for a 3-D map
+CONV_ODD = ((0, 4, 4, 32, 8), (0, 31, 31, 128, 32), (0, 8, 9, 40, 16),
+            (3, 12, 7, 70, 20), (2, 2, 2, 1, 1), (5, 9, 11, 33, 33))
+# binarize_pack: BitLinear's SmolLM-360M MLP input (256 tokens x d_model
+# 960), an odd shape, and cifar9_s1's layer-2 activations at B=8
+PACK_SHAPES = ((256, 960), (300, 100), (8 * 31 * 31, 256))
+TRAIN_BATCH = 32
+TRAIN_SEED = 7                         # the detector twin's init seed
+DETECTOR_STEPS = 40
+OWNER_STEPS = 3
+BITLINEAR = (960, 2560, 256, 5)        # d_in, d_out, tokens, STE steps
 
 
 def sh(*cmd: str) -> str:
@@ -241,6 +264,201 @@ def fresh_rows(counts, queue, bpad: int) -> int:
     return k + int(min(slots, bpad) > k and queue[0] != 0)
 
 
+def one_step(prog, params, images, labels, step, sched, where):
+    """One STE step of the detector twin (forward_train, autograd, adamw
+    from a fresh state) of ``params`` on ``where``: (new params,
+    gradients, loss)."""
+    from repro_torch.core.chip import interpreter
+    from repro_torch.device import to_device
+    from repro_torch.examples import always_on_detector as detector
+    from repro_torch.optim import optimizers as opt
+    params = to_device(params, where)
+    optimizer = opt.adamw(sched)
+
+    def loss_of(p):
+        logits, new_p = interpreter.forward_train(p, prog, images.to(where))
+        return detector.detector_loss(logits, labels.to(where)), new_p
+
+    (loss, new_p), grads = opt.value_and_grad(loss_of, params)
+    new, _, _ = optimizer.update(grads, optimizer.init(params), new_p, step)
+    return new, grads, float(loss)
+
+
+def check_card_step(name, card_step, cpu_step, lr) -> str:
+    """Hold the card's step to the CPU's: latents within
+    ``step_tolerance`` of the CPU's (per leaf max(1e-4 x max abs, 1e-7),
+    widened by 2 lr where the CPU gradient is at rounding level), BN
+    running statistics rtol 1e-5.  Returns a summary line."""
+    from repro_torch.optim.optimizers import step_tolerance
+    (card, _, _), (cpu, grads, _) = card_step, cpu_step
+    bounds = step_tolerance(cpu, grads, lr)
+    worst, free = 0.0, 0
+    for part in ("conv", "fc"):
+        for i, layer in enumerate(cpu[part]):
+            for k, want in layer.items():
+                got = card[part][i][k].cpu()
+                if k in ("mean", "var"):
+                    if not torch.allclose(got, want, rtol=1e-5, atol=0):
+                        raise AssertionError(f"{name}: card {part}[{i}].{k} "
+                                             f"!= CPU (rtol 1e-5)")
+                    continue
+                bound = bounds[part][i][k]
+                diff = (got - want).abs()
+                if not bool(diff.le(bound).all()):
+                    raise AssertionError(f"{name}: card {part}[{i}].{k} off "
+                                         f"the CPU step by {float(diff.max())}")
+                worst = max(worst, float((diff / bound).max()))
+                free += int((bound >= 2 * lr).sum())
+    return (f"card step == CPU step within step_tolerance (worst "
+            f"{worst:.3f} of the bound; {free} latents with a rounding-level "
+            f"gradient); BN statistics rtol 1e-5")
+
+
+def train_phase(card, dev, gen, programs):
+    """Phase 6: STE training of ``face_detector`` and ``owner_detector``
+    on ``dev`` (each program's step held against the same step on the
+    CPU), the packed conv against the float conv on the trained detector,
+    the folded detector served through ``ChipServer``, and BitLinear's
+    packed path against its STE forward.  Returns (the launch counts of
+    the phase, the trained params by program)."""
+    from repro_torch.core import binary_layers
+    from repro_torch.core.chip import interpreter, isa
+    from repro_torch.core.chip import neuron_array as na
+    from repro_torch.examples import always_on_detector as detector
+    from repro_torch.kernels import ops
+    from repro_torch.optim import optimizers as opt
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: the STE gradients need "
+                             "float32 einsums")
+    face, owner = programs["face_detector"], programs["owner_detector"]
+    ops.reset_launch_counts()
+    trained = {}
+    for name, prog, steps in (("face_detector", face, DETECTOR_STEPS),
+                              ("owner_detector", owner, OWNER_STEPS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = detector.train_detector(prog, steps, TRAIN_BATCH,
+                                                 device=dev, seed=TRAIN_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trained[name] = params
+        print(f"  {name}: {steps} steps at batch {TRAIN_BATCH} in "
+              f"{wall:.3f} s ({steps / wall:.2f} steps/s, "
+              f"{wall / steps * 1e3:.2f} ms a step, first step included); "
+              f"mean loss {losses[0]:.4f} -> {losses[-1]:.4f} [{card.smi}]")
+        # the first step of that run (its init params, batch and schedule)
+        # on the card == the same step on the CPU; trained, the hinge loss
+        # may reach 0 and its gradients with it
+        sched = opt.cosine_schedule(2e-3, 20, steps)
+        init = interpreter.init_params(
+            torch.Generator().manual_seed(TRAIN_SEED), prog, device="cpu")
+        images_b, labels_b = detector.detector_batch(0, TRAIN_BATCH,
+                                                     device="cpu")
+        args = (prog, init, images_b, labels_b, 0, sched)
+        walls = []
+        for where in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            walls.append((one_step(*args, where), time.perf_counter() - t0))
+        (card_step, card_s), (cpu_step, cpu_s) = walls
+        line = check_card_step(name, card_step, cpu_step, float(sched(0)))
+        print(f"  {name}: first step {card_s * 1e3:.1f} ms on the card, "
+              f"{cpu_s * 1e3:.1f} ms on the CPU (host clock, "
+              f"{torch.get_num_threads()} threads)")
+        for part in ("conv", "fc"):
+            for i, g in enumerate(card_step[1][part]):
+                if not float(g["w"].abs().max()) > 0.0:
+                    raise AssertionError(f"{name}: {part}[{i}] weight "
+                                         f"gradient is zero")
+        print(f"  {name}: {line}; every conv and FC weight gradient "
+              f"nonzero")
+
+    # the eval forward of the trained detector: the float conv (training's
+    # einsums) == the packed conv (binarize_pack + binary_conv2x2) at every
+    # conv layer
+    folded = interpreter.fold_params(trained["face_detector"], face)
+    io = face.instrs[0]
+    coords = detector.window_coords()
+    frames = [detector.synthetic_frame(t, detector.face_at(t))
+              for t in range(8)]
+    wins = np.concatenate([detector.windows_of(f) for f in frames])
+    x = na.thermometer_encode(torch.from_numpy(wins[:TRAIN_BATCH]).to(dev),
+                              io.bits, io.channels)
+    convs = [ins for ins in face.instrs if isinstance(ins, isa.ConvInstr)]
+    for ins, layer in zip(convs, folded["conv"]):
+        s_float = na.conv2x2(x, layer["w"])
+        if not torch.equal(na.conv2x2_packed(x, layer["w"]), s_float):
+            raise AssertionError(f"face_detector {ins.height}x{ins.width}: "
+                                 f"packed conv != float conv")
+        x = na.comparator(s_float, layer["tau"], layer["flip"])
+        if ins.maxpool:
+            x = na.maxpool2x2(x)
+    print(f"  face_detector eval forward, {TRAIN_BATCH} windows: float conv "
+          f"== packed conv (binary_conv2x2) at all {len(convs)} conv layers")
+
+    # fold packed and serve 8 QQVGA frames of 54 windows through ChipServer
+    server = detector.deploy(trained["face_detector"], face, device=dev)
+    served = [detector.serve_frame(server, f) for f in frames]
+    st = server.stats()
+    server.close()
+    ref_y = interpreter.forward_infer(folded, face, wins,
+                                      device=dev)[1].cpu().numpy()
+    if not np.array_equal(np.concatenate(served), ref_y):
+        raise AssertionError("served window labels != float reference")
+    if not (st.billed == st.total_served == len(wins)
+            and st.dispatches == len(frames) and not st.padded["face"]):
+        raise AssertionError(f"detector bill: {st.billed} billed, "
+                             f"{st.total_served} served, {st.dispatches} "
+                             f"dispatches")
+    hits = 0
+    for t, labels in enumerate(served):
+        at = detector.face_at(t)
+        hit_at = [c for c, y in zip(coords, labels) if y == 1]
+        hits += (at is not None and any(
+            abs(y - at[0]) <= 16 and abs(xx - at[1]) <= 16
+            for y, xx in hit_at)) or (at is None and not hit_at)
+    print(f"  served {len(frames)} frames x {len(coords)} windows in "
+          f"{st.dispatches} megakernel dispatches: labels == float "
+          f"reference, billed {st.billed} == served {st.total_served} + "
+          f"padded 0; frame-level agreement {hits}/{len(frames)} (reported, "
+          f"not asserted)")
+
+    # BitLinear at SmolLM-360M's MLP up-projection: a few STE steps, then
+    # the packed path (binarize_pack -> xnor_matmul) == the STE forward
+    d_in, d_out, tokens, bl_steps = BITLINEAR
+    bl = binary_layers.init(torch.Generator().manual_seed(21), d_in, d_out,
+                            device=dev)
+    xs = torch.randn((tokens, d_in), generator=gen).to(dev)
+    target = torch.randn((tokens, d_out), generator=gen).to(dev)
+    bl_opt = opt.adamw(opt.cosine_schedule(1e-2, 1, bl_steps))
+    bl_state = bl_opt.init(bl)
+    bl_losses = []
+    for i in range(bl_steps):
+        (loss, _), grads = opt.value_and_grad(
+            lambda p: (torch.mean((binary_layers.apply_train(p, xs)
+                                   - target) ** 2), None), bl)
+        bl, bl_state, _ = bl_opt.update(grads, bl_state, bl, i)
+        bl_losses.append(float(loss))
+    with torch.no_grad():
+        y_train = binary_layers.apply_train(bl, xs)
+    y_infer = binary_layers.apply_infer(bl, xs)
+    if not torch.equal(y_infer, y_train):
+        raise AssertionError("BitLinear apply_infer != apply_train forward")
+    print(f"  BitLinear {d_in} -> {d_out} on {tokens} tokens: {bl_steps} STE "
+          f"steps, loss {bl_losses[0]:.4f} -> {bl_losses[-1]:.4f}; "
+          f"apply_infer (binarize_pack -> xnor_matmul) == apply_train "
+          f"forward, bit for bit")
+    counts = ops.launch_counts()
+    for k in ("binary_conv2x2", "binarize_pack", "xnor_matmul",
+              "megakernel"):
+        if not counts[k]:
+            raise AssertionError(f"{k} was not launched by the training path")
+    print(f"  launches on the training path: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return counts, trained
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one "
@@ -248,11 +466,16 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.binarize import thermometer_pack, unpack_signs
     from repro_torch.core.chip import energy, interpreter, networks
+    from repro_torch.examples import always_on_detector as detector
+    from repro_torch.examples.quickstart import train_step
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import binarize_pack as bp
+    from repro_torch.kernels import binary_conv2x2 as bc
     from repro_torch.kernels import binary_conv2x2_block as bcb
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels import xnor_matmul as xm
     from repro_torch.launch.chip_serve import build_params, frame_stream
+    from repro_torch.optim import optimizers as opt
     from repro_torch.serving.cascade import CascadePipeline, margins_of
     from repro_torch.serving.server import ChipServer
     from repro_torch.serving.temporal import TemporalPipeline
@@ -468,6 +691,38 @@ def main() -> None:
         print(f"  delta {name} lane-0 drain case (only lane 1 changed, rb "
               f"2): lane 0 recomputed over its cache, its last words kept; "
               f"equal")
+
+    # the unfused packed conv: cifar9_s1's first layer and every
+    # face_detector conv layer (the detector's packed-vs-float check in
+    # phase 6 runs them) at B=8, and repro's odd shapes
+    bc_shapes = [("cifar9_s1 layer 1", BATCH, 32, 32, 256, 256)] + [
+        (f"face_detector {h}x{w}", BATCH, h, w, c, f)
+        for _, h, w, c, f, _pool in (st for st in interpreter.compile_plan(
+            programs["face_detector"]).mega if st[0] == "conv")] + [
+        (f"odd {b}x{h}x{w} c={c} F={f}", b, h, w, c, f)
+        for b, h, w, c, f in CONV_ODD]
+    for label, b, h, w, c, f in bc_shapes:
+        a = words(gen, *((b,) if b else ()), h, w, -(-c // 32)).to(dev)
+        wt = words(gen, f, 4, -(-c // 32)).to(dev)
+        want = bc.binary_conv2x2_plain(a, wt, c)
+        got = bc.binary_conv2x2(a, wt, c=c)
+        torch.cuda.synchronize()
+        errs["binary_conv2x2"] = max(errs["binary_conv2x2"],
+                                     max_abs_err(got, want))
+        print(f"  binary_conv2x2 {label} (B={b or '3-D'}, {h}x{w}, C={c}, "
+              f"F={f}): equal")
+    for m, k in PACK_SHAPES:
+        x = torch.randn((m, k), generator=gen)
+        x.view(-1)[:5] = torch.tensor([0.0, -0.0, float("nan"), 1e-30,
+                                       -1e-30])
+        x = x.to(dev)
+        want = bp.binarize_pack_plain(x)
+        got = bp.binarize_pack(x)
+        torch.cuda.synchronize()
+        errs["binarize_pack"] = max(errs["binarize_pack"],
+                                    max_abs_err(got, want))
+        print(f"  binarize_pack M={m} K={k} (with 0.0, -0.0, NaN, "
+              f"+/-1e-30): equal")
 
     # -- 4. end to end -------------------------------------------------------
     phase(4, "end to end: staged == megakernel == float reference")
@@ -834,8 +1089,18 @@ def main() -> None:
     print("  family results (label, computed, delta, variant, logits), "
           "per-variant ledger and bill on the card == plain versions")
 
-    # -- 6. times ------------------------------------------------------------
-    phase(6, f"times (CUDA events, warm L2) [{card.smi}]")
+    # -- 6. train -> fold -> serve -------------------------------------------
+    phase(6, f"train -> fold -> serve on the card (face_detector "
+             f"{DETECTOR_STEPS} steps, owner_detector {OWNER_STEPS} steps, "
+             f"batch {TRAIN_BATCH}; BitLinear {BITLINEAR[0]} -> "
+             f"{BITLINEAR[1]})")
+    counts, trained = train_phase(card, dev, gen, programs)
+    launches["binary_conv2x2"] = counts["binary_conv2x2"]
+    launches["binarize_pack"] = counts["binarize_pack"]
+    face, owner = programs["face_detector"], programs["owner_detector"]
+
+    # -- 7. times ------------------------------------------------------------
+    phase(7, f"times (CUDA events, warm L2) [{card.smi}]")
     rows = {}
 
     def row(name, ms, plain_ms, nbytes, word_ops, library_ms):
@@ -1108,6 +1373,74 @@ def main() -> None:
           f"{st.served[CASCADE[0]] / st.host_wall_s:,.1f} frames/s host "
           f"({st.served[CASCADE[0]]} frames, {st.served[CASCADE[1]]} "
           f"escalated, {st.dispatches} dispatches) [{card.smi}]")
+
+    # binary_conv2x2: cifar9_s1's first layer at B=8 (32x32, 256 channels,
+    # 256 features: 7.9 MB of int32 sums against 63 M xor+popc words); the
+    # library yardstick is conv2d in fp16 on the same bits unpacked to +/-1
+    # (NCHW, sums up to 4 x 256 are exact), as for conv_block
+    b, h, w, c, f = BATCH, 32, 32, 256, 256
+    a = words(gen, b, h, w, c // 32).to(dev)
+    wt = words(gen, f, 4, c // 32).to(dev)
+    xh = unpack_signs(a, c).permute(0, 3, 1, 2).to(torch.float16)
+    wh = unpack_signs(wt, c).reshape(f, 2, 2, c).permute(0, 3, 1, 2).to(
+        torch.float16)
+    row("binary_conv2x2",
+        time_ms(lambda: bc.binary_conv2x2(a, wt, c=c), 50),
+        time_ms(lambda: bc.binary_conv2x2_plain(a, wt, c), 5),
+        4 * (a.numel() + wt.numel() + b * (h - 1) * (w - 1) * f),
+        b * (h - 1) * (w - 1) * f * 4 * (c // 32),
+        time_ms(lambda: torch.nn.functional.conv2d(xh, wh), 50))
+    for label, b, h, w, c, f in bc_shapes[1:]:
+        if not b:
+            continue
+        a = words(gen, b, h, w, -(-c // 32)).to(dev)
+        wt = words(gen, f, 4, -(-c // 32)).to(dev)
+        ms = time_ms(lambda: bc.binary_conv2x2(a, wt, c=c), 50)
+        print(f"    binary_conv2x2 {label} B={b}: {ms:.4f} ms")
+
+    # binarize_pack: the row is BitLinear's (256 tokens, 960); bytes bound
+    # it (each float read once, each word written once; one ballot per
+    # word is the operation count)
+    for m, k in PACK_SHAPES:
+        x = torch.randn((m, k), generator=gen).to(dev)
+        kw = -(-k // 32)
+        ms = time_ms(lambda: bp.binarize_pack(x), 200)
+        if (m, k) == PACK_SHAPES[0]:
+            row("binarize_pack", ms,
+                time_ms(lambda: bp.binarize_pack_plain(x), 50),
+                4 * (m * k + m * kw), m * kw, None)
+        else:
+            bound, by = card.bound(4 * (m * k + m * kw), m * kw)
+            print(f"  binarize_pack M={m} K={k}: {ms:.4f} ms, bound "
+                  f"{bound:.5f} ms ({by}) [{card.smi}]")
+
+    # one training step (forward_train, autograd, adamw) of each program
+    for name, prog in (("face_detector", face), ("owner_detector", owner)):
+        params = trained[name]
+        optimizer = opt.adamw(opt.cosine_schedule(2e-3, 20, 40))
+        state = optimizer.init(params)
+        images_b, labels_b = detector.detector_batch(0, TRAIN_BATCH,
+                                                     device=dev)
+
+        def train_once():
+            train_step(params, state, 5, images_b, labels_b, prog=prog,
+                       optimizer=optimizer, loss_fn=detector.detector_loss)
+
+        ms = time_ms(train_once, 10)
+        wall_ms, kernels = device_profile(train_once, 5)
+        line = (f"  train step {name} batch {TRAIN_BATCH}: {ms:.3f} ms "
+                f"({1e3 / ms:.2f} steps/s, CUDA events over 10 steps); "
+                f"profiled: host {wall_ms / 5:.3f} ms a step, ")
+        if kernels:
+            busy = sum(kernels.values())
+            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+            line += (f"device busy {busy / 5:.3f} ms (idle share "
+                     f"{1 - busy / wall_ms:.4f}), {len(kernels)} kernel "
+                     f"names, top: " + ", ".join(
+                         f"{k[:48]} {v / 5 * 1e3:.1f} us" for k, v in top))
+        else:
+            line += "device time not measured (no device activity recorded)"
+        print(line + f" [{card.smi}]")
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(card.smi)

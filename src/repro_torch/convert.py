@@ -1,5 +1,6 @@
-"""Carry ``repro``'s parameters, deployment artifacts and delta-gate
-state into the port, and the gate state back.
+"""Carry ``repro``'s parameters, optimizer states, deployment artifacts
+and delta-gate state into the port, and parameters, optimizer states and
+the gate state back.
 
 The functions take and give numpy arrays only (the caller does the
 ``np.asarray`` on the JAX side), so this module imports neither JAX nor
@@ -29,6 +30,42 @@ def params_from_numpy(np_params, device=None) -> Dict[str, Any]:
     return {"conv": [{k: f32(p[k]) for k in _CONV_PARAMS}
                      for p in np_params["conv"]],
             "fc": [{"w": f32(p["w"])} for p in np_params["fc"]]}
+
+
+def params_to_numpy(tree):
+    """The way back: a nest of dicts/lists of float tensors (the chip
+    parameter dict, its gradients, an optimizer state over it, a
+    BitLinear) -> the same nest of float32 numpy arrays, in ``repro``'s
+    layout, for comparing trained latents and BN statistics."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy().astype(np.float32)
+
+
+def bitlinear_from_numpy(np_params, device=None) -> Dict[str, torch.Tensor]:
+    """A ``repro`` BitLinear ``{"w": (N, K), "g": (N,)}`` as numpy ->
+    the port's float32 tensors on ``device``."""
+    dev = _device.resolve(device)
+    return {k: torch.from_numpy(np.array(np_params[k], dtype=np.float32))
+            .to(dev) for k in ("w", "g")}
+
+
+def opt_state_from_numpy(tree, device=None):
+    """An optimizer state as numpy (``repro``'s ``adamw`` ``{"m": params,
+    "v": params}``, ``sgdm`` ``{"m": params}``; any nest of dicts/lists of
+    float arrays) -> the same nest of float32 tensors on ``device``."""
+    dev = _device.resolve(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return torch.from_numpy(np.array(t, dtype=np.float32)).to(dev)
+
+    return walk(tree)
 
 
 def _leaf(x: np.ndarray, dev: torch.device) -> torch.Tensor:

@@ -14,8 +14,9 @@ comparisons, and there is no popcount operator.  Shifts and popcounts here
 therefore widen to ``int64`` and mask to 32 bits first, because ``>>`` on a
 negative ``int32`` (bit 31 set) is arithmetic.
 
-``ste_sign`` and its straight-through gradient are not ported yet: only
-the inference path and the forward pass that warms BN statistics are.
+Training uses the straight-through estimator (STE): forward = sign(x),
+backward = identity clipped to |x| <= 1 (the BinaryNet "hard tanh" STE),
+as a ``torch.autograd.Function`` in place of ``repro``'s ``jax.custom_vjp``.
 """
 
 from __future__ import annotations
@@ -27,8 +28,27 @@ _MASK32 = 0xFFFFFFFF
 
 
 # ---------------------------------------------------------------------------
-# Sign
+# Sign + straight-through estimator
 # ---------------------------------------------------------------------------
+
+class _SteSign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # dL/dx = dL/dy * 1{|x| <= 1}   (hard-tanh STE, inclusive at 1)
+        (x,) = ctx.saved_tensors
+        return g * (torch.abs(x) <= 1.0).to(g.dtype)
+
+
+def ste_sign(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) in {-1, +1} (ties -> +1) with the BinaryNet straight-through
+    gradient ``g * 1{|x| <= 1}``."""
+    return _SteSign.apply(x)
+
 
 def hard_sign(x: torch.Tensor) -> torch.Tensor:
     """Non-differentiable sign in {-1, +1} (ties -> +1)."""

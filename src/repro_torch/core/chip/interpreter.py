@@ -3,9 +3,11 @@
 The counterpart of ``repro.core.chip.interpreter`` for the chip tier's
 single-program deployment path:
 
-* ``init_params`` / ``forward_train`` — latent float parameters and the
-  BatchNorm forward pass that warms their statistics (forward only, under
-  ``torch.no_grad()``; STE training is not ported yet).
+* ``init_params`` / ``forward_train`` — latent float parameters and
+  BinaryNet training semantics (the chip's first level of flexibility,
+  reprogrammable weights): STE sign, BatchNorm before the sign
+  activation, differentiable end to end; ``train=False`` is the eval
+  forward on the running statistics.
 * ``fold_params`` — BN folded into integer comparator thresholds, and the
   packed or weight-image deployment artifacts the silicon's SRAMs hold.
 * :class:`InferencePlan` from :func:`compile_plan` — the staged packed
@@ -24,7 +26,8 @@ single-program deployment path:
 * :func:`compile_family` — one task compiled at several operating points,
   for the serving layer's operating-point controller.
 * ``forward_infer`` — the float +/-1 reference all of them are bit-exact
-  against.
+  against (``use_kernels=True`` routes through the staged plan), and
+  :func:`make_infer_fn` binding it to a program.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``, in
 which case every kernel runs its plain PyTorch version.  Packed words are
@@ -78,15 +81,22 @@ def init_params(generator: torch.Generator, program: isa.Program, *,
 
 
 # ---------------------------------------------------------------------------
-# Training-mode forward (BatchNorm statistics)
+# Training-mode forward (STE + BatchNorm)
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def forward_train(params, program: isa.Program, images: torch.Tensor):
-    """Training-mode forward: BN normalises with this batch's statistics.
-    Returns (logits, new_params); new_params carries the BN running
-    statistics updated from this batch.  Forward only: the sign is the
-    hard sign (the STE's forward value)."""
+def forward_train(params, program: isa.Program, images: torch.Tensor,
+                  train: bool = True):
+    """Returns (logits, new_params); new_params carries updated BN stats.
+
+    Differentiable end to end through ``binarize.ste_sign`` on the latent
+    weights and on the BN outputs.  ``train=True`` normalises with this
+    batch's mean and biased variance and returns the running statistics
+    updated from them, detached (they carry no gradient, so an optimizer
+    state built from them holds no graph); ``train=False`` normalises with
+    the running ``mean``/``var`` and returns ``params["conv"]`` unchanged.
+    Runs on the device of ``params`` (``init_params`` places them).
+    """
+    images = _frames(images, params["fc"][0]["w"].device)
     new_conv = []
     ci = fi = 0
     x = None
@@ -95,24 +105,30 @@ def forward_train(params, program: isa.Program, images: torch.Tensor):
             x = na.thermometer_encode(images, ins.bits, ins.channels)
         elif isinstance(ins, isa.ConvInstr):
             p = params["conv"][ci]
-            s = na.conv2x2(x, binarize.hard_sign(p["w"]))
-            mean = torch.mean(s, dim=(0, 1, 2))
-            var = torch.var(s, dim=(0, 1, 2), unbiased=False)
-            new_p = dict(p)
-            new_p["mean"] = BN_MOMENTUM * p["mean"] + (1 - BN_MOMENTUM) * mean
-            new_p["var"] = BN_MOMENTUM * p["var"] + (1 - BN_MOMENTUM) * var
-            new_conv.append(new_p)
+            s = na.conv2x2(x, binarize.ste_sign(p["w"]))  # (B,H-1,W-1,F)
+            if train:
+                mean = torch.mean(s, dim=(0, 1, 2))
+                var = torch.var(s, dim=(0, 1, 2), unbiased=False)
+                new_p = dict(p)
+                new_p["mean"] = (BN_MOMENTUM * p["mean"]
+                                 + (1 - BN_MOMENTUM) * mean).detach()
+                new_p["var"] = (BN_MOMENTUM * p["var"]
+                                + (1 - BN_MOMENTUM) * var).detach()
+                new_conv.append(new_p)
+            else:
+                mean, var = p["mean"], p["var"]
+                new_conv.append(p)
             bn = (p["gamma"] * (s - mean) * torch.rsqrt(var + BN_EPS)
                   + p["beta"])
-            x = binarize.hard_sign(bn)
+            x = binarize.ste_sign(bn)
             if ins.maxpool:
                 x = na.maxpool2x2(x)
             ci += 1
         elif isinstance(ins, isa.FCInstr):
             if x.ndim == 4:
                 x = x.reshape(x.shape[0], -1)
-            s = na.fc(x, binarize.hard_sign(params["fc"][fi]["w"]))
-            x = s if ins.final else binarize.hard_sign(s)
+            s = na.fc(x, binarize.ste_sign(params["fc"][fi]["w"]))
+            x = s if ins.final else binarize.ste_sign(s)
             fi += 1
     return x, {"conv": new_conv, "fc": params["fc"]}
 
@@ -817,10 +833,19 @@ def pack_delta(program: isa.Program, artifact, *, name: str = "program"):
             image)
 
 
-def forward_infer(folded, program: isa.Program, images, device=None):
-    """The float +/-1 reference forward on a float-folded artifact, which
+def forward_infer(folded, program: isa.Program, images, device=None,
+                  use_kernels: bool = False):
+    """Deployment forward. Returns (logits, labels).
+
+    ``use_kernels=True`` routes through the compiled packed plan
+    (:meth:`InferencePlan.forward`, packing a float-folded artifact on the
+    fly); ``use_kernels=False`` is the float +/-1 reference path that
     :meth:`InferencePlan.forward` and :meth:`InferencePlan.forward_mega`
-    are tested bit-exact against.  Returns (logits, labels)."""
+    are tested bit-exact against.
+    """
+    if use_kernels:
+        return compile_plan(program).forward(ensure_packed(folded), images,
+                                             device=device)
     dev = _device.resolve(device)
     folded = _device.to_device(folded, dev)
     images = _frames(images, dev)
@@ -843,3 +868,16 @@ def forward_infer(folded, program: isa.Program, images, device=None):
             x = s if ins.final else binarize.hard_sign(s)
             fi += 1
     return x, torch.argmax(x, dim=-1)
+
+
+def make_infer_fn(program: isa.Program, use_kernels: bool = False,
+                  device=None):
+    """Bind the program: (folded, images) -> (logits, labels) on
+    ``device``.  A plain closure: PyTorch runs eagerly, so there is no jit
+    to wrap it in."""
+    dev = _device.resolve(device)
+
+    def fn(folded, images):
+        return forward_infer(folded, program, images, device=dev,
+                             use_kernels=use_kernels)
+    return fn

@@ -1,9 +1,11 @@
 """Functional model of the 64-neuron / 4-sub-neuron BinarEye array.
 
-The counterpart of ``repro.core.chip.neuron_array``: the float +/-1 path
-(the reference the packed pipeline is held against, and the forward pass
-that warms BN statistics) and the packed thermometer encoder.  Maps are
-(B, H, W, C), as in ``repro``.
+The counterpart of ``repro.core.chip.neuron_array``, with its two compute
+paths: the float +/-1 path (training, and the reference the packed
+pipeline is held against) and the packed XNOR-popcount path of the same
+integer sums (``conv2x2_packed``, ``fc_packed``, through the kernel
+dispatch), plus the packed thermometer encoder.  Maps are (B, H, W, C),
+as in ``repro``.
 
 The float path sums +/-1 products in float32, which is exact for every
 sum the chip can reach (|s| <= 4*256), on the CPU and on the GPU alike.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import binarize
+from repro_torch.kernels import ops as kops
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +65,20 @@ def conv2x2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def conv2x2_packed(x_signs: torch.Tensor,
+                   w_signs: torch.Tensor) -> torch.Tensor:
+    """Packed XNOR-popcount path of :func:`conv2x2`: float +/-1 in, float32
+    sums out, through the ``binary_conv2x2`` kernel on the GPU.  The
+    activations are packed by the ``binarize_pack`` kernel (equal to
+    ``pack_signs`` on +/-1 values), the taps by ``pack_signs``.  The fully
+    packed pipeline is ``interpreter.InferencePlan``."""
+    c = x_signs.shape[-1]
+    f = w_signs.shape[0]
+    x_words = kops.pack(x_signs)                                  # (B,H,W,Cw)
+    w_words = binarize.pack_signs(w_signs.reshape(f, 4, c), axis=-1)
+    return kops.binary_conv2x2(x_words, w_words, c).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Streamed max-pool and the binary comparator
 # ---------------------------------------------------------------------------
@@ -87,3 +104,11 @@ def comparator(s: torch.Tensor, tau: torch.Tensor,
 def fc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, IN) +/-1; w: (OUT, IN) +/-1 -> (B, OUT) integer scores."""
     return torch.einsum("bi,oi->bo", x, w)
+
+
+def fc_packed(x_signs: torch.Tensor, w_signs: torch.Tensor) -> torch.Tensor:
+    """Packed XNOR-popcount path of :func:`fc`: float +/-1 in, float32
+    sums out, through the ``xnor_matmul`` kernel on the GPU."""
+    xw = binarize.pack_signs(x_signs, axis=-1)
+    ww = binarize.pack_signs(w_signs, axis=-1)
+    return kops.xnor_matmul(xw, ww, x_signs.shape[-1]).to(torch.float32)

@@ -12,11 +12,15 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import binarize
+from repro_torch.kernels import binarize_pack as _bp
+from repro_torch.kernels import binary_conv2x2 as _bc
 from repro_torch.kernels import binary_conv2x2_block as _bcb
 from repro_torch.kernels import megakernel as _mk
 from repro_torch.kernels import xnor_matmul as _xm
 
-_COUNTERS = (_bcb.LAUNCHES, _xm.LAUNCHES, _mk.LAUNCHES)
+_COUNTERS = (_bcb.LAUNCHES, _xm.LAUNCHES, _mk.LAUNCHES, _bc.LAUNCHES,
+             _bp.LAUNCHES)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -27,6 +31,19 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def pack(x: torch.Tensor) -> torch.Tensor:
+    """Fused sign+pack for a (..., K) float32 tensor -> (..., ceil(K/32))
+    int32 words, bit 1 iff x < 0, K padded with +1."""
+    lead = x.shape[:-1]
+    flat = x.reshape((-1, x.shape[-1]))
+    if _on_cuda(flat):
+        out = _bp.binarize_pack(flat)
+    else:
+        _bp.check_args(flat)
+        out = _bp.binarize_pack_plain(flat)
+    return out.reshape(lead + (out.shape[-1],))
+
+
 def xnor_matmul(a_words: torch.Tensor, w_words: torch.Tensor, k: int, *,
                 pack_out: bool = False) -> torch.Tensor:
     """Packed binary matmul: (M, Kw) x (N, Kw) words -> (M, N) int32, or
@@ -35,6 +52,16 @@ def xnor_matmul(a_words: torch.Tensor, w_words: torch.Tensor, k: int, *,
         return _xm.xnor_matmul(a_words, w_words, k, pack_out=pack_out)
     _xm.check_args(a_words, w_words, k, pack_out)
     return _xm.xnor_matmul_plain(a_words, w_words, k, pack_out=pack_out)
+
+
+def binary_conv2x2(a_words: torch.Tensor, w_words: torch.Tensor,
+                   c: int) -> torch.Tensor:
+    """Unfused packed 2x2 conv: (B, H, W, Cw) or (H, W, Cw) words and
+    (F, 4, Cw) taps -> (B, H-1, W-1, F) or (H-1, W-1, F) int32 sums."""
+    if _on_cuda(a_words):
+        return _bc.binary_conv2x2(a_words, w_words, c=c)
+    _bc.check_args(a_words, w_words, c)
+    return _bc.binary_conv2x2_plain(a_words, w_words, c)
 
 
 def binary_conv2x2_block(a_words: torch.Tensor, w_words: torch.Tensor,
@@ -104,6 +131,21 @@ def delta_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
     _mk.check_delta_args(image, frames, last, llog, ctrl, spec, bb=bb, rb=rb,
                          check_every=check_every)
     return _mk.delta_plain(image, frames, last, llog, ctrl, **kw)
+
+
+def binary_linear(x: torch.Tensor, w_signs: torch.Tensor) -> torch.Tensor:
+    """End-to-end W1A1 linear for inference: float x, +/-1 weights.
+
+    x: (..., K) float32; w_signs: (N, K) in {-1, +1}.  Returns (..., N)
+    int32, the exact binary dot products (the caller applies threshold or
+    scale): x packed by :func:`pack`, then :func:`xnor_matmul`.
+    """
+    k = x.shape[-1]
+    lead = x.shape[:-1]
+    a_words = pack(x.reshape((-1, k)))
+    w_words = binarize.pack_signs(w_signs, axis=-1)
+    out = xnor_matmul(a_words, w_words, k)
+    return out.reshape(lead + (w_signs.shape[0],))
 
 
 member_groups = _mk.member_groups

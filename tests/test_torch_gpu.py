@@ -1,4 +1,5 @@
-"""Each CUDA kernel of the port vs its plain PyTorch version, on the card.
+"""Each CUDA kernel of the port vs its plain PyTorch version, on the card,
+and one STE training step on the card vs the same step on the CPU.
 
 Needs a CUDA device and the CUDA toolkit; skips without a device.  It
 imports neither JAX nor ``repro``, so it runs where only PyTorch is
@@ -6,7 +7,8 @@ installed::
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Every comparison is bit-exact (tolerance 0), at main-path shapes;
+Every kernel comparison is bit-exact (tolerance 0), at main-path shapes;
+the training step is held to ``optimizers.step_tolerance``;
 ``chip_smoke.py`` runs the full set.
 """
 
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.chip import interpreter, networks
+from repro_torch.core.chip import interpreter, isa, networks
 from repro_torch.kernels import binary_conv2x2_block as bcb
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import xnor_matmul as xm
@@ -205,3 +207,91 @@ def test_delta_gate_matches_plain_version_on_the_card():
             kstate, pstate = (got[1], got[0]), (want[1], want[0])
             frames = frames.clone()
             frames[step::2] = (frames[step::2] + 1) % levels
+
+
+@pytest.mark.gpu
+def test_binary_conv2x2_and_binarize_pack_match_plain_versions_on_the_card():
+    """The unfused packed conv at the chip's layer shapes and at odd ones
+    (c off the word grid up to 70, ragged F, 3-D input, full-range words,
+    a 2x2 map) and sign+pack with -0.0, NaN, +/-1e-30 and K off the word
+    grid: equal to the plain versions, as int32 sums and as words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import binarize_pack as bp
+    from repro_torch.kernels import binary_conv2x2 as bc
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    for shape, c, f in (((8, 32, 32, 8), 256, 256), ((32, 31, 31, 2), 64, 64),
+                        ((3, 8, 9, 2), 40, 16), ((31, 31, 3), 70, 33),
+                        ((2, 2, 2, 1), 1, 1), ((5, 12, 7, 64), 2048, 40)):
+        a, w = _words(rng, *shape), _words(rng, f, 4, shape[-1])
+        want = bc.binary_conv2x2_plain(a, w, c)
+        got = bc.binary_conv2x2(a.to(dev), w.to(dev), c=c)
+        assert torch.equal(got.cpu(), want), (shape, c, f)
+    for m, k in ((256, 960), (300, 100), (8 * 31 * 31, 256), (1, 1),
+                 (5, 4096)):
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+        x.view(-1)[:5] = torch.tensor([0.0, -0.0, float("nan"), 1e-30,
+                                       -1e-30])[:min(5, m * k)]
+        want = bp.binarize_pack_plain(x)
+        got = bp.binarize_pack(x.to(dev))
+        assert torch.equal(got.cpu(), want), (m, k)
+
+
+@pytest.mark.gpu
+def test_training_step_on_the_card_equals_the_cpu():
+    """One face-detector STE step (forward, backward, adamw) from the same
+    params and state on the card and on the CPU: latents within
+    ``step_tolerance``, BN statistics rtol 1e-5, logits exact; then the
+    card's eval forward: float conv == packed conv (binary_conv2x2) at
+    every conv layer, and BitLinear's packed path == its STE forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import binary_layers
+    from repro_torch.core.chip import neuron_array as na
+    from repro_torch.device import to_device
+    from repro_torch.examples import always_on_detector as det
+    from repro_torch.examples.quickstart import train_step
+    from repro_torch.optim import optimizers as opt
+    assert not torch.backends.cuda.matmul.allow_tf32
+    prog = networks.face_detector()
+    params = interpreter.init_params(torch.Generator().manual_seed(5), prog,
+                                     device="cpu")
+    sched = opt.cosine_schedule(2e-3, 20, 40)
+    optimizer = opt.make("adamw", sched)
+    images, labels = det.detector_batch(3, 16, device="cpu")
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = to_device(params, torch.device(where))
+        out[where] = train_step(p, optimizer.init(p), 3, images.to(where),
+                                labels.to(where), prog=prog,
+                                optimizer=optimizer, loss_fn=det.detector_loss)
+    _, grads = opt.value_and_grad(
+        lambda q: (det.detector_loss(interpreter.forward_train(
+            q, prog, images)[0], labels), None), params)
+    bounds = opt.step_tolerance(out["cpu"][0], grads, float(sched(3)))
+    for part in ("conv", "fc"):
+        for i, layer in enumerate(out["cpu"][0][part]):
+            for k, want in layer.items():
+                got = out["cuda"][0][part][i][k].cpu()
+                if k in ("mean", "var"):
+                    assert torch.allclose(got, want, rtol=1e-5, atol=0)
+                else:
+                    assert bool((got - want).abs().le(
+                        bounds[part][i][k]).all()), (part, i, k)
+    trained = out["cuda"][0]
+    folded = interpreter.fold_params(trained, prog)
+    x = na.thermometer_encode(images[:4].cuda(), prog.instrs[0].bits,
+                              prog.instrs[0].channels)
+    convs = [ins for ins in prog.instrs if isinstance(ins, isa.ConvInstr)]
+    for ins, layer in zip(convs, folded["conv"]):
+        s = na.conv2x2(x, layer["w"])
+        assert torch.equal(na.conv2x2_packed(x, layer["w"]), s)
+        x = na.comparator(s, layer["tau"], layer["flip"])
+        if ins.maxpool:
+            x = na.maxpool2x2(x)
+    bl = binary_layers.init(torch.Generator().manual_seed(6), 960, 256,
+                            device="cuda")
+    xs = torch.randn((64, 960), generator=torch.Generator().manual_seed(7))
+    assert torch.equal(binary_layers.apply_infer(bl, xs.cuda()),
+                       binary_layers.apply_train(bl, xs.cuda()))
