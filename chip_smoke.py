@@ -10,26 +10,35 @@ owner ``CascadePipeline``, fused and host-side; the delta-gated
 ``cifar10`` family under the operating-point controller; STE training of
 ``face_detector`` and ``owner_detector`` at batch 32, the trained detector
 folded and served through ``ChipServer``, and a BitLinear layer at
-SmolLM-360M's MLP width), checks the answers against the float
-reference, and times every kernel beside its bound, its plain version and
-a PyTorch library yardstick.  Needs one CUDA device
+SmolLM-360M's MLP width; ``repro_torch.launch.serve`` serving SmolLM-360M
+at full width, prefill through the flash-attention kernel, then greedy
+decode), checks the answers against the float reference, and times every
+kernel beside its bound, its plain version and a PyTorch library
+yardstick.  Needs one CUDA device
 and no arguments; exits non-zero on any failure, and without a CUDA
 device or outside a checkout of the repository.
 
 Phases: 1 environment, 2 build, 3 kernels vs plain versions, 4 end to end
 (staged == megakernel == composite member == delta gate at threshold 0 ==
 float reference; the fused cascade vs the float references and the host
-rule), 5 serve, 6 train -> fold -> serve (the STE training of
+rule; SmolLM-360M in float32: prefill logits through the kernel == through
+its plain version, prefill + 4 decode steps == the teacher-forced
+forward), 5 serve (the chip tier; the LM serve, its flash launches and
+bf16 greedy agreement between kernel and plain runs), 6 train -> fold ->
+serve (the STE training of
 ``face_detector`` and ``owner_detector``, each step on the card held
 against the same step on the CPU; the packed conv against the float conv
 on the trained weights; the folded detector served through ``ChipServer``;
-BitLinear's packed path against its STE forward), 7 times.
+BitLinear's packed path against its STE forward), 7 times (and the LM
+serve's prefill ms, decode ms per token, tok/s and device idle share).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import subprocess
@@ -42,6 +51,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+FLOP_PER_S = {torch.bfloat16: 989e12,   # dense tensor cores, data sheet
+              torch.float32: 67e12}     # fp32 outside the tensor cores
 POPC_PER_CLK_PER_SM = 16        # CUDA C++ Programming Guide, arithmetic
                                 # instruction throughput, cc 9.0: popc
 BATCH = 8
@@ -57,6 +68,7 @@ REPLACES = {
     "delta": "src/repro/kernels/megakernel.py:799",
     "binary_conv2x2": "src/repro/kernels/binary_conv2x2.py:84",
     "binarize_pack": "src/repro/kernels/binarize_pack.py:42",
+    "flash_attention": "src/repro/kernels/flash_attention.py:103",
 }
 SOURCES = {
     "conv_block": "src/repro_torch/csrc/conv_block.cu",
@@ -68,6 +80,7 @@ SOURCES = {
     "delta": "src/repro_torch/csrc/delta.cu",
     "binary_conv2x2": "src/repro_torch/csrc/binary_conv2x2.cu",
     "binarize_pack": "src/repro_torch/csrc/binarize_pack.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 # every exact tiling of the 256-channel array by REGISTRY programs
 TILINGS = (("cifar9_s4", "cifar9_s4t", "mnist5", "face_detector"),
@@ -100,6 +113,33 @@ TRAIN_SEED = 7                         # the detector twin's init seed
 DETECTOR_STEPS = 40
 OWNER_STEPS = 3
 BITLINEAR = (960, 2560, 256, 5)        # d_in, d_out, tokens, STE steps
+LM_ARCH = "smollm-360m"
+LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_GEN = 8, 4, 512, 32
+LM_SERVE = ("--arch", LM_ARCH, "--requests", str(LM_REQUESTS), "--batch",
+            str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen-len",
+            str(LM_GEN))
+LM_CHECK = (2, 512, 4)                 # batch, prompt, decode steps (fp32)
+# SmolLM's prefill logits and decode steps in float32: repro's tolerance
+# for prefill + decode vs the teacher-forced forward (its
+# tests/test_serve_equiv.py); the sums run in other orders 32 layers deep
+LM_TOL = 2e-4
+# flash attention vs its plain version: (label, B, S, H, KH, D, causal),
+# the serve's prefill at its pull sizes 4 and 1 first
+FLASH_SHAPES = (("SmolLM prefill", 4, 512, 15, 5, 64, True),
+                ("SmolLM prefill", 1, 512, 15, 5, 64, True),
+                ("MHA", 2, 256, 8, 8, 64, True),
+                ("MQA", 2, 256, 8, 1, 64, True),
+                ("D=128, G=4", 1, 384, 32, 8, 128, True),
+                ("ragged S", 3, 333, 15, 5, 64, True),
+                ("non-causal", 2, 200, 6, 2, 64, False))
+# repro's tolerances (tests/test_kernels_flash.py): float32 sums in other
+# orders; in bf16, p rounds to bf16 at the same place in both
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# bf16's unit roundoff: SmolLM-360M's config keeps float32 probabilities
+# in chunked attention where the kernel rounds p to bf16, so the two
+# outputs differ by at most U_BF16 * max|v| (p's rounding) plus half an ulp
+# of each output's rounding to bf16 (U_BF16 * |out| each)
+U_BF16 = 2.0 ** -8
 
 
 def sh(*cmd: str) -> str:
@@ -199,6 +239,217 @@ def words(gen, *shape) -> torch.Tensor:
 
 def max_abs_err_all(got, want) -> int:
     return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def close_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Max abs difference; raises unless ``got`` is within rtol = atol =
+    ``tol`` of ``want``."""
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"kernel disagrees with its plain version "
+                             f"beyond {tol} (max abs err {err})")
+    return err
+
+
+def quiet():
+    """Keep a run's own printing out of the smoke's output."""
+    return contextlib.redirect_stdout(io.StringIO())
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route ``ops.flash_attention`` through the kernel's plain version,
+    for the runs the main path is compared with (they launch nothing)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    real = ops.flash_attention
+    ops.flash_attention = (lambda q, k, v, *, causal=True, scale=None:
+                           fa.flash_attention_plain(q, k, v, causal=causal,
+                                                    scale=scale))
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def attention_flops(b: int, s: int, h: int, d: int, causal: bool) -> int:
+    """q.k and p.v multiply-adds (2 FLOPs each) over the (query, key) pairs
+    the mask keeps."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    return 4 * d * pairs
+
+
+def lm_checks(dev) -> None:
+    """Phase 4's LM part: SmolLM-360M at full width in float32 (random
+    weights from a seed).  Prefill logits through the flash kernel ==
+    through its plain version, and prefill + decode steps == the
+    teacher-forced forward (plain chunked attention), within LM_TOL; then
+    the bf16 probabilities of :func:`lm_bf16_probs`."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.train import serve
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: the float32 checks need "
+                             "float32 matmuls")
+    cfg = get_config(LM_ARCH).with_(dtype="float32")
+    params = transformer.init_params(cfg, seed=3, device=dev)
+    b, s, k = LM_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (b, s + k),
+                         generator=torch.Generator().manual_seed(5),
+                         dtype=torch.int32).to(dev)
+    ops.reset_launch_counts()
+    h, _, _ = transformer.forward(params, cfg, {"tokens": toks[:, :s]},
+                                  mode="prefill")
+    got = transformer.lm_logits(params, cfg, h)
+    n = ops.launch_counts()["flash_attention"]
+    if n != cfg.num_layers:
+        raise AssertionError(f"prefill launched flash attention {n} times, "
+                             f"want {cfg.num_layers}")
+    with plain_attention():
+        h, _, _ = transformer.forward(params, cfg, {"tokens": toks[:, :s]},
+                                      mode="prefill")
+        want = transformer.lm_logits(params, cfg, h)
+    err = close_err(got, want, LM_TOL)
+    print(f"  {LM_ARCH} float32, B={b}, S={s}: prefill logits "
+          f"{tuple(got.shape)} through the kernel ({n} launches) == "
+          f"through its plain version "
+          f"(max abs err {err:.3e}, tolerance {LM_TOL}; logits max "
+          f"{float(want.abs().max()):.3f})")
+    del got, want, h
+
+    h, _, _ = transformer.forward(params, cfg, {"tokens": toks}, mode="train")
+    teacher = transformer.lm_logits(params, cfg, h[:, s - 1:])
+    logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(
+        params, {"tokens": toks[:, :s]})
+    outs = [logits]
+    decode = serve.build_decode_step(cfg)
+    for i in range(k):
+        logits, cache = decode(params, cache, toks[:, s + i][:, None], s + i)
+        outs.append(logits)
+    got = torch.cat(outs, dim=1)
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite LM logits")
+    err = float((got - teacher).abs().max())
+    if not torch.allclose(got, teacher, rtol=LM_TOL, atol=LM_TOL):
+        raise AssertionError(f"prefill + {k} decode steps != teacher-forced "
+                             f"forward (max abs err {err})")
+    agree = float((got.argmax(-1) == teacher.argmax(-1)).float().mean())
+    print(f"  {LM_ARCH} float32: prefill {s} + {k} decode steps == the "
+          f"teacher-forced forward (chunked attention) at positions "
+          f"{s - 1}..{s + k - 1} (max abs err {err:.3e}, tolerance {LM_TOL}; "
+          f"argmax agreement {agree:.3f})")
+    del got, teacher, cache, outs, logits
+    lm_bf16_probs(dev, params, toks[:, :s])
+
+
+def lm_bf16_probs(dev, params, toks) -> None:
+    """SmolLM-360M at its own bf16 settings (``attn_probs_bf16=False``):
+    the kernel's bf16 probabilities against ``chunked_attention``'s
+    float32 ones, which ``repro`` serves.  One attention call at the
+    serve's prefill shape, held to the bound of ``U_BF16``; then the
+    prompt's logits through 32 layers, kernel (prefill) vs chunked
+    (teacher-forced), each also against the float32 forward (reported)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention, transformer
+    b, s, h, kh, d = FLASH_SHAPES[0][1:6]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    got = fa.flash_attention(q, k, v, causal=True).float()
+    for probs_bf16 in (True, False):
+        want = attention.chunked_attention(q, k, v, causal=True,
+                                           probs_bf16=probs_bf16).float()
+        err = float((got - want).abs().max())
+        if probs_bf16:
+            tol, why = FLASH_TOL[torch.bfloat16], "repro's bf16 tolerance"
+        else:
+            tol = float(U_BF16 * (v.float().abs().max() + 2 * (1 + U_BF16)
+                                  * want.abs().max())) + 1e-5
+            why = "U_BF16 * (max|v| + 2 max|out|)"
+        if not err <= tol:
+            raise AssertionError(f"bf16 flash vs chunked attention "
+                                 f"(probs_bf16={probs_bf16}): max abs err "
+                                 f"{err} beyond {tol}")
+        print(f"  bf16 flash kernel vs chunked_attention(probs_bf16="
+              f"{probs_bf16}), B={b} S={s} H={h} KH={kh} D={d}: max abs err "
+              f"{err:.3e} (bound {tol:.3e}, {why})")
+
+    cfg16 = get_config(LM_ARCH)
+    logits = {}
+    for label, c, mode in (("kernel", cfg16, "prefill"),
+                           ("chunked", cfg16, "train"),
+                           ("float32", cfg16.with_(dtype="float32"), "train")):
+        hid, _, _ = transformer.forward(params, c, {"tokens": toks},
+                                        mode=mode)
+        logits[label] = transformer.lm_logits(params, c, hid).float()
+    if not all(torch.isfinite(x).all() for x in logits.values()):
+        raise AssertionError("non-finite bf16 LM logits")
+    ref = logits["float32"]
+
+    def dist(a, b):
+        diff = (a - b).abs()
+        same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        return f"max {float(diff.max()):.3e}, mean {float(diff.mean()):.3e}, " \
+               f"argmax agreement {same:.3f}"
+
+    print(f"  {LM_ARCH} bf16, B={toks.shape[0]}, S={toks.shape[1]}, prompt "
+          f"logits (max |logit| {float(ref.abs().max()):.3f}): kernel vs "
+          f"chunked {dist(logits['kernel'], logits['chunked'])}; vs the "
+          f"float32 forward: kernel {dist(logits['kernel'], ref)}, chunked "
+          f"{dist(logits['chunked'], ref)} (reported)")
+
+
+def lm_serve(card):
+    """Phase 5's LM part: ``repro_torch.launch.serve.main`` on SmolLM-360M
+    at full width (bf16 activations) on the card, the flash kernel
+    launched once per layer per prefill; then the same serve under a
+    frozen clock (so both pull full batches) through the kernel and
+    through its plain version, and their greedy tokens compared.  Returns
+    (the report, the launch counts of the serve)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lm
+    cfg = get_config(LM_ARCH)
+    ops.reset_launch_counts()
+    report = lm.main(list(LM_SERVE))
+    counts = ops.launch_counts()
+    layers = cfg.num_layers
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = layers * len(report.prefill_ms)
+    if counts != want:
+        raise AssertionError(f"LM serve launches {counts}, want {want}")
+    n_req, gen_len = LM_REQUESTS, LM_GEN
+    if sorted(report.tokens) != list(range(n_req)) or any(
+            len(t) != gen_len or not all(0 <= x < cfg.vocab_size for x in t)
+            for t in report.tokens.values()):
+        raise AssertionError("LM serve: missing requests or bad token ids")
+    print(f"  LM serve {LM_ARCH}: {report.served} requests in "
+          f"{len(report.prefill_ms)} batches; flash_attention launched "
+          f"{counts['flash_attention']} times = {layers} per prefill; "
+          f"{report.tokens_per_s:.1f} tok/s (first serve) [{card.smi}]")
+    runs = {}
+    for plain in (False, True):
+        ctx = plain_attention() if plain else contextlib.nullcontext()
+        with ctx, quiet():
+            runs[plain] = lm.main(list(LM_SERVE), clock=lambda: 0.0,
+                                  sleep=lambda _: None)
+    equal = prefix = 0
+    for rid, toks in runs[False].tokens.items():
+        other = runs[True].tokens[rid]
+        equal += sum(a == b for a, b in zip(toks, other))
+        n = 0
+        while n < gen_len and toks[n] == other[n]:
+            n += 1
+        prefix += n
+    total = n_req * gen_len
+    print(f"  bf16 greedy tokens, kernel vs plain attention (frozen clock, "
+          f"full batches): {equal}/{total} equal positions, {prefix}/{total} "
+          f"before the first divergence (reported, not asserted: bf16 rounds "
+          f"the two attentions' outputs apart)")
+    return report, counts
 
 
 def member_word_ops(stages, batch: int) -> int:
@@ -472,8 +723,10 @@ def main() -> None:
     from repro_torch.kernels import binarize_pack as bp
     from repro_torch.kernels import binary_conv2x2 as bc
     from repro_torch.kernels import binary_conv2x2_block as bcb
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels import xnor_matmul as xm
+    from repro_torch.launch import serve as lm
     from repro_torch.launch.chip_serve import build_params, frame_stream
     from repro_torch.optim import optimizers as opt
     from repro_torch.serving.cascade import CascadePipeline, margins_of
@@ -500,7 +753,9 @@ def main() -> None:
     print(f"nvidia-smi: {card.smi}")
     print(f"rates: HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet); popc "
           f"{card.popc_per_s / 1e12:.3f} T word-ops/s = {card.sms} SMs x "
-          f"{POPC_PER_CLK_PER_SM}/clk (CUDA guide, cc 9.0) x max SM clock")
+          f"{POPC_PER_CLK_PER_SM}/clk (CUDA guide, cc 9.0) x max SM clock; "
+          f"bf16 {FLOP_PER_S[torch.bfloat16] / 1e12:.0f} and fp32 "
+          f"{FLOP_PER_S[torch.float32] / 1e12:.0f} TFLOP/s (data sheet)")
 
     # -- 2. build -----------------------------------------------------------
     phase(2, "build")
@@ -529,9 +784,11 @@ def main() -> None:
     cifar = programs["cifar9_s1"]
     gen = torch.Generator().manual_seed(0)
     errs = {k: 0 for k in REPLACES}
+    errs["flash_attention"] = 0.0
 
     # -- 3. kernels vs plain versions --------------------------------------
-    phase(3, "kernels vs plain versions, bit-exact (tolerance 0)")
+    phase(3, "kernels vs plain versions: bit-exact (tolerance 0), flash "
+             "attention within repro's float tolerances")
     conv_shapes = []
     for name, b in (("cifar9_s1", BATCH), ("mnist5", BATCH)):
         for _, h, w, c, f, pool in (st for st in
@@ -723,6 +980,20 @@ def main() -> None:
                                     max_abs_err(got, want))
         print(f"  binarize_pack M={m} K={k} (with 0.0, -0.0, NaN, "
               f"+/-1e-30): equal")
+    for label, b, sq, h, kh, d, causal in FLASH_SHAPES:
+        qkv = [torch.randn(shape, generator=gen) for shape in
+               ((b, sq, h, d), (b, sq, kh, d), (b, sq, kh, d))]
+        for dtype, tol in FLASH_TOL.items():
+            q, k, v = (x.to(dtype).to(dev) for x in qkv)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = close_err(got, want, tol)
+            if dtype == torch.bfloat16 and label == "SmolLM prefill":
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+            print(f"  flash_attention {label} B={b} S={sq} H={h} KH={kh} "
+                  f"D={d} causal={causal} {str(dtype)[6:]}: max abs err "
+                  f"{err:.3e} (tolerance {tol})")
 
     # -- 4. end to end -------------------------------------------------------
     phase(4, "end to end: staged == megakernel == float reference")
@@ -827,6 +1098,8 @@ def main() -> None:
               f"{len(frames)} frames, {e} escalated, counts "
               f"{counts.tolist()}; det == float reference, queue == host "
               f"rule, rec[:E] == float reference on the queued frames")
+
+    lm_checks(dev)
 
     # -- 5. serve ------------------------------------------------------------
     phase(5, f"serve {SERVE_REQUESTS} requests through ChipServer "
@@ -1089,6 +1362,9 @@ def main() -> None:
     print("  family results (label, computed, delta, variant, logits), "
           "per-variant ledger and bill on the card == plain versions")
 
+    lm_report, lm_counts = lm_serve(card)
+    launches["flash_attention"] = lm_counts["flash_attention"]
+
     # -- 6. train -> fold -> serve -------------------------------------------
     phase(6, f"train -> fold -> serve on the card (face_detector "
              f"{DETECTOR_STEPS} steps, owner_detector {OWNER_STEPS} steps, "
@@ -1103,8 +1379,8 @@ def main() -> None:
     phase(7, f"times (CUDA events, warm L2) [{card.smi}]")
     rows = {}
 
-    def row(name, ms, plain_ms, nbytes, word_ops, library_ms):
-        bound_ms, bound_by = card.bound(nbytes, word_ops)
+    def row(name, ms, plain_ms, nbytes, word_ops, library_ms, bound=None):
+        bound_ms, bound_by = bound or card.bound(nbytes, word_ops)
         rows[name] = dict(name=name, route="cuda", source=SOURCES[name],
                           replaces=REPLACES[name],
                           launches=launches[name],
@@ -1440,6 +1716,112 @@ def main() -> None:
                          f"{k[:48]} {v / 5 * 1e3:.1f} us" for k, v in top))
         else:
             line += "device time not measured (no device activity recorded)"
+        print(line + f" [{card.smi}]")
+
+    # flash attention at the serve's prefill (B=4, S=512, H=15, KH=5,
+    # D=64); the row is bf16, the serve's type.  Bound: q, k, v and o once
+    # each over HBM, or the causal FLOPs over the type's peak, the larger;
+    # library: one scaled_dot_product_attention call (B, H, S, D), GQA
+    _, b, sq, h, kh, d, causal = FLASH_SHAPES[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(dev)
+                   for shape in ((b, sq, h, d), (b, sq, kh, d),
+                                 (b, sq, kh, d)))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes = q.element_size() * 2 * (q.numel() + k.numel())
+        flops = attention_flops(b, sq, h, d, causal)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FLOP_PER_S[dtype] * 1e3
+        bound = (max(t_bytes, t_ops),
+                 "bytes" if t_bytes >= t_ops else "operations")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 50)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal), 5)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                      enable_gqa=True), 50)
+        if dtype == torch.bfloat16:
+            row("flash_attention", ms, plain_ms, nbytes, 0, lib_ms, bound)
+        else:
+            print(f"  flash_attention float32: {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}),"
+                  f" library {lib_ms:.4f} ms [{card.smi}]")
+        print(f"    {str(dtype)[6:]}: {flops / 1e9:.3f} GFLOP causal, "
+              f"{nbytes / 1e6:.2f} MB; kernel {flops / ms / 1e9:.2f} "
+              f"TFLOP/s")
+
+    # the LM serve, warm, then profiled: prefill ms, decode ms a token,
+    # tok/s, and the device's idle share over the whole serve (parameter
+    # init and the host's prompt generation included)
+    warm = []
+
+    def serve_lm():
+        with quiet():
+            warm.append(lm.main(list(LM_SERVE)))
+
+    wall_ms, kernels = device_profile(serve_lm, 1)
+    rep = warm[0]
+    line = (f"  LM serve {LM_ARCH} ({LM_REQUESTS} requests, batch "
+            f"{LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} tokens; warm): "
+            f"prefill {rep.prefill_ms} ms by batch, decode "
+            f"{rep.decode_ms_per_token} ms/token by batch, "
+            f"{rep.tokens_per_s:.2f} tok/s; profiled serve {wall_ms:.1f} ms")
+    if kernels:
+        busy = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+        line += (f", device busy {busy:.1f} ms (idle share "
+                 f"{1 - busy / wall_ms:.4f}), {len(kernels)} kernel names, "
+                 f"top: " + ", ".join(f"{n[:40]} {t:.1f} ms" for n, t in top))
+    else:
+        line += ", device time not measured (no device activity recorded)"
+    print(line + f" [{card.smi}]")
+    print(f"  LM serve first run (phase 5): prefill "
+          f"{lm_report.prefill_ms} ms, decode "
+          f"{lm_report.decode_ms_per_token} ms/token, "
+          f"{lm_report.tokens_per_s:.2f} tok/s")
+
+    # where a batch's time goes: one full-batch prefill and decode steps,
+    # profiled apart (host wall vs device busy, flash's share of prefill)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.models import transformer
+    from repro_torch.train import serve as lm_steps
+    cfg = get_config(LM_ARCH)
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    toks = torch.cat([dtok.batch_for_step(cfg, i, global_batch=1,
+                                          seq_len=LM_PROMPT,
+                                          device=dev)["tokens"]
+                      for i in range(LM_BATCH)])
+    prefill = lm_steps.build_prefill_step(cfg, max_len=LM_PROMPT + LM_GEN)
+    decode = lm_steps.build_decode_step(cfg)
+    state = {}
+
+    def prefill_once():
+        state["logits"], state["cache"] = prefill(params, {"tokens": toks})
+
+    def decode_steps():
+        cur = lm_steps.sample(None, state["logits"])
+        cache = state["cache"]
+        for t in range(8):
+            logits, cache = decode(params, cache, cur, LM_PROMPT + t)
+            cur = lm_steps.sample(None, logits)
+
+    for label, fn, per in (("prefill", prefill_once, 1),
+                           ("decode", decode_steps, 8)):
+        wall_ms, kernels = device_profile(fn, 3)
+        calls = 3 * per
+        line = (f"  LM {label} batch {LM_BATCH} (prompt {LM_PROMPT}), "
+                f"profiled: host {wall_ms / calls:.3f} ms a "
+                f"{'step' if per > 1 else 'call'}")
+        if kernels:
+            busy = sum(kernels.values())
+            line += (f", device busy {busy / calls:.3f} ms (idle share "
+                     f"{1 - busy / wall_ms:.4f}), {len(kernels)} kernel "
+                     f"names; " + kernel_split(kernels, calls,
+                                               ("flash_fwd_kernel", "nvjet",
+                                                "gemm", "elementwise")))
+        else:
+            line += ", device time not measured (no device activity recorded)"
         print(line + f" [{card.smi}]")
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))

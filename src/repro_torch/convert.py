@@ -1,6 +1,6 @@
-"""Carry ``repro``'s parameters, optimizer states, deployment artifacts
-and delta-gate state into the port, and parameters, optimizer states and
-the gate state back.
+"""Carry ``repro``'s parameters, optimizer states, deployment artifacts,
+delta-gate state and LM parameters into the port, and parameters,
+optimizer states, the gate state and LM parameters back.
 
 The functions take and give numpy arrays only (the caller does the
 ``np.asarray`` on the JAX side), so this module imports neither JAX nor
@@ -113,3 +113,43 @@ def state_to_numpy(last: torch.Tensor, llog: torch.Tensor
     words and int32 cached logits."""
     return (last.cpu().numpy().view(np.uint32),
             llog.cpu().numpy().astype(np.int32))
+
+
+def _lm_leaf(x, dev: torch.device) -> torch.Tensor:
+    x = np.ascontiguousarray(x)
+    if x.dtype.name == "bfloat16":       # ml_dtypes' bfloat16, bits kept
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(x.copy()).to(dev)
+
+
+def lm_params_from_numpy(tree, device=None):
+    """``repro``'s LM parameter pytree (nested dicts and lists of numpy
+    arrays, stacked ``blocks/pos{i}`` leaves included) -> the same nest of
+    tensors on ``device``, bit for bit, each leaf keeping its dtype."""
+    dev = _device.resolve(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return _lm_leaf(t, dev)
+
+    return walk(tree)
+
+
+def lm_params_to_numpy(tree):
+    """The way back: a nest of tensors -> the same nest of numpy arrays,
+    bit for bit, each leaf keeping its dtype.  numpy has no bfloat16 of
+    its own, so a bfloat16 leaf comes back as its bits in uint16; a
+    caller with a numpy bfloat16 type (``jnp.bfloat16``) views them as
+    that."""
+    if isinstance(tree, dict):
+        return {k: lm_params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()

@@ -8,7 +8,7 @@ launches its kernel or raises, and a tensor on any other device raises.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -16,11 +16,12 @@ from repro_torch.core import binarize
 from repro_torch.kernels import binarize_pack as _bp
 from repro_torch.kernels import binary_conv2x2 as _bc
 from repro_torch.kernels import binary_conv2x2_block as _bcb
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import megakernel as _mk
 from repro_torch.kernels import xnor_matmul as _xm
 
 _COUNTERS = (_bcb.LAUNCHES, _xm.LAUNCHES, _mk.LAUNCHES, _bc.LAUNCHES,
-             _bp.LAUNCHES)
+             _bp.LAUNCHES, _fa.LAUNCHES)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -146,6 +147,17 @@ def binary_linear(x: torch.Tensor, w_signs: torch.Tensor) -> torch.Tensor:
     w_words = binarize.pack_signs(w_signs, axis=-1)
     out = xnor_matmul(a_words, w_words, k)
     return out.reshape(lead + (w_signs.shape[0],))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """GQA attention forward with an online softmax: q (B, S, H, D), k and
+    v (B, S, KH, D) -> (B, S, H, D) in q's type, float32 or bfloat16."""
+    if _on_cuda(q):
+        return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+    _fa.check_args(q, k, v)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
 
 
 member_groups = _mk.member_groups

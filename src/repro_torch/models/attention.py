@@ -1,0 +1,246 @@
+"""GQA attention: chunked (flash-style) causal/sliding attention + decode.
+
+The counterpart of ``repro.models.attention``.  Prefill and train run an
+online softmax over KV chunks with a static chunk schedule
+(:func:`chunked_attention`); decode attends one new query against the
+cache (:func:`decode_attention`).  :func:`apply` routes ``mode="prefill"``
+through the flash-attention kernel (``kernels.ops.flash_attention``) for
+every config :func:`uses_flash` admits, as ``repro`` deploys its Pallas
+kernel on the TPU.
+
+One card has no mesh, so ``repro``'s sharding constraints
+(``shd.constrain``) are dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import common
+
+NEG_INF = -2.3819763e38  # bf16-safe large negative
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init(gen: torch.Generator, cfg, dtype=torch.float32, device=None,
+         lead=()):
+    d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    p = {
+        "wq": common.linear_init(gen, d, h * dh, bias=cfg.qkv_bias, **kw),
+        "wk": common.linear_init(gen, d, kv * dh, bias=cfg.qkv_bias, **kw),
+        "wv": common.linear_init(gen, d, kv * dh, bias=cfg.qkv_bias, **kw),
+        "wo": common.linear_init(gen, h * dh, d, **kw),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = common.rmsnorm_init(dh, **kw)
+        p["k_norm"] = common.rmsnorm_init(dh, **kw)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Core chunked attention
+# ---------------------------------------------------------------------------
+
+def _attend_chunk(q, k, softcap, scale, *, q0=0, k0=0, causal=False,
+                  window=None, k_valid=None):
+    """q: (B,cq,H,D) k: (B,ck,KH,D) -> float32 scores (B,cq,KH,G,ck)."""
+    b, cq, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, cq, kh, g, d)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(), k.float()) * scale
+    if softcap is not None:
+        s = common.softcap(s, softcap)
+    if causal or window is not None or k_valid is not None:
+        qi = torch.arange(cq, device=q.device)[:, None] + q0
+        ki = torch.arange(k.shape[1], device=q.device)[None, :] + k0
+        ok = torch.ones((cq, k.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            ok = ok & (ki <= qi)
+        if window is not None:
+            ok = ok & (ki > qi - window)
+        if k_valid is not None:
+            ok = ok & (ki < k_valid)
+        s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+    return s
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      chunk_q: int = 1024, chunk_k: int = 1024,
+                      scale: Optional[float] = None,
+                      probs_bf16: bool = False):
+    """q: (B,S,H,D), k/v: (B,S,KH,D) -> (B,S,H,D).  Causal within the same
+    sequence (q and k aligned at position 0); query chunk ``i`` visits only
+    the KV chunks its causal/window horizon allows.  ``probs_bf16`` rounds
+    the exp'd probabilities to bf16 for the p@v matmul (running max and
+    denominator stay float32)."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    cq = min(chunk_q, s)
+    ck = min(chunk_k, s)
+    sp = (-s) % cq
+    if sp:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, sp))
+    skp = (-k.shape[1]) % ck
+    if skp:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, skp))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, skp))
+    nq, nk = q.shape[1] // cq, k.shape[1] // ck
+    g = h // kh
+
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * cq:(i + 1) * cq]
+        q_lo, q_hi = i * cq, i * cq + cq - 1
+        j_hi = min(nk - 1, q_hi // ck) if causal else nk - 1
+        j_lo = 0
+        if window is not None:
+            j_lo = max(0, (q_lo - window) // ck)
+        acc = torch.zeros((b, cq, kh, g, d), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, cq, kh, g), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, cq, kh, g), dtype=torch.float32, device=q.device)
+        for j in range(j_lo, j_hi + 1):
+            kj = k[:, j * ck:(j + 1) * ck]
+            vj = v[:, j * ck:(j + 1) * ck]
+            need_mask = ((causal and j * ck + ck - 1 > q_lo)
+                         or (window is not None
+                             and j * ck < q_lo - window + cq)
+                         or (sp and i == nq - 1) or (skp and j == nk - 1))
+            sc = _attend_chunk(
+                qi, kj, softcap, scale, q0=q_lo, k0=j * ck,
+                causal=causal and need_mask,
+                window=window if need_mask else None,
+                k_valid=(k.shape[1] - skp) if (need_mask and skp
+                                               and j == nk - 1) else None)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            if probs_bf16:
+                # bf16 operands, float32 accumulation
+                pv = torch.einsum("bqhgk,bkhd->bqhgd",
+                                  p.to(torch.bfloat16).float(),
+                                  vj.to(torch.bfloat16).float())
+            else:
+                pv = torch.einsum("bqhgk,bkhd->bqhgd", p, vj.float())
+            acc = acc * alpha[..., None] + pv
+            l = l * alpha + p.sum(dim=-1)
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-37)
+        outs.append(out.reshape(b, cq, h, d))
+    out = torch.cat(outs, dim=1)[:, :s]
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len: int, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None):
+    """q: (B,1,H,D); caches: (B,L,KH,D); cache_len: count of valid
+    positions INCLUDING the token at cache_len-1 (the one just written)."""
+    b, _, h, d = q.shape
+    kh = k_cache.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qg = q.reshape(b, kh, g, d)
+    s = torch.einsum("bhgd,blhd->bhgl", qg, k_cache).float() * scale
+    if softcap is not None:
+        s = common.softcap(s, softcap)
+    lpos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = lpos < cache_len
+    if window is not None:
+        mask = mask & (lpos > cache_len - 1 - window)
+    s = torch.where(mask[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgl,blhd->bhgd", p, v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full block-level apply
+# ---------------------------------------------------------------------------
+
+def uses_flash(cfg, kind: str) -> bool:
+    """Whether prefill attention of a ``kind`` block goes through the
+    flash-attention kernel, decided from the config alone.
+
+    The kernel takes no sliding window and no score softcap.  It rounds p
+    to the activations' type before p.v, as the Pallas kernel does
+    (``p.astype(v.dtype)``): bf16 activations get bf16 probabilities, as
+    :func:`chunked_attention` computes them with ``probs_bf16``, and
+    float32 activations float32 ones.  A float32 config that asks for
+    bf16 probabilities (``chunked_attention`` then rounds p and v to
+    bf16) is the one the kernel does not compute, and stays chunked.  A
+    bf16 config that does not ask for them (SmolLM-360M's) takes the
+    kernel's bf16 probabilities where ``chunked_attention`` keeps float32
+    ones; ``chip_smoke.py`` bounds that difference at the config's
+    settings."""
+    window = cfg.sliding_window if kind == "local" else None
+    f32_with_bf16_probs = (cfg.attn_probs_bf16
+                           and common.dtype_of(cfg) == torch.float32)
+    return (window is None and cfg.attn_softcap is None
+            and not f32_with_bf16_probs)
+
+
+def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
+          mode: str = "train", cache=None, cache_len=None,
+          chunk_q: int = 1024, chunk_k: int = 1024):
+    """Returns (y, new_kv); new_kv is (k, v) for building or updating the
+    cache.
+
+    ``mode="prefill"`` runs ``ops.flash_attention`` (the CUDA kernel on a
+    card, its plain version on the CPU) where :func:`uses_flash` holds,
+    else :func:`chunked_attention`; ``mode="train"`` (the teacher-forced
+    forward) runs :func:`chunked_attention` on every device.  Decode
+    writes the new (k, v) into the preallocated cache IN PLACE at
+    ``cache_len`` (``repro`` returns an updated copy through
+    ``dynamic_update_slice``) and returns the same cache tensors.
+    """
+    b, s, d = x.shape
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    quant = cfg.quant
+    bfg = cfg.bf16_grads
+    q = common.linear_apply(params["wq"], x, quant=quant,
+                            bf16_grads=bfg).reshape(b, s, h, dh)
+    k = common.linear_apply(params["wk"], x, quant=quant,
+                            bf16_grads=bfg).reshape(b, s, kv, dh)
+    v = common.linear_apply(params["wv"], x, quant=quant,
+                            bf16_grads=bfg).reshape(b, s, kv, dh)
+    if cfg.qk_norm:
+        q = common.rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+        k = common.rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+    q = common.apply_rope(q, cos, sin)
+    k = common.apply_rope(k, cos, sin)
+
+    window = cfg.sliding_window if kind == "local" else None
+    if mode == "prefill" and uses_flash(cfg, kind):
+        y = ops.flash_attention(q, k, v, causal=True)
+        new_kv = (k, v)
+    elif mode in ("train", "prefill"):
+        y = chunked_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.attn_softcap,
+                              chunk_q=chunk_q, chunk_k=chunk_k,
+                              probs_bf16=cfg.attn_probs_bf16)
+        new_kv = (k, v)
+    else:  # decode: write (k, v) at position cache_len
+        kc, vc = cache
+        idx = int(cache_len)
+        kc[:, idx:idx + 1] = k.to(kc.dtype)
+        vc[:, idx:idx + 1] = v.to(vc.dtype)
+        y = decode_attention(q, kc, vc, idx + 1, window=window,
+                             softcap=cfg.attn_softcap)
+        new_kv = (kc, vc)
+    y = y.reshape(b, s, h * dh)
+    return common.linear_apply(params["wo"], y, quant=quant,
+                               bf16_grads=bfg), new_kv

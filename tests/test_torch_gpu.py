@@ -7,8 +7,9 @@ installed::
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Every kernel comparison is bit-exact (tolerance 0), at main-path shapes;
-the training step is held to ``optimizers.step_tolerance``;
+Every kernel of the chip tier is held bit-exact (tolerance 0), at
+main-path shapes, and flash attention to repro's float tolerances; the
+training step is held to ``optimizers.step_tolerance``;
 ``chip_smoke.py`` runs the full set.
 """
 
@@ -295,3 +296,44 @@ def test_training_step_on_the_card_equals_the_cpu():
     xs = torch.randn((64, 960), generator=torch.Generator().manual_seed(7))
     assert torch.equal(binary_layers.apply_infer(bl, xs.cuda()),
                        binary_layers.apply_train(bl, xs.cuda()))
+
+
+@pytest.mark.gpu
+def test_flash_attention_matches_plain_version_on_the_card():
+    """The flash-attention kernel vs its plain version at two small shapes
+    (G = 3 with a ragged S; MQA with D = 128, not causal): float32 within
+    2e-5, bfloat16 within 3e-2 (repro's tolerances), and a prefill of a
+    small float32 SmolLM-shaped model through the kernel launches it once
+    per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    gen = torch.Generator().manual_seed(11)
+    for b, s, h, kh, d, causal in ((2, 77, 6, 2, 64, True),
+                                   (1, 130, 8, 1, 128, False)):
+        qkv = [torch.randn(shape, generator=gen) for shape in
+               ((b, s, h, d), (b, s, kh, d), (b, s, kh, d))]
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+            q, k, v = (x.to(dtype).cuda() for x in qkv)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype
+            assert torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol), (b, s, h, kh, d, dtype)
+    cfg = get_config("smollm-360m").with_(num_layers=3, d_model=192,
+                                          num_heads=6, num_kv_heads=2,
+                                          d_ff=256, vocab_size=1000,
+                                          dtype="float32")
+    params = transformer.init_params(cfg, seed=1, device="cuda")
+    toks = torch.randint(0, 1000, (2, 40), generator=gen).to(torch.int32)
+    ops.reset_launch_counts()
+    h, _, _ = transformer.forward(params, cfg, {"tokens": toks.cuda()},
+                                  mode="prefill")
+    assert ops.launch_counts()["flash_attention"] == 3
+    ref, _, _ = transformer.forward(params, cfg, {"tokens": toks.cuda()},
+                                    mode="train")
+    assert torch.allclose(h, ref, rtol=1e-4, atol=1e-4)

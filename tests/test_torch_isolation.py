@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package ``repro``.
+``chip_smoke.py``, imports JAX, its ``ml_dtypes`` or the JAX package
+``repro``.
 
 Checked twice: dynamically, by importing every module in a fresh
 interpreter and inspecting ``sys.modules``, and statically, by scanning
@@ -20,7 +21,7 @@ SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def test_importing_every_module_loads_no_jax():
