@@ -23,9 +23,10 @@ Phases: 1 environment, 2 build, 3 kernels vs plain versions, 4 end to end
 float reference; the fused cascade vs the float references and the host
 rule; SmolLM-360M in float32: prefill logits through the kernel == through
 its plain version, prefill + 4 decode steps == the teacher-forced
-forward), 5 serve (the chip tier; the LM serve, its flash launches and
-bf16 greedy agreement between kernel and plain runs), 6 train -> fold ->
-serve (the STE training of
+forward; in bf16 the kernel at each probability type == chunked attention
+at the same one), 5 serve (the chip tier; the LM serve, its flash launches
+and bf16 greedy agreement between kernel and plain runs), 6 train -> fold
+-> serve (the STE training of
 ``face_detector`` and ``owner_detector``, each step on the card held
 against the same step on the CPU; the packed conv against the float conv
 on the trained weights; the folded detector served through ``ChipServer``;
@@ -124,7 +125,8 @@ LM_CHECK = (2, 512, 4)                 # batch, prompt, decode steps (fp32)
 # tests/test_serve_equiv.py); the sums run in other orders 32 layers deep
 LM_TOL = 2e-4
 # flash attention vs its plain version: (label, B, S, H, KH, D, causal),
-# the serve's prefill at its pull sizes 4 and 1 first
+# the serve's prefill at its pull sizes 4 and 1 first; each in float32 and
+# in bf16 at both probability types (FLASH_PROBS)
 FLASH_SHAPES = (("SmolLM prefill", 4, 512, 15, 5, 64, True),
                 ("SmolLM prefill", 1, 512, 15, 5, 64, True),
                 ("MHA", 2, 256, 8, 8, 64, True),
@@ -133,13 +135,18 @@ FLASH_SHAPES = (("SmolLM prefill", 4, 512, 15, 5, 64, True),
                 ("ragged S", 3, 333, 15, 5, 64, True),
                 ("non-causal", 2, 200, 6, 2, 64, False))
 # repro's tolerances (tests/test_kernels_flash.py): float32 sums in other
-# orders; in bf16, p rounds to bf16 at the same place in both
+# orders; in bf16 the output rounds to bf16 (and p too, with probs_bf16)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-# bf16's unit roundoff: SmolLM-360M's config keeps float32 probabilities
-# in chunked attention where the kernel rounds p to bf16, so the two
-# outputs differ by at most U_BF16 * max|v| (p's rounding) plus half an ulp
-# of each output's rounding to bf16 (U_BF16 * |out| each)
-U_BF16 = 2.0 ** -8
+# bf16's probability types: p and v rounded to bf16 before p.v (like for
+# like with SDPA), or float32 p (SmolLM-360M's attn_probs_bf16=False)
+FLASH_PROBS = (True, False)
+# the two probability types differ by a few bf16 ulps at most, so the max
+# error cannot tell a kernel that ignores probs_bf16 from a sound one; the
+# mean can: a sound kernel's mean abs error to its reference at the same
+# type is this many times below its mean abs error to the other type's,
+# and a kernel ignoring the type swaps the two (the plain version against
+# chunked attention: tests/test_torch_flash.py)
+PROBS_SEPARATION = 10.0
 
 
 def sh(*cmd: str) -> str:
@@ -213,6 +220,15 @@ def device_profile(fn, iters: int):
     return wall_ms, kernels
 
 
+def device_ms(fn, iters: int, name: str = ""):
+    """Device time of one call of ``fn``: its CUDA kernels whose names hold
+    ``name`` (all of them for ""), from ``torch.profiler`` over ``iters``
+    calls; None when the profiler records no device activity."""
+    _, kernels = device_profile(fn, iters)
+    hits = [ms for k, ms in kernels.items() if name in k]
+    return sum(hits) / iters if hits else None
+
+
 def kernel_split(kernels, iters: int, names) -> str:
     """Device microseconds per call of the named kernels (substrings of
     the mangled names) and of everything else the profile holds."""
@@ -251,6 +267,21 @@ def close_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     return err
 
 
+def probs_type_errs(got, same, other, what: str):
+    """Mean abs errors of ``got`` to ``same`` (the reference at its own
+    probability type) and to ``other`` (at the other type); raises unless
+    the first is PROBS_SEPARATION times below the second."""
+    e_same = float((got.float() - same.float()).abs().mean())
+    e_other = float((got.float() - other.float()).abs().mean())
+    if not e_same * PROBS_SEPARATION < e_other:
+        raise AssertionError(
+            f"{what}: mean abs err {e_same:.3e} to the reference at its own "
+            f"probability type is not {PROBS_SEPARATION}x below the "
+            f"{e_other:.3e} to the other type's: the kernel does not compute "
+            f"the probability type it was asked for")
+    return e_same, e_other
+
+
 def quiet():
     """Keep a run's own printing out of the smoke's output."""
     return contextlib.redirect_stdout(io.StringIO())
@@ -263,9 +294,10 @@ def plain_attention():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     real = ops.flash_attention
-    ops.flash_attention = (lambda q, k, v, *, causal=True, scale=None:
-                           fa.flash_attention_plain(q, k, v, causal=causal,
-                                                    scale=scale))
+    ops.flash_attention = (
+        lambda q, k, v, *, causal=True, scale=None, probs_bf16=None:
+        fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                 probs_bf16=probs_bf16))
     try:
         yield
     finally:
@@ -279,12 +311,24 @@ def attention_flops(b: int, s: int, h: int, d: int, causal: bool) -> int:
     return 4 * d * pairs
 
 
+def flash_block_tiles(b: int, s: int, h: int, kh: int, causal: bool):
+    """(block-tiles, heaviest block's tiles) of the bf16 kernel's schedule:
+    a block per 64 rows (position, g) of one (batch, KV head), each
+    visiting 64-key tiles up to its last row's diagonal."""
+    g, total, heaviest = h // kh, 0, 0
+    for r0 in range(0, s * g, 64):
+        n_keys = (min(r0 + 64, s * g) - 1) // g + 1 if causal else s
+        n = -(-n_keys // 64)
+        total, heaviest = total + n, max(heaviest, n)
+    return b * kh * total, heaviest
+
+
 def lm_checks(dev) -> None:
     """Phase 4's LM part: SmolLM-360M at full width in float32 (random
     weights from a seed).  Prefill logits through the flash kernel ==
     through its plain version, and prefill + decode steps == the
     teacher-forced forward (plain chunked attention), within LM_TOL; then
-    the bf16 probabilities of :func:`lm_bf16_probs`."""
+    the bf16 checks of :func:`lm_bf16_probs`."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
@@ -344,12 +388,12 @@ def lm_checks(dev) -> None:
 
 
 def lm_bf16_probs(dev, params, toks) -> None:
-    """SmolLM-360M at its own bf16 settings (``attn_probs_bf16=False``):
-    the kernel's bf16 probabilities against ``chunked_attention``'s
-    float32 ones, which ``repro`` serves.  One attention call at the
-    serve's prefill shape, held to the bound of ``U_BF16``; then the
-    prompt's logits through 32 layers, kernel (prefill) vs chunked
-    (teacher-forced), each also against the float32 forward (reported)."""
+    """SmolLM-360M in bf16: the kernel at each probability type against
+    ``chunked_attention`` at the same one, within repro's bf16 tolerance,
+    at the serve's prefill shape (``probs_bf16=False`` is the config's own
+    setting, which ``repro`` serves); then the prompt's logits through 32
+    layers, kernel (prefill) vs chunked (teacher-forced), each also against
+    the float32 forward (reported)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention, transformer
@@ -358,24 +402,34 @@ def lm_bf16_probs(dev, params, toks) -> None:
     q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
     k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).bfloat16()
             for _ in range(2))
-    got = fa.flash_attention(q, k, v, causal=True).float()
-    for probs_bf16 in (True, False):
-        want = attention.chunked_attention(q, k, v, causal=True,
-                                           probs_bf16=probs_bf16).float()
-        err = float((got - want).abs().max())
-        if probs_bf16:
-            tol, why = FLASH_TOL[torch.bfloat16], "repro's bf16 tolerance"
-        else:
-            tol = float(U_BF16 * (v.float().abs().max() + 2 * (1 + U_BF16)
-                                  * want.abs().max())) + 1e-5
-            why = "U_BF16 * (max|v| + 2 max|out|)"
+    tol = FLASH_TOL[torch.bfloat16]
+    chunked = {p: attention.chunked_attention(q, k, v, causal=True,
+                                              probs_bf16=p)
+               for p in FLASH_PROBS}
+    for probs_bf16 in FLASH_PROBS:
+        got = fa.flash_attention(q, k, v, causal=True, probs_bf16=probs_bf16)
+        want, other = chunked[probs_bf16], chunked[not probs_bf16]
+        err = float((got.float() - want.float()).abs().max())
         if not err <= tol:
             raise AssertionError(f"bf16 flash vs chunked attention "
                                  f"(probs_bf16={probs_bf16}): max abs err "
                                  f"{err} beyond {tol}")
-        print(f"  bf16 flash kernel vs chunked_attention(probs_bf16="
-              f"{probs_bf16}), B={b} S={s} H={h} KH={kh} D={d}: max abs err "
-              f"{err:.3e} (bound {tol:.3e}, {why})")
+        # chunked rounds bf16 p at its own chunks' running max, not at the
+        # kernel's 64-key tiles', so only float32 p separates from the
+        # other type here (True's mean errors are reported)
+        if probs_bf16:
+            means = tuple(float((got.float() - x.float()).abs().mean())
+                          for x in (want, other))
+        else:
+            means = probs_type_errs(got, want, other,
+                                    "bf16 flash vs chunked attention "
+                                    "(probs_bf16=False)")
+        print(f"  bf16 flash kernel vs chunked_attention, both probs_bf16="
+              f"{probs_bf16}, B={b} S={s} H={h} KH={kh} D={d}: max abs err "
+              f"{err:.3e} (tolerance {tol}); mean abs err {means[0]:.3e}, "
+              f"to chunked at probs_bf16={not probs_bf16} {means[1]:.3e}"
+              + ("" if probs_bf16 else
+                 f" (held {PROBS_SEPARATION}x apart)"))
 
     cfg16 = get_config(LM_ARCH)
     logits = {}
@@ -985,15 +1039,30 @@ def main() -> None:
                ((b, sq, h, d), (b, sq, kh, d), (b, sq, kh, d))]
         for dtype, tol in FLASH_TOL.items():
             q, k, v = (x.to(dtype).to(dev) for x in qkv)
-            got = fa.flash_attention(q, k, v, causal=causal)
-            want = fa.flash_attention_plain(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            err = close_err(got, want, tol)
-            if dtype == torch.bfloat16 and label == "SmolLM prefill":
-                errs["flash_attention"] = max(errs["flash_attention"], err)
-            print(f"  flash_attention {label} B={b} S={sq} H={h} KH={kh} "
-                  f"D={d} causal={causal} {str(dtype)[6:]}: max abs err "
-                  f"{err:.3e} (tolerance {tol})")
+            for probs_bf16 in (FLASH_PROBS if dtype == torch.bfloat16
+                               else (None,)):
+                got = fa.flash_attention(q, k, v, causal=causal,
+                                         probs_bf16=probs_bf16)
+                want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                probs_bf16=probs_bf16)
+                torch.cuda.synchronize()
+                err = close_err(got, want, tol)
+                what = (f"flash_attention {label} B={b} S={sq} H={h} "
+                        f"KH={kh} D={d} causal={causal} {str(dtype)[6:]}"
+                        + (f" probs_bf16={probs_bf16}"
+                           if probs_bf16 is not None else ""))
+                if probs_bf16 is not None:
+                    means = probs_type_errs(
+                        got, want, fa.flash_attention_plain(
+                            q, k, v, causal=causal,
+                            probs_bf16=not probs_bf16), what)
+                if dtype == torch.bfloat16 and label == "SmolLM prefill":
+                    errs["flash_attention"] = max(errs["flash_attention"],
+                                                  err)
+                print(f"  {what}: max abs err {err:.3e} (tolerance {tol})"
+                      + (f"; mean abs err {means[0]:.3e}, to the other "
+                         f"type's plain {means[1]:.3e}"
+                         if probs_bf16 is not None else ""))
 
     # -- 4. end to end -------------------------------------------------------
     phase(4, "end to end: staged == megakernel == float reference")
@@ -1379,18 +1448,22 @@ def main() -> None:
     phase(7, f"times (CUDA events, warm L2) [{card.smi}]")
     rows = {}
 
-    def row(name, ms, plain_ms, nbytes, word_ops, library_ms, bound=None):
+    # timed_by names what ms and library_ms measure: "cuda_events", the
+    # mean over back-to-back calls (host launch path included), or
+    # "profiler_device", the device time a call from torch.profiler
+    def row(name, ms, plain_ms, nbytes, word_ops, library_ms, bound=None,
+            timed_by="cuda_events"):
         bound_ms, bound_by = bound or card.bound(nbytes, word_ops)
         rows[name] = dict(name=name, route="cuda", source=SOURCES[name],
                           replaces=REPLACES[name],
                           launches=launches[name],
                           max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
+                          library_ms=library_ms, timed_by=timed_by)
         print(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.5f} ms ({bound_by}), library "
               + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
-              + f" [{card.smi}]")
+              + f" (timed by {timed_by}) [{card.smi}]")
 
     # conv_block: the 8 conv layers of one cifar9_s1 dispatch at batch 8
     conv = [s for s in conv_shapes if s[0] == "cifar9_s1"]
@@ -1719,10 +1792,19 @@ def main() -> None:
         print(line + f" [{card.smi}]")
 
     # flash attention at the serve's prefill (B=4, S=512, H=15, KH=5,
-    # D=64); the row is bf16, the serve's type.  Bound: q, k, v and o once
-    # each over HBM, or the causal FLOPs over the type's peak, the larger;
-    # library: one scaled_dot_product_attention call (B, H, S, D), GQA
+    # D=64); the row is bf16, the serve's type, at probs_bf16=True (like
+    # for like with SDPA, which rounds p to bf16 too), the serve's own
+    # float32 p timed beside it.  At this shape a call's host path (the
+    # wrapper's checks, ctypes; SDPA's dispatch) takes longer than the
+    # kernel, so the row's ms and library ms are device times a call from
+    # torch.profiler (timed_by "profiler_device"); back-to-back CUDA
+    # events, printed beside, are the host path's cost a call, and stand
+    # in for both (timed_by "cuda_events") where the profiler records no
+    # device activity.  Bound: q, k, v and o once each over HBM, or the
+    # causal FLOPs over the type's peak, the larger; library: one
+    # scaled_dot_product_attention call (B, H, S, D), GQA
     _, b, sq, h, kh, d, causal = FLASH_SHAPES[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(dev)
                    for shape in ((b, sq, h, d), (b, sq, kh, d),
@@ -1734,21 +1816,65 @@ def main() -> None:
         t_ops = flops / FLOP_PER_S[dtype] * 1e3
         bound = (max(t_bytes, t_ops),
                  "bytes" if t_bytes >= t_ops else "operations")
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 50)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=causal), 5)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                      enable_gqa=True), 50)
-        if dtype == torch.bfloat16:
-            row("flash_attention", ms, plain_ms, nbytes, 0, lib_ms, bound)
-        else:
-            print(f"  flash_attention float32: {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}),"
-                  f" library {lib_ms:.4f} ms [{card.smi}]")
-        print(f"    {str(dtype)[6:]}: {flops / 1e9:.3f} GFLOP causal, "
-              f"{nbytes / 1e6:.2f} MB; kernel {flops / ms / 1e9:.2f} "
-              f"TFLOP/s")
+
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        lib_events = time_ms(lib, 200, warmup=20)
+        lib_device = device_ms(lib, 50)
+        for probs_bf16 in (FLASH_PROBS if dtype == torch.bfloat16
+                           else (None,)):
+            kw = dict(causal=causal, probs_bf16=probs_bf16)
+
+            def kernel():
+                return fa.flash_attention(q, k, v, **kw)
+
+            events = time_ms(kernel, 200, warmup=20)
+            ms, lib_ms = device_ms(kernel, 50, "flash_fwd"), lib_device
+            timed_by = "profiler_device"
+            if ms is None or lib_ms is None:
+                ms, lib_ms, timed_by = events, lib_events, "cuda_events"
+            plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                                **kw), 5)
+            label = (f"{str(dtype)[6:]}"
+                     + (f" probs_bf16={probs_bf16}"
+                        if probs_bf16 is not None else ""))
+            if probs_bf16:
+                row("flash_attention", ms, plain_ms, nbytes, 0, lib_ms,
+                    bound, timed_by)
+                row_ms = ms
+            else:
+                print(f"  flash_attention {label}: {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms "
+                      f"({bound[1]}), library {lib_ms:.4f} ms (timed by "
+                      f"{timed_by}) [{card.smi}]")
+            print(f"    {label}: {flops / 1e9:.3f} GFLOP causal, "
+                  f"{nbytes / 1e6:.2f} MB; a call ({timed_by}): kernel "
+                  f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), SDPA "
+                  f"{lib_ms:.4f} ms ({flops / lib_ms / 1e9:.2f} TFLOP/s); "
+                  f"host path a call (CUDA events back to back): kernel "
+                  f"{events:.4f} ms, SDPA {lib_events:.4f} ms")
+
+    # what bounds the bf16 kernel: at B=1 its 120 blocks each hold an SM
+    # alone, so a call is the heaviest block's chain of key tiles (the
+    # latency of a tile); at the row's B=4 three blocks share an SM, so
+    # the row's time over the block-tiles an SM computes is the SM's rate
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16().to(dev)
+               for shape in ((1, sq, h, d), (1, sq, kh, d), (1, sq, kh, d)))
+    lone = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                probs_bf16=True),
+                     50, "flash_fwd")
+    _, heaviest = flash_block_tiles(1, sq, h, kh, causal)
+    tiles, _ = flash_block_tiles(b, sq, h, kh, causal)
+    print("    bf16 probs_bf16=True, device a call: "
+          + (f"B=1 {lone:.4f} ms, {lone / heaviest * 1e3:.3f} us a key tile "
+             f"of the heaviest block ({heaviest} tiles); "
+             if lone is not None else "B=1 not measured (no device "
+             "activity recorded); ")
+          + (f"B={b} {row_ms * card.sms / tiles * 1e3:.3f} us a 64 x 64 "
+             f"block-tile an SM ({tiles} block-tiles)"
+             if rows["flash_attention"]["timed_by"] == "profiler_device"
+             else f"B={b} not measured"))
 
     # the LM serve, warm, then profiled: prefill ms, decode ms a token,
     # tok/s, and the device's idle share over the whole serve (parameter
@@ -1818,7 +1944,7 @@ def main() -> None:
             line += (f", device busy {busy / calls:.3f} ms (idle share "
                      f"{1 - busy / wall_ms:.4f}), {len(kernels)} kernel "
                      f"names; " + kernel_split(kernels, calls,
-                                               ("flash_fwd_kernel", "nvjet",
+                                               ("flash_fwd", "nvjet",
                                                 "gemm", "elementwise")))
         else:
             line += ", device time not measured (no device activity recorded)"

@@ -150,14 +150,17 @@ def binary_linear(x: torch.Tensor, w_signs: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    probs_bf16: Optional[bool] = None) -> torch.Tensor:
     """GQA attention forward with an online softmax: q (B, S, H, D), k and
-    v (B, S, KH, D) -> (B, S, H, D) in q's type, float32 or bfloat16."""
+    v (B, S, KH, D) -> (B, S, H, D) in q's type, float32 or bfloat16.
+    ``probs_bf16`` is ``chunked_attention``'s (bf16 or float32 p . v);
+    ``None`` rounds p to v's type."""
+    kw = dict(causal=causal, scale=scale, probs_bf16=probs_bf16)
     if _on_cuda(q):
-        return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+        return _fa.flash_attention(q, k, v, **kw)
     _fa.check_args(q, k, v)
-    return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return _fa.flash_attention_plain(q, k, v, **kw)
 
 
 member_groups = _mk.member_groups

@@ -175,22 +175,13 @@ def uses_flash(cfg, kind: str) -> bool:
     """Whether prefill attention of a ``kind`` block goes through the
     flash-attention kernel, decided from the config alone.
 
-    The kernel takes no sliding window and no score softcap.  It rounds p
-    to the activations' type before p.v, as the Pallas kernel does
-    (``p.astype(v.dtype)``): bf16 activations get bf16 probabilities, as
-    :func:`chunked_attention` computes them with ``probs_bf16``, and
-    float32 activations float32 ones.  A float32 config that asks for
-    bf16 probabilities (``chunked_attention`` then rounds p and v to
-    bf16) is the one the kernel does not compute, and stays chunked.  A
-    bf16 config that does not ask for them (SmolLM-360M's) takes the
-    kernel's bf16 probabilities where ``chunked_attention`` keeps float32
-    ones; ``chip_smoke.py`` bounds that difference at the config's
-    settings."""
+    The kernel takes no sliding window and no score softcap; it computes
+    the config's probability type, as :func:`chunked_attention` does
+    (``probs_bf16=cfg.attn_probs_bf16``: bf16 p and v before p.v, or
+    float32 p, which the bf16 kernel carries as two bf16 halves on the
+    tensor cores)."""
     window = cfg.sliding_window if kind == "local" else None
-    f32_with_bf16_probs = (cfg.attn_probs_bf16
-                           and common.dtype_of(cfg) == torch.float32)
-    return (window is None and cfg.attn_softcap is None
-            and not f32_with_bf16_probs)
+    return window is None and cfg.attn_softcap is None
 
 
 def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
@@ -225,7 +216,8 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
 
     window = cfg.sliding_window if kind == "local" else None
     if mode == "prefill" and uses_flash(cfg, kind):
-        y = ops.flash_attention(q, k, v, causal=True)
+        y = ops.flash_attention(q, k, v, causal=True,
+                                probs_bf16=cfg.attn_probs_bf16)
         new_kv = (k, v)
     elif mode in ("train", "prefill"):
         y = chunked_attention(q, k, v, causal=True, window=window,

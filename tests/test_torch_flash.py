@@ -116,6 +116,68 @@ def test_plain_bf16_against_chunked_probability_types(probs_bf16):
         assert 0 < err <= bound
 
 
+# the probability type (probs_bf16 of chunked_attention, which the LM's
+# attention passes from cfg.attn_probs_bf16): the plain version at either
+# setting against chunked_attention at the same one, (b, s, h, kh, d): G=3
+# at D=64, G=4 at D=128, and ragged S (37 with G=3, 100 at SmolLM's heads)
+PROB_SHAPES = {"g3_d64": (2, 64, 6, 2, 64), "g4_d128": (1, 64, 8, 2, 128),
+               "ragged37": (2, 37, 6, 2, 64), "ragged100": (1, 100, 15, 5, 64)}
+
+
+@pytest.mark.parametrize("probs_bf16", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(PROB_SHAPES))
+def test_plain_matches_chunked_attention_at_probability_type(shape, dtype,
+                                                             probs_bf16):
+    b, s, h, kh, d = PROB_SHAPES[shape]
+    qkv = _qkv(s + d, b, s, h, kh, d)
+    got = ops.flash_attention(*(_torch(x, dtype) for x in qkv), causal=True,
+                              probs_bf16=probs_bf16)
+    assert got.dtype == getattr(torch, dtype)
+    want = chunked_attention(*(_jax(x, dtype) for x in qkv), causal=True,
+                             chunk_q=32, chunk_k=32, probs_bf16=probs_bf16)
+    # float32 throughout only for float32 inputs with float32 probabilities
+    tol = TOL["bfloat16" if probs_bf16 else dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("shape", sorted(PROB_SHAPES))
+def test_float32_probabilities_separate_from_bf16_on_the_mean(shape):
+    """The two probability types differ by a few bf16 ulps at most, inside
+    3e-2, so the max error cannot tell them apart; the mean can.  In bf16,
+    float32 p sits more than ten times closer on the mean to chunked
+    attention with float32 p than to it with bf16 p, and bf16 p (what a
+    version ignoring the setting would give) does not: the rule
+    ``chip_smoke.py`` holds the kernel to."""
+    b, s, h, kh, d = PROB_SHAPES[shape]
+    qkv = _qkv(s + d + 1, b, s, h, kh, d)
+    want = {p: torch.from_numpy(np.asarray(chunked_attention(
+        *(_jax(x, "bfloat16") for x in qkv), causal=True, chunk_q=32,
+        chunk_k=32, probs_bf16=p), np.float32)) for p in (True, False)}
+
+    def means(got):
+        return [float((got.float() - want[p]).abs().mean())
+                for p in (False, True)]
+
+    q, k, v = (_torch(x, "bfloat16") for x in qkv)
+    same, other = means(fa.flash_attention_plain(q, k, v, probs_bf16=False))
+    assert same * 10 < other
+    same, other = means(fa.flash_attention_plain(q, k, v, probs_bf16=True))
+    assert not same * 10 < other
+
+
+def test_probability_type_none_rounds_p_to_v_type():
+    qkv = [_torch(x, "bfloat16") for x in _qkv(3, 1, 70, 6, 2, 64)]
+    for dtype, same in ((torch.bfloat16, True), (torch.float32, False)):
+        q, k, v = (x.to(dtype) for x in qkv)
+        want = fa.flash_attention_plain(q, k, v, probs_bf16=same)
+        assert torch.equal(fa.flash_attention_plain(q, k, v), want)
+        assert not torch.equal(
+            fa.flash_attention_plain(q, k, v, probs_bf16=not same), want)
+
+
 def test_cpu_path_launches_nothing_and_kernel_wants_cuda():
     q, k, v = (_torch(x, "float32") for x in _qkv(0, 1, 16, 2, 1, 64))
     ops.reset_launch_counts()

@@ -300,11 +300,15 @@ def test_training_step_on_the_card_equals_the_cpu():
 
 @pytest.mark.gpu
 def test_flash_attention_matches_plain_version_on_the_card():
-    """The flash-attention kernel vs its plain version at two small shapes
-    (G = 3 with a ragged S; MQA with D = 128, not causal): float32 within
-    2e-5, bfloat16 within 3e-2 (repro's tolerances), and a prefill of a
-    small float32 SmolLM-shaped model through the kernel launches it once
-    per layer."""
+    """The flash-attention kernel vs its plain version at three small shapes
+    (G = 3 with a ragged S, whose 16-row fragments straddle positions; G = 4
+    with D = 128; MQA with D = 128, not causal), in both types and every
+    probability type: within 2e-5 where the chain is float32 throughout,
+    3e-2 where p or the output is bf16 (repro's tolerances), and at a given
+    probability type ten times closer on the mean to the plain version at
+    that type than at the other.  Prefills of a
+    small SmolLM-shaped model through the kernel, float32 and bf16, launch
+    it once per layer and match the chunked forward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.configs.registry import get_config
@@ -313,27 +317,48 @@ def test_flash_attention_matches_plain_version_on_the_card():
     from repro_torch.models import transformer
     gen = torch.Generator().manual_seed(11)
     for b, s, h, kh, d, causal in ((2, 77, 6, 2, 64, True),
+                                   (1, 96, 16, 4, 128, True),
                                    (1, 130, 8, 1, 128, False)):
         qkv = [torch.randn(shape, generator=gen) for shape in
                ((b, s, h, d), (b, s, kh, d), (b, s, kh, d))]
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (x.to(dtype).cuda() for x in qkv)
-            got = fa.flash_attention(q, k, v, causal=causal)
-            want = fa.flash_attention_plain(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            assert got.dtype == dtype
-            assert torch.allclose(got.float(), want.float(), rtol=tol,
-                                  atol=tol), (b, s, h, kh, d, dtype)
+            for probs_bf16 in (None, True, False):
+                f32_chain = (dtype == torch.float32
+                             and not fa.bf16_probs_of(dtype, probs_bf16))
+                tol = 2e-5 if f32_chain else 3e-2
+                got = fa.flash_attention(q, k, v, causal=causal,
+                                         probs_bf16=probs_bf16)
+                want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                probs_bf16=probs_bf16)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype
+                assert torch.allclose(got.float(), want.float(), rtol=tol,
+                                      atol=tol), (b, s, h, kh, d, dtype,
+                                                  probs_bf16)
+                if probs_bf16 is not None:
+                    # the types differ by a few ulps at most, inside the
+                    # tolerance; the mean error tells them apart (a sound
+                    # kernel sits hundreds of times closer to its own)
+                    other = fa.flash_attention_plain(
+                        q, k, v, causal=causal, probs_bf16=not probs_bf16)
+                    e_same, e_other = ((got.float() - x.float()).abs().mean()
+                                       for x in (want, other))
+                    assert e_same * 10 < e_other, (b, s, h, kh, d, dtype,
+                                                   probs_bf16, float(e_same),
+                                                   float(e_other))
     cfg = get_config("smollm-360m").with_(num_layers=3, d_model=192,
                                           num_heads=6, num_kv_heads=2,
                                           d_ff=256, vocab_size=1000,
                                           dtype="float32")
     params = transformer.init_params(cfg, seed=1, device="cuda")
     toks = torch.randint(0, 1000, (2, 40), generator=gen).to(torch.int32)
-    ops.reset_launch_counts()
-    h, _, _ = transformer.forward(params, cfg, {"tokens": toks.cuda()},
-                                  mode="prefill")
-    assert ops.launch_counts()["flash_attention"] == 3
-    ref, _, _ = transformer.forward(params, cfg, {"tokens": toks.cuda()},
-                                    mode="train")
-    assert torch.allclose(h, ref, rtol=1e-4, atol=1e-4)
+    for c, tol in ((cfg, 1e-4), (cfg.with_(dtype="bfloat16"), 3e-2)):
+        ops.reset_launch_counts()
+        h, _, _ = transformer.forward(params, c, {"tokens": toks.cuda()},
+                                      mode="prefill")
+        assert ops.launch_counts()["flash_attention"] == 3
+        ref, _, _ = transformer.forward(params, c, {"tokens": toks.cuda()},
+                                        mode="train")
+        assert torch.isfinite(h).all()
+        assert torch.allclose(h.float(), ref.float(), rtol=tol, atol=tol)

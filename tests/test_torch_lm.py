@@ -219,6 +219,32 @@ def test_attention_prefill_and_decode_match_repro(arch, kind):
         _close(t, j, 1e-5)
 
 
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-8b"])
+def test_attention_prefill_with_bf16_probs_matches_repro(arch):
+    """A float32 config with ``attn_probs_bf16``: the port's prefill (the
+    flash route) vs ``repro``'s (``chunked_attention(probs_bf16=True)``),
+    within repro's bf16 tolerance (p rounds to bf16 in both, from running
+    maxima of other tile sizes)."""
+    jcfg, tcfg, jparams, tparams = _params(arch, seed=1)
+    jcfg, tcfg = (c.with_(attn_probs_bf16=True) for c in (jcfg, tcfg))
+    assert tattn.uses_flash(tcfg, "attn")
+    jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["pos0"])["attn"]
+    tp = ttf.tree_index(tparams["blocks"]["pos0"], 0)["attn"]
+    rng = np.random.default_rng(6)
+    b, s = 2, 20
+    x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s), (b, s))
+    jc, js = jcommon.rope_cos_sin(jnp.asarray(pos), jcfg.head_dim,
+                                  jcfg.rope_theta)
+    tc, ts = tcommon.rope_cos_sin(torch.from_numpy(pos.copy()),
+                                  tcfg.head_dim, tcfg.rope_theta)
+    jy, _ = jattn.apply(jp, jcfg, jnp.asarray(x), jc, js, mode="prefill",
+                        chunk_q=8, chunk_k=8)
+    ty, _ = tattn.apply(tp, tcfg, torch.from_numpy(x), tc, ts,
+                        mode="prefill")
+    _close(ty, jy, 3e-2)
+
+
 @pytest.mark.parametrize("window,softcap", [(None, None), (6, None),
                                             (None, 20.0), (5, 10.0)])
 def test_chunked_attention_matches_repro(window, softcap):
@@ -256,14 +282,23 @@ def test_prefill_routes_through_flash_by_config(monkeypatch):
             ttf.forward(params, tcfg, {"tokens": toks}, mode=mode)
             n = tcfg.num_layers if (want and mode == "prefill") else 0
             assert len(calls) == n, (arch, mode)
-    # the kernel's probabilities are in the activations' type: it computes
-    # bf16 probabilities for bf16 activations, never for float32 ones
+    # the kernel computes the config's probability type, so the activations'
+    # type and attn_probs_bf16 do not decide the route: a float32 config
+    # with bf16 probabilities prefills through it too, as chunked
+    # attention computes them (repro's bf16 tolerance: p rounds to bf16)
     _, tcfg = _cfgs("smollm-360m")
-    assert not tattn.uses_flash(tcfg.with_(attn_probs_bf16=True), "attn")
-    for probs_bf16 in (False, True):
-        assert tattn.uses_flash(tcfg.with_(dtype="bfloat16",
-                                           attn_probs_bf16=probs_bf16),
-                                "attn")
+    for dtype in ("float32", "bfloat16"):
+        for probs_bf16 in (False, True):
+            assert tattn.uses_flash(tcfg.with_(dtype=dtype,
+                                               attn_probs_bf16=probs_bf16),
+                                    "attn")
+    tcfg = tcfg.with_(num_layers=2, attn_probs_bf16=True)
+    params = ttf.init_params(tcfg, seed=0, device="cpu")
+    calls.clear()
+    got, _, _ = ttf.forward(params, tcfg, {"tokens": toks}, mode="prefill")
+    assert len(calls) == 2
+    want, _, _ = ttf.forward(params, tcfg, {"tokens": toks}, mode="train")
+    _close(got, want.numpy(), 3e-2)
 
 
 # ---------------------------------------------------------------------------
