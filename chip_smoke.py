@@ -56,6 +56,13 @@ FLOP_PER_S = {torch.bfloat16: 989e12,   # dense tensor cores, data sheet
               torch.float32: 67e12}     # fp32 outside the tensor cores
 POPC_PER_CLK_PER_SM = 16        # CUDA C++ Programming Guide, arithmetic
                                 # instruction throughput, cc 9.0: popc
+INT8_OPS_PER_S = 1979e12        # dense int8 tensor cores, data sheet (2 ops
+                                # a MAC); no 1-bit rate is published, so the
+                                # binary MACs' peak is this MAC rate scaled
+                                # by the probe's measured binary / int8 MAC
+                                # rates (Card.probe_mma)
+MMA_PROBE = (4, 20_000)         # blocks an SM, iterations of 8 MMAs a warp
+PROFILE_TRIES = 3               # profiler sessions before events stand in
 BATCH = 8
 RAGGED = 5
 SERVE_REQUESTS = 64
@@ -103,9 +110,15 @@ DELTA_CASES = (("cifar9_s1", BATCH, BATCH), ("cifar9_s2", BATCH, BATCH),
 DELTA_SCHEDULES = SCHEDULES + ((8, 2, 1),)
 VIDEO_STEPS = 16
 # repro's own odd binary_conv2x2 shapes (tests/test_kernels_binary_conv2x2.py
-# CASES and its property range): (B, H, W, c, F), B = 0 for a 3-D map
+# CASES and its property range), then two maps too wide for one staged row
+# (column chunks): (B, H, W, c, F), B = 0 for a 3-D map
 CONV_ODD = ((0, 4, 4, 32, 8), (0, 31, 31, 128, 32), (0, 8, 9, 40, 16),
-            (3, 12, 7, 70, 20), (2, 2, 2, 1, 1), (5, 9, 11, 33, 33))
+            (3, 12, 7, 70, 20), (2, 2, 2, 1, 1), (5, 9, 11, 33, 33),
+            (1, 3, 500, 2048, 40), (2, 3, 4000, 256, 33))
+# the fused layer on maps too wide for one staged row (column chunks):
+# (label, B, H, W, c, F, pool)
+CONV_WIDE = (("wide", 2, 5, 2500, 256, 64, True),
+             ("wide", 1, 3, 4000, 256, 32, False))
 # binarize_pack: BitLinear's SmolLM-360M MLP input (256 tokens x d_model
 # 960), an odd shape, and cifar9_s1's layer-2 activations at B=8
 PACK_SHAPES = ((256, 960), (300, 100), (8 * 31 * 31, 256))
@@ -171,13 +184,56 @@ class Card:
         self.clock_hz = float(clk) * 1e6
         self.popc_per_s = self.sms * POPC_PER_CLK_PER_SM * self.clock_hz
 
-    def bound(self, nbytes: float, word_ops: float):
-        """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-        xor+popc word-ops over the card's popc issue rate."""
+    def popc_bound(self, nbytes: float, word_ops: float):
+        """(bound_ms, bound_by) on the CUDA cores: the larger of bytes over
+        HBM bandwidth and xor+popc word-ops over the card's popc issue
+        rate."""
+        return self._bound(nbytes, word_ops / self.popc_per_s)
+
+    def mac_bound(self, nbytes: float, macs: float):
+        """(bound_ms, bound_by) of binary MACs on the tensor cores: the
+        larger of bytes over HBM bandwidth and MACs over the binary MAC
+        peak (probe_mma)."""
+        return self._bound(nbytes, macs / self.binary_macs_per_s)
+
+    @staticmethod
+    def _bound(nbytes: float, t_ops_s: float):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = word_ops / self.popc_per_s * 1e3
+        t_ops = t_ops_s * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
+
+    def probe_mma(self) -> None:
+        """Measure the issue rates of mma.sync m16n8k256 .b1 and m16n8k32
+        .s8 (csrc/mma_rate.cu, CUDA events over one long launch each) and
+        set the binary MAC peak: the data sheet's int8 MAC rate times the
+        measured ratio of binary to int8 MACs a second."""
+        import ctypes
+
+        from repro_torch.kernels import _build
+        fn = _build.library("mma_rate").mma_rate_launch
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+        blocks, iters = MMA_PROBE[0] * self.sms, MMA_PROBE[1]
+        stream = torch.cuda.current_stream().cuda_stream
+        rates, mac_rates = {}, {}
+        for binary, macs in ((1, 16 * 8 * 256), (0, 16 * 8 * 32)):
+            def launch():
+                if fn(binary, blocks, iters, sink.data_ptr(), stream):
+                    raise RuntimeError("mma_rate launch failed")
+            # 8 warps a block, 8 chains a warp
+            rates[binary] = blocks * 64 * iters / (time_ms(launch, 3) / 1e3)
+            mac_rates[binary] = rates[binary] * macs
+            shape = "m16n8k256 .b1" if binary else "m16n8k32 .s8"
+            print(f"  mma probe {shape}: {rates[binary] / 1e12:.4f} T mma/s = "
+                  f"{mac_rates[binary] / 1e15:.4f} P MAC/s [{self.smi}]")
+        ratio = mac_rates[1] / mac_rates[0]
+        self.binary_macs_per_s = INT8_OPS_PER_S / 2 * ratio
+        print(f"  binary MACs a second / int8 MACs a second {ratio:.4f} "
+              f"(issue rates {rates[1] / rates[0]:.4f}); binary MAC peak "
+              f"{INT8_OPS_PER_S / 2e15:.4f} P (int8, data sheet) x "
+              f"{ratio:.4f} = {self.binary_macs_per_s / 1e15:.4f} P MAC/s")
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -223,10 +279,14 @@ def device_profile(fn, iters: int):
 def device_ms(fn, iters: int, name: str = ""):
     """Device time of one call of ``fn``: its CUDA kernels whose names hold
     ``name`` (all of them for ""), from ``torch.profiler`` over ``iters``
-    calls; None when the profiler records no device activity."""
-    _, kernels = device_profile(fn, iters)
-    hits = [ms for k, ms in kernels.items() if name in k]
-    return sum(hits) / iters if hits else None
+    calls; None when the profiler records no device activity in any of
+    PROFILE_TRIES sessions (a session now and then comes back empty)."""
+    for _ in range(PROFILE_TRIES):
+        _, kernels = device_profile(fn, iters)
+        hits = [ms for k, ms in kernels.items() if name in k]
+        if hits:
+            return sum(hits) / iters
+    return None
 
 
 def kernel_split(kernels, iters: int, names) -> str:
@@ -805,7 +865,9 @@ def main() -> None:
     print(f"devices {torch.cuda.device_count()}, {card.name}, {card.sms} SMs, "
           f"max SM clock {card.clock_hz / 1e6:.0f} MHz")
     print(f"nvidia-smi: {card.smi}")
-    print(f"rates: HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet); popc "
+    print(f"rates: HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet); int8 "
+          f"{INT8_OPS_PER_S / 1e12:.0f} TOP/s (data sheet; the binary MAC "
+          f"peak follows the phase 2 probe); popc "
           f"{card.popc_per_s / 1e12:.3f} T word-ops/s = {card.sms} SMs x "
           f"{POPC_PER_CLK_PER_SM}/clk (CUDA guide, cc 9.0) x max SM clock; "
           f"bf16 {FLOP_PER_S[torch.bfloat16] / 1e12:.0f} and fp32 "
@@ -833,6 +895,7 @@ def main() -> None:
             if m and kernel:
                 print(f"  {b.name}: {kernel[-40:]}: {m.group(1)} registers, "
                       f"{m.group(2) or 0} B static smem, {spills}")
+    card.probe_mma()
 
     programs = {n: networks.REGISTRY[n]() for n in networks.REGISTRY}
     cifar = programs["cifar9_s1"]
@@ -843,14 +906,15 @@ def main() -> None:
     # -- 3. kernels vs plain versions --------------------------------------
     phase(3, "kernels vs plain versions: bit-exact (tolerance 0), flash "
              "attention within repro's float tolerances")
+    # every distinct conv layer of the REGISTRY programs at B=8, each under
+    # the first program that has it (cifar9_s1's eight first)
     conv_shapes = []
-    for name, b in (("cifar9_s1", BATCH), ("mnist5", BATCH)):
-        for _, h, w, c, f, pool in (st for st in
-                                    interpreter.compile_plan(
-                                        programs[name]).mega
-                                    if st[0] == "conv"):
-            conv_shapes.append((name, b, h, w, c, f, pool))
-    for name, b, h, w, c, f, pool in conv_shapes:
+    for name, prog in programs.items():
+        for _, h, w, c, f, pool in (st for st in interpreter.compile_plan(
+                prog).mega if st[0] == "conv"):
+            if all(s[2:] != (h, w, c, f, pool) for s in conv_shapes):
+                conv_shapes.append((name, BATCH, h, w, c, f, pool))
+    for name, b, h, w, c, f, pool in conv_shapes + list(CONV_WIDE):
         a = words(gen, b, h, w, c // 32)
         wt = words(gen, f, 4, c // 32)
         tau = torch.randint(-4 * c, 4 * c + 1, (f,), generator=gen,
@@ -1003,15 +1067,21 @@ def main() -> None:
               f"2): lane 0 recomputed over its cache, its last words kept; "
               f"equal")
 
-    # the unfused packed conv: cifar9_s1's first layer and every
+    # the unfused packed conv: cifar9_s1's first layer, every
     # face_detector conv layer (the detector's packed-vs-float check in
-    # phase 6 runs them) at B=8, and repro's odd shapes
-    bc_shapes = [("cifar9_s1 layer 1", BATCH, 32, 32, 256, 256)] + [
-        (f"face_detector {h}x{w}", BATCH, h, w, c, f)
-        for _, h, w, c, f, _pool in (st for st in interpreter.compile_plan(
-            programs["face_detector"]).mega if st[0] == "conv")] + [
-        (f"odd {b}x{h}x{w} c={c} F={f}", b, h, w, c, f)
-        for b, h, w, c, f in CONV_ODD]
+    # phase 6 runs them), every other REGISTRY conv shape, all at B=8, and
+    # repro's odd shapes
+    face_convs = [(f"face_detector {h}x{w}", BATCH, h, w, c, f)
+                  for _, h, w, c, f, _pool in (st for st in
+                                               interpreter.compile_plan(
+                                                   programs["face_detector"]
+                                               ).mega if st[0] == "conv")]
+    bc_shapes = [("cifar9_s1 layer 1", BATCH, 32, 32, 256, 256)] + face_convs
+    for name, b, h, w, c, f, _pool in conv_shapes:
+        if all(s[1:] != (b, h, w, c, f) for s in bc_shapes):
+            bc_shapes.append((f"{name} {h}x{w}", b, h, w, c, f))
+    bc_shapes += [(f"odd {b}x{h}x{w} c={c} F={f}", b, h, w, c, f)
+                  for b, h, w, c, f in CONV_ODD]
     for label, b, h, w, c, f in bc_shapes:
         a = words(gen, *((b,) if b else ()), h, w, -(-c // 32)).to(dev)
         wt = words(gen, f, 4, -(-c // 32)).to(dev)
@@ -1445,25 +1515,65 @@ def main() -> None:
     face, owner = programs["face_detector"], programs["owner_detector"]
 
     # -- 7. times ------------------------------------------------------------
-    phase(7, f"times (CUDA events, warm L2) [{card.smi}]")
+    phase(7, f"times (torch.profiler device time and CUDA events, warm L2) "
+             f"[{card.smi}]")
     rows = {}
 
     # timed_by names what ms and library_ms measure: "cuda_events", the
     # mean over back-to-back calls (host launch path included), or
-    # "profiler_device", the device time a call from torch.profiler
+    # "profiler_device", the device time a call from torch.profiler.
+    # bound_ms: with macs (the rows whose work is binary MACs) the tensor
+    # cores' bound at the binary MAC peak, the CUDA-core (popc issue) bound
+    # beside it as cuda_core_bound_ms; without, the popc bound or the
+    # given one
     def row(name, ms, plain_ms, nbytes, word_ops, library_ms, bound=None,
-            timed_by="cuda_events"):
-        bound_ms, bound_by = bound or card.bound(nbytes, word_ops)
+            timed_by="cuda_events", events=None, macs=None):
+        if macs is not None:
+            bound = card.mac_bound(nbytes, macs)
+        bound_ms, bound_by = bound or card.popc_bound(nbytes, word_ops)
         rows[name] = dict(name=name, route="cuda", source=SOURCES[name],
                           replaces=REPLACES[name],
                           launches=launches[name],
                           max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms, timed_by=timed_by)
-        print(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({bound_by}), library "
+        extra = ""
+        if events is not None:
+            rows[name].update(events_ms=events[0],
+                              library_events_ms=events[1])
+            extra += (f"; CUDA events back to back: {events[0]:.4f} ms, "
+                      f"library " + (f"{events[1]:.4f} ms"
+                                     if events[1] is not None else "none"))
+        if macs is not None:
+            core_ms, core_by = card.popc_bound(nbytes, word_ops)
+            rows[name].update(cuda_core_bound_ms=core_ms,
+                              cuda_core_bound_by=core_by)
+            extra += (f"; CUDA-core bound {core_ms:.5f} ms ({core_by}; "
+                      f"{word_ops / 1e9:.4f} G xor+popc words)")
+        print(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              + ("tensor-core bound " if macs is not None else "bound ")
+              + f"{bound_ms:.5f} ms ({bound_by}"
+              + (f"; {macs / 1e9:.4f} G binary MACs" if macs else "")
+              + "), library "
               + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
-              + f" (timed by {timed_by}) [{card.smi}]")
+              + f" (timed by {timed_by}){extra} [{card.smi}]")
+
+    def timings(kernel, kname, library, iters):
+        """The kernel's device time a call (its kernels named kname) and
+        the library call's (all its kernels), from torch.profiler, with
+        CUDA events over back-to-back calls beside them: (ms, library ms,
+        timed_by, (events ms, library events ms)).  Where the profiler
+        records nothing, the events stand in for both."""
+        events = (time_ms(kernel, iters),
+                  time_ms(library, iters) if library else None)
+        ms = device_ms(kernel, iters, kname)
+        lib_ms = device_ms(library, iters) if library else None
+        if ms is None or (library and lib_ms is None):
+            print(f"    torch.profiler recorded no device time for "
+                  f"{'the kernel' if ms is None else 'the library call'} "
+                  f"({kname}): CUDA events stand in")
+            return events[0], events[1], "cuda_events", events
+        return ms, lib_ms, "profiler_device", events
 
     # conv_block: the 8 conv layers of one cifar9_s1 dispatch at batch 8
     conv = [s for s in conv_shapes if s[0] == "cifar9_s1"]
@@ -1481,28 +1591,39 @@ def main() -> None:
         wh = unpack_signs(wt, c).reshape(f, 2, 2, c).permute(
             0, 3, 1, 2).to(torch.float16)
         ops_in.append((a, wt, tau, flip, b, h, w, c, f, pool, xh, wh))
-    nbytes = word_ops = 0
+    # bound: each map, tap, threshold and output word moved once; the
+    # binary MACs count every conv position a layer computes (all four of
+    # a pool window's), F features x 4c bits each
+    nbytes = word_ops = macs = 0
     for a, wt, tau, flip, b, h, w, c, f, pool, *_ in ops_in:
         ho, wo = ((h - 1) // 2, (w - 1) // 2) if pool else (h - 1, w - 1)
         positions = 4 * ho * wo if pool else ho * wo
         nbytes += 4 * (a.numel() + wt.numel() + 2 * f + b * ho * wo * f // 32)
         word_ops += b * positions * f * 4 * (c // 32)
-    row("conv_block",
-        time_ms(lambda: [bcb.binary_conv2x2_block(a, wt, tau, flip, c=c,
-                                                  pool=pool)
-                         for a, wt, tau, flip, b, h, w, c, f, pool, *_
-                         in ops_in], 50),
+        macs += b * positions * f * 4 * c
+    ms, lib_ms, timed_by, events = timings(
+        lambda: [bcb.binary_conv2x2_block(a, wt, tau, flip, c=c, pool=pool)
+                 for a, wt, tau, flip, b, h, w, c, f, pool, *_ in ops_in],
+        "conv_block_mma",
+        lambda: [torch.nn.functional.conv2d(xh, wh)
+                 for *_, xh, wh in ops_in], 50)
+    row("conv_block", ms,
         time_ms(lambda: [bcb.conv_block_body(a, wt, tau, flip, k4=4 * c,
                                              h=h, wd=w, pool=pool)
                          for a, wt, tau, flip, b, h, w, c, f, pool, *_
                          in ops_in], 5),
-        nbytes, word_ops,
-        time_ms(lambda: [torch.nn.functional.conv2d(xh, wh)
-                         for *_, xh, wh in ops_in], 50))
-    for a, wt, tau, flip, b, h, w, c, f, pool, *_ in ops_in:
-        ms = time_ms(lambda: bcb.binary_conv2x2_block(a, wt, tau, flip, c=c,
-                                                      pool=pool), 50)
-        print(f"    layer {h}x{w} C={c} pool={pool}: {ms:.4f} ms")
+        nbytes, word_ops, lib_ms, timed_by=timed_by, events=events,
+        macs=macs)
+    for a, wt, tau, flip, b, h, w, c, f, pool, xh, wh in ops_in:
+        t = bcb.conv_tiles(b, h, w, f, c // 32, pool, sms=card.sms)
+        lms, llib, lby, lev = timings(
+            lambda: bcb.binary_conv2x2_block(a, wt, tau, flip, c=c,
+                                             pool=pool),
+            "conv_block_mma", lambda: torch.nn.functional.conv2d(xh, wh), 50)
+        print(f"    layer {h}x{w} C={c} pool={pool}: {lms:.4f} ms, conv2d "
+              f"{llib:.4f} ms ({lby}); events {lev[0]:.4f} / {lev[1]:.4f} "
+              f"ms; grid {t.grid}, {t.rows} rows a band, {t.nslices} "
+              f"slices a block, {t.smem} B shared memory")
 
     for key, (label, m, n, k, pack) in (("xnor_matmul", fc_shapes[0]),
                                         ("xnor_matmul_pack", fc_shapes[1])):
@@ -1510,12 +1631,14 @@ def main() -> None:
         ab = unpack_signs(a, k).to(torch.bfloat16)        # same bits, +/-1
         wb = unpack_signs(wt, k).t().contiguous().to(torch.bfloat16)
         out_words = m * (n // 32 if pack else n)
-        row(key,
-            time_ms(lambda: xm.xnor_matmul(a, wt, k, pack_out=pack), 200),
+        ms, lib_ms, timed_by, events = timings(
+            lambda: xm.xnor_matmul(a, wt, k, pack_out=pack),
+            "xnor_matmul_kernel", lambda: torch.matmul(ab, wb), 200)
+        row(key, ms,
             time_ms(lambda: xm.xnor_matmul_plain(a, wt, k, pack_out=pack),
                     50),
             4 * (a.numel() + wt.numel() + out_words), m * n * (k // 32),
-            time_ms(lambda: torch.matmul(ab, wb), 200))
+            lib_ms, timed_by=timed_by, events=events, macs=m * n * k)
 
     plan = interpreter.compile_plan(cifar)
     image = interpreter.ensure_image(artifacts["cifar9_s1"], cifar)
@@ -1531,7 +1654,8 @@ def main() -> None:
                 20),
         time_ms(lambda: mk.megakernel_plain(image, frames, spec=plan.mega),
                 3),
-        nbytes, member_word_ops(plan.mega, BATCH), None)
+        nbytes, member_word_ops(plan.mega, BATCH), None,
+        macs=32 * member_word_ops(plan.mega, BATCH))
 
     for batch, n_req in ((BATCH, 128), (256, 1024)):
         server = ChipServer({"cifar9_s1": cifar},
@@ -1566,7 +1690,8 @@ def main() -> None:
         time_ms(lambda: mk.composite_plain(cimage, frames, spec=cplan.spec),
                 3),
         nbytes + image_bytes(cimage),
-        sum(member_word_ops(st, BATCH) for st in cplan.spec), None)
+        sum(member_word_ops(st, BATCH) for st in cplan.spec), None,
+        macs=32 * sum(member_word_ops(st, BATCH) for st in cplan.spec))
 
     # cascade: face -> owner at B=8; the row is margin -inf (every frame
     # escalates, so E = counts[1] = B and the recognizer work is the same
@@ -1596,16 +1721,18 @@ def main() -> None:
             row("cascade", ms,
                 time_ms(lambda: mk.cascade_plain(cimage, frames, ctrl,
                                                  spec=cplan.spec), 3),
-                nbytes + image_bytes(cimage), ops_e, None)
+                nbytes + image_bytes(cimage), ops_e, None, macs=32 * ops_e)
         else:
-            bound_e, _ = card.bound(nbytes + image_bytes(cimage), ops_e)
-            bound_bill, _ = card.bound(
+            bound_e, _ = card.mac_bound(nbytes + image_bytes(cimage),
+                                        32 * ops_e)
+            bound_bill, _ = card.mac_bound(
                 nbytes + image_bytes(cimage),
-                member_word_ops(det_spec, BATCH)
-                + member_word_ops(rec_spec, counts[1]))
+                32 * (member_word_ops(det_spec, BATCH)
+                      + member_word_ops(rec_spec, counts[1])))
             print(f"  cascade margin {margin}: {ms:.4f} ms, E {e}, counts[1] "
-                  f"{counts[1]}; bound {bound_e:.5f} ms on E recognizer "
-                  f"frames, {bound_bill:.5f} ms on counts[1] [{card.smi}]")
+                  f"{counts[1]}; tensor-core bound {bound_e:.5f} ms on E "
+                  f"recognizer frames, {bound_bill:.5f} ms on counts[1] "
+                  f"[{card.smi}]")
 
     # delta: cifar9_s1 at B=8 on a warm state; the row is threshold -inf
     # (E = 8 recomputed), E = 0 (+inf) and the median delta are timed
@@ -1654,12 +1781,12 @@ def main() -> None:
             row("delta", ms,
                 time_ms(lambda: mk.delta_plain(dimage, frames, last, llog,
                                                ctrl, spec=dplan.spec), 3),
-                nbytes, word_ops, None)
+                nbytes, word_ops, None, macs=32 * word_ops)
         else:
-            bound, by = card.bound(nbytes, word_ops)
+            bound, by = card.mac_bound(nbytes, 32 * word_ops)
             print(f"  delta threshold {thr}: {ms:.4f} ms, E {counts[0]}, "
-                  f"counts[1] {counts[1]}, member frames run {n_fresh}; bound "
-                  f"{bound:.5f} ms ({by}) [{card.smi}]")
+                  f"counts[1] {counts[1]}, member frames run {n_fresh}; "
+                  f"tensor-core bound {bound:.5f} ms ({by}) [{card.smi}]")
 
     # the temporal serve of phase 5 on the card, profiled: host frames/s
     # and the device's busy and idle share over whole passes
@@ -1733,19 +1860,22 @@ def main() -> None:
     xh = unpack_signs(a, c).permute(0, 3, 1, 2).to(torch.float16)
     wh = unpack_signs(wt, c).reshape(f, 2, 2, c).permute(0, 3, 1, 2).to(
         torch.float16)
-    row("binary_conv2x2",
-        time_ms(lambda: bc.binary_conv2x2(a, wt, c=c), 50),
+    nbytes = 4 * (a.numel() + wt.numel() + b * (h - 1) * (w - 1) * f)
+    ms, lib_ms, timed_by, events = timings(
+        lambda: bc.binary_conv2x2(a, wt, c=c), "binary_conv2x2_mma",
+        lambda: torch.nn.functional.conv2d(xh, wh), 50)
+    row("binary_conv2x2", ms,
         time_ms(lambda: bc.binary_conv2x2_plain(a, wt, c), 5),
-        4 * (a.numel() + wt.numel() + b * (h - 1) * (w - 1) * f),
-        b * (h - 1) * (w - 1) * f * 4 * (c // 32),
-        time_ms(lambda: torch.nn.functional.conv2d(xh, wh), 50))
-    for label, b, h, w, c, f in bc_shapes[1:]:
-        if not b:
-            continue
+        nbytes, b * (h - 1) * (w - 1) * f * 4 * (c // 32), lib_ms,
+        timed_by=timed_by, events=events,
+        macs=b * (h - 1) * (w - 1) * f * 4 * c)
+    for label, b, h, w, c, f in face_convs:
         a = words(gen, b, h, w, -(-c // 32)).to(dev)
         wt = words(gen, f, 4, -(-c // 32)).to(dev)
-        ms = time_ms(lambda: bc.binary_conv2x2(a, wt, c=c), 50)
-        print(f"    binary_conv2x2 {label} B={b}: {ms:.4f} ms")
+        lms, _, lby, lev = timings(lambda: bc.binary_conv2x2(a, wt, c=c),
+                                   "binary_conv2x2_mma", None, 50)
+        print(f"    binary_conv2x2 {label} B={b}: {lms:.4f} ms ({lby}), "
+              f"events {lev[0]:.4f} ms")
 
     # binarize_pack: the row is BitLinear's (256 tokens, 960); bytes bound
     # it (each float read once, each word written once; one ballot per
@@ -1753,15 +1883,18 @@ def main() -> None:
     for m, k in PACK_SHAPES:
         x = torch.randn((m, k), generator=gen).to(dev)
         kw = -(-k // 32)
-        ms = time_ms(lambda: bp.binarize_pack(x), 200)
+        ms, _, timed_by, events = timings(lambda: bp.binarize_pack(x),
+                                          "binarize_pack_kernel", None, 200)
         if (m, k) == PACK_SHAPES[0]:
             row("binarize_pack", ms,
                 time_ms(lambda: bp.binarize_pack_plain(x), 50),
-                4 * (m * k + m * kw), m * kw, None)
+                4 * (m * k + m * kw), m * kw, None, timed_by=timed_by,
+                events=events)
         else:
-            bound, by = card.bound(4 * (m * k + m * kw), m * kw)
-            print(f"  binarize_pack M={m} K={k}: {ms:.4f} ms, bound "
-                  f"{bound:.5f} ms ({by}) [{card.smi}]")
+            bound, by = card.popc_bound(4 * (m * k + m * kw), m * kw)
+            print(f"  binarize_pack M={m} K={k}: {ms:.4f} ms ({timed_by}; "
+                  f"events {events[0]:.4f} ms), bound {bound:.5f} ms ({by}) "
+                  f"[{card.smi}]")
 
     # one training step (forward_train, autograd, adamw) of each program
     for name, prog in (("face_detector", face), ("owner_detector", owner)):

@@ -5,79 +5,179 @@
 // (s >= tau) XOR flip -> optional 2x2/2 max-pool as an AND of sign bits ->
 // repack, 32 neurons per word.  Packed words in, packed words out.
 //
-// What bounds it on the H100: integer issue, not memory.  Every output
-// bit costs 4 taps x CW words of xor+popc (popc issues at 16 per clock
-// per SM), while a layer's maps and weights are a few hundred KB that stay
-// in L2.  Design: one warp per (frame, output position, 32-feature word).
-// Lane j owns feature 32*fw + j; its 4 x CW weight words are loaded into
-// registers once per block (the block's fw is fixed), so the inner loop
-// reads only activation words, which all lanes read at the same address
-// (a broadcast).  The ballot of the 32 lanes' bits is the output word, so
-// no shuffle or shared-memory repack is needed.  Blocks stride over
-// positions; F/32 blocks in y keep each block on one feature word.
+// What bounds it on the H100: the tensor cores' binary MACs.  cifar9_s1's
+// eight layers at B=8 are 8.05 G binary MACs, 0.0010 ms at the binary
+// rate (8x the int8 MAC rate of 1,979 TOP/s: a .b1 m16n8k256 MMA issues at
+// the rate of an int8 m16n8k32 one, chip_smoke.py's MMA issue probe),
+// against a few hundred KB of maps and taps (about 0.0003 ms at 3.35
+// TB/s).
+// Design: the binary implicit GEMM of conv_mma.cuh, mma.sync m16n8k256
+// .b1 .and.popc with the XNOR count from the AND count.  The block stages
+// its band of input rows (a chunk of their columns where a whole row does
+// not fit, so any width runs) and its feature tile's taps, tau and flip in
+// shared memory by cp.async once; the epilogue runs on the accumulator
+// fragments: s, the comparator, with pool the AND of a window's four
+// corners (two rows of a lane, then lane ^ 16), and the 32 features of a
+// word, spread over a quad's lanes and four n8 tiles, ORed together by
+// shuffles.  One lane of a quad stores the whole word.  Measured
+// (chip_smoke.py phase 7, PERF.md): a layer is one wave of short blocks,
+// each a dependent chain of staging, one or two tiles and the epilogue,
+// so latency, not the MACs, sets its time (3-7 us a layer, tens of times
+// the bound).  The member body of the whole-network kernels keeps its own
+// per-word arithmetic (conv_block.cuh).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "conv_block.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+using namespace repro_torch::conv_mma;
 
-__global__ void __launch_bounds__(kWarps * 32)
-conv_block_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ w,
-                  const int32_t* __restrict__ tau, const int32_t* __restrict__ flip,
-                  uint32_t* __restrict__ out, int b, int h, int wd, int cw,
-                  int fwords, int k4, int pool) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int fw = blockIdx.y;
-  const int f = fw * 32 + lane;
-  uint32_t wr[4 * repro_torch::kMaxCw];
-  repro_torch::load_taps(w, f, cw, cw, wr);
-  const int t = tau[f];
-  const int fl = flip[f];
+template <bool kChunked>
+__global__ void __launch_bounds__(kThreads)
+conv_block_mma(const uint32_t* __restrict__ a, const uint32_t* __restrict__ w,
+               const int32_t* __restrict__ tau,
+               const int32_t* __restrict__ flip, uint32_t* __restrict__ out,
+               int h, int wd, int cw, int f, int k4, int pool,
+               const Geometry g) {
+  extern __shared__ uint4 smem4[];
   const int ho = pool ? (h - 1) / 2 : h - 1;
   const int wo = pool ? (wd - 1) / 2 : wd - 1;
-  const int per_frame = ho * wo;
-  const int items = b * per_frame;
-  for (int item = blockIdx.x * kWarps + warp; item < items;
-       item += gridDim.x * kWarps) {
-    const int bi = item / per_frame;
-    const int pos = item - bi * per_frame;
-    const int yo = pos / wo;
-    const int xo = pos - yo * wo;
-    const uint32_t* frame = a + static_cast<size_t>(bi) * h * wd * cw;
-    const uint32_t word = repro_torch::conv_word(frame, wd, cw, yo, xo,
-                                                 pool != 0, wr, k4, t, fl);
-    if (lane == 0) {
-      out[static_cast<size_t>(item) * fwords + fw] = word;
+  const int nblk = 32 * g.nslices;
+  const int n0 = blockIdx.y * nblk;
+  const Band bd = band_of<kChunked>(blockIdx.x, g, ho, wo);
+  const Smem sm = carve(reinterpret_cast<uint32_t*>(smem4), nblk, g.kstride);
+  stage_taps(w, f, n0, nblk, cw, g, sm.taps);
+  // tau and flip of the tile's features (16-byte aligned, F % 32 == 0)
+  for (int i = threadIdx.x; i < nblk / 2; i += kThreads) {
+    const int q = 4 * (i % (nblk / 4));
+    const bool ok = n0 + q < f;
+    const int32_t* src = i < nblk / 4 ? tau : flip;
+    cp_async16((i < nblk / 4 ? sm.tau : sm.flip) + q, ok ? src + n0 + q : src,
+               ok);
+  }
+  const uint32_t* sa =
+      stage_band<kChunked>(sm.band, a, bd, g, h, wd, cw, pool != 0);
+
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const int slice = warp % g.nslices;
+  if (n0 + 32 * slice >= f) return;
+  const uint32_t* sb = sm.taps + 32 * slice * g.kstride;
+  // the comparator of this lane's 8 features: tau, and the flip bits in
+  // word order
+  int th[4][2];
+  uint32_t fl = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int fi = 32 * slice + 8 * j + 2 * t;
+    const int2 tp = *reinterpret_cast<const int2*>(sm.tau + fi);
+    const int2 fp = *reinterpret_cast<const int2*>(sm.flip + fi);
+    th[j][0] = tp.x;
+    th[j][1] = tp.y;
+    fl |= (static_cast<uint32_t>(fp.x & 1) | static_cast<uint32_t>(fp.y & 1)
+           << 1) << (8 * j + 2 * t);
+  }
+  int pw[4][4] = {};          // the taps' popcounts, from the first tile
+  int kc[4][2];               // k4 - 2 pw
+  const bool vec = !((cw | static_cast<int>(
+      reinterpret_cast<uintptr_t>(sa) >> 2)) & 1);
+  const int fwords = f / 32;
+  const int fw = n0 / 32 + slice;
+  uint32_t* out_frame =
+      out + static_cast<size_t>(bd.frame) * ho * wo * fwords + fw;
+  const int rows_m = pool ? 4 * bd.windows : bd.windows;
+  const int tiles = (rows_m + 15) / 16;
+  for (int mt = warp / g.nslices; mt < tiles; mt += kWarps / g.nslices) {
+    const Row r0 = row_of(16 * mt + gr, bd, g.pitch, cw, wo, pool != 0);
+    const Row r1 = row_of(16 * mt + gr + 8, bd, g.pitch, cw, wo, pool != 0);
+    int acc[4][4] = {};
+    int pa[2] = {0, 0};
+    if (mt == warp / g.nslices) {
+      mma_tile<true>(sa, r0.base, r1.base, sb, g.kstride, g.ksteps, cw,
+                     g.pitch, vec, lane, acc, pa, pw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) kc[j][e] = k4 - 2 * pw[j][e];
+      }
+    } else {
+      mma_tile<false>(sa, r0.base, r1.base, sb, g.kstride, g.ksteps, cw,
+                      g.pitch, vec, lane, acc, pa, pw);
+    }
+    pa[0] = quad_sum(pa[0]);
+    pa[1] = quad_sum(pa[1]);
+    // bit 1 (-1) iff !((s >= tau) ^ flip): the ge bits, XOR flip, inverted
+    uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int bit = 8 * j + 2 * t + e;
+        w0 |= static_cast<uint32_t>(
+                  kc[j][e] - 2 * pa[0] + 4 * acc[j][e] >= th[j][e]) << bit;
+        w1 |= static_cast<uint32_t>(
+                  kc[j][e] - 2 * pa[1] + 4 * acc[j][2 + e] >= th[j][e])
+              << bit;
+      }
+    }
+    const uint32_t mine = 0x03030303u << (2 * t);  // this lane's 8 bits
+    w0 = ~(w0 ^ fl) & mine;
+    w1 = ~(w1 ^ fl) & mine;
+    if (pool) {                 // corners gr >> 2, 2 + (gr >> 2); lane ^ 16
+      w0 &= w1;
+      w0 &= __shfl_xor_sync(kFullMask, w0, 16);
+    }
+    w0 |= __shfl_xor_sync(kFullMask, w0, 1);
+    w0 |= __shfl_xor_sync(kFullMask, w0, 2);
+    w1 |= __shfl_xor_sync(kFullMask, w1, 1);
+    w1 |= __shfl_xor_sync(kFullMask, w1, 2);
+    if (t == 0) {
+      if (pool) {
+        if (gr < 4 && r0.out >= 0) {
+          out_frame[static_cast<size_t>(r0.out) * fwords] = w0;
+        }
+      } else {
+        if (r0.out >= 0) out_frame[static_cast<size_t>(r0.out) * fwords] = w0;
+        if (r1.out >= 0) out_frame[static_cast<size_t>(r1.out) * fwords] = w1;
+      }
     }
   }
 }
 
 }  // namespace
 
-// a (B, H, W, CW), w (F, 4, CW) words; tau/flip (F,) int32; out
-// (B, Ho, Wo, F/32) words.  F % 32 == 0 and CW <= 8, checked by the
-// Python wrapper.  Returns cudaGetLastError() after the launch.
+// a (B, H, W, CW), w (F, 4, CW) words; tau/flip (F,) int32, all 16-byte
+// aligned; out (B, Ho, Wo, F/32) words.  F % 32 == 0 and 1 <= CW <= 8; the
+// launch geometry (rows ... pitch, as Geometry; the feature tiles grid_y
+// and the dynamic shared memory bytes smem) is the Python wrapper's
+// conv_tiles.  Returns cudaGetLastError() after the launch.
 extern "C" int conv_block_launch(const void* a, const void* w, const void* tau,
                                  const void* flip, void* out, int b, int h,
                                  int wd, int cw, int f, int k4, int pool,
+                                 int rows, int bands, int cols, int chunks,
+                                 int nslices, int ksteps, int kstride,
+                                 int in_cols, int pitch, int grid_y, int smem,
                                  void* stream) {
-  const int fwords = f / 32;
-  const int ho = pool ? (h - 1) / 2 : h - 1;
-  const int wo = pool ? (wd - 1) / 2 : wd - 1;
-  const long items = static_cast<long>(b) * ho * wo;
-  long bx = (items + kWarps - 1) / kWarps;
-  if (bx > 4096) bx = 4096;
-  if (bx < 1) bx = 1;
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(fwords));
-  conv_block_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const Geometry g{rows, bands, cols, chunks, nslices, ksteps, kstride,
+                   in_cols, pitch};
+  auto* kernel = chunks > 1 ? conv_block_mma<true> : conv_block_mma<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(b * bands * chunks),
+                  static_cast<unsigned>(grid_y));
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(w),
       static_cast<const int32_t*>(tau), static_cast<const int32_t*>(flip),
-      static_cast<uint32_t*>(out), b, h, wd, cw, fwords, k4, pool);
+      static_cast<uint32_t*>(out), h, wd, cw, f, k4, pool, g);
   return static_cast<int>(cudaGetLastError());
 }

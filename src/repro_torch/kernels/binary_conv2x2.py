@@ -4,10 +4,13 @@ The counterpart of ``repro.kernels.binary_conv2x2``: packed maps
 (B, H, W, Cw) or (H, W, Cw) and packed taps (F, 4, Cw), (dy, dx)
 row-major -> int32 sums (B, H-1, W-1, F) (or (H-1, W-1, F)) =
 ``4c - 2 * popcount(a ^ w)`` over the 2x2 window, for any channel count
-c, any map of at least 2x2 and any F.  The kernel is
-``csrc/binary_conv2x2.cu``; :func:`binary_conv2x2_plain` is the same
-function in PyTorch (through the fused layer's
-``accumulate_tap_popcounts``), which the CPU path and the tests use.
+c up to 2048, any map of at least 2x2 (of any width: a band too wide for
+shared memory is cut into column chunks) and any F.  The kernel is
+``csrc/binary_conv2x2.cu``, on the fused layer's tensor-core tile and
+launch geometry (``binary_conv2x2_block.conv_tiles``);
+:func:`binary_conv2x2_plain` is the same function in PyTorch (through the
+fused layer's ``accumulate_tap_popcounts``), which the CPU path and the
+tests use.
 """
 
 from __future__ import annotations
@@ -19,12 +22,16 @@ import torch
 
 from repro_torch.core.binarize import PACK_WIDTH
 from repro_torch.kernels import _build
-from repro_torch.kernels.binary_conv2x2_block import accumulate_tap_popcounts
+from repro_torch.kernels.binary_conv2x2_block import (
+    accumulate_tap_popcounts, aligned16, conv_tiles, sm_count)
 
 MAX_CHANNEL_WORDS = 64       # 2048 channels: the kernel's shared-memory taps
 
 # kernel launches since the last reset
 LAUNCHES = {"binary_conv2x2": 0}
+# binary_conv2x2_launch: a, w, out; b, h, wd, cw, f, k4 and ConvTiles.args;
+# the stream
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 
 
 def binary_conv2x2_plain(a_words: torch.Tensor, w_words: torch.Tensor,
@@ -70,7 +77,7 @@ def check_args(a_words: torch.Tensor, w_words: torch.Tensor, c: int) -> None:
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("binary_conv2x2").binary_conv2x2_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -88,15 +95,16 @@ def binary_conv2x2(a_words: torch.Tensor, w_words: torch.Tensor, *,
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{a_words.device}")
     squeeze = a_words.ndim == 3
-    a = (a_words[None] if squeeze else a_words).contiguous()
-    w = w_words.contiguous()
+    a = aligned16(a_words[None] if squeeze else a_words)
+    w = aligned16(w_words)
     b, h, wd, cw = a.shape
     f = w.shape[0]
     out = torch.empty((b, h - 1, wd - 1, f), dtype=torch.int32,
                       device=a.device)
+    tiles = conv_tiles(b, h, wd, f, cw, False, sms=sm_count(a.device))
     with torch.cuda.device(a.device):
         err = _launcher()(a.data_ptr(), w.data_ptr(), out.data_ptr(), b, h,
-                          wd, cw, f, 4 * c,
+                          wd, cw, f, 4 * c, *tiles.args,
                           torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"binary_conv2x2 launch failed: CUDA error {err}")

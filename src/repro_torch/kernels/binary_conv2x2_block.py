@@ -7,12 +7,15 @@ XNOR-popcount convolution, the folded integer comparator
 words in, packed words out.  The kernel is ``csrc/conv_block.cu``;
 :func:`conv_block_body` (with :func:`accumulate_tap_popcounts`) is the
 same function in PyTorch, which the CPU path, the plain megakernel and the
-tests use.
+tests use.  :func:`conv_tiles` is the launch geometry of this kernel and of
+the unfused ``csrc/binary_conv2x2.cu``, which share the tensor-core tile
+``csrc/conv_mma.cuh``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -21,9 +24,107 @@ from repro_torch.core.binarize import PACK_WIDTH, pack_bit_lanes, popcount32
 from repro_torch.kernels import _build
 
 MAX_CHANNEL_WORDS = 8        # 256 channels, the chip's widest map
+WARPS = 8                    # conv_mma.cuh: kWarps, one m16 tile each
+STEP_WORDS = 8               # 256 K bits a mma.sync m16n8k256 step
+SMEM_LIMIT = 232_448         # 227 KB, the most a block can opt in to
+SMEM_DEFAULT = 48 * 1024     # without the opt-in
+SMS = 132                    # H100 SXM
 
 # kernel launches since the last reset
 LAUNCHES = {"conv_block": 0}
+# conv_block_launch: a, w, tau, flip, out; b, h, wd, cw, f, k4, pool and
+# ConvTiles.args; the stream
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTiles:
+    """Launch geometry of the conv_mma.cuh kernels (see conv_tiles); the
+    kernels take it as it is (conv_mma.cuh Geometry) and compute none of
+    it."""
+    rows: int            # output rows a band (pooled rows with pool)
+    bands: int           # bands a frame
+    cols: int            # output columns a band (pooled with pool)
+    chunks: int          # bands a band row: ceil(Wo / cols)
+    nslices: int         # 32-feature slices a block
+    grid: tuple          # (B * bands * chunks, feature tiles)
+    ksteps: int          # 256-bit K steps: ceil(4 Cw / 8 words)
+    kstride: int         # words a staged feature row (8 mod 16)
+    in_cols: int         # input columns a band stages
+    pitch: int           # words a staged input row (= W Cw mod 4)
+    smem: int            # dynamic shared memory bytes a block
+
+    @property
+    def args(self) -> tuple:
+        """The C entry points' geometry arguments, in their order."""
+        return (self.rows, self.bands, self.cols, self.chunks, self.nslices,
+                self.ksteps, self.kstride, self.in_cols, self.pitch,
+                self.grid[1], self.smem)
+
+
+def conv_out(h: int, wd: int, pool: bool):
+    """Output rows and columns: (H-1, W-1), or (H-1)//2 x (W-1)//2 pooled
+    (the odd trailing conv row and column are never read)."""
+    return ((h - 1) // 2, (wd - 1) // 2) if pool else (h - 1, wd - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tiles(b: int, h: int, wd: int, f: int, cw: int, pool: bool, *,
+               sms: int = SMS) -> ConvTiles:
+    """Bands, feature tiles and shared memory of one conv launch.
+
+    A block computes one band of ``rows`` output rows of one frame (rows
+    enough for one m16 tile a warp, 8 x 16 product rows; a pooled row is
+    4 product rows a window) against ``nslices`` x 32 features.  Feature
+    tiles are as wide as leaves a block for every SM (else one slice), and
+    shared memory within the default 48 KB; bands shrink until the
+    block's taps and input rows fit 227 KB, and where one whole input row
+    does not, a band is one output row cut into ``chunks`` runs of
+    ``cols`` columns, so any width runs.
+    """
+    ho, wo = conv_out(h, wd, pool)
+    fslices = -(-f // 32)
+    ksteps = -(-4 * cw // STEP_WORDS)
+    kpad = ksteps * STEP_WORDS
+    kstride = kpad + 8 if kpad % 16 == 0 else kpad
+
+    def span(n: int) -> int:                 # input rows (columns) n read
+        return 2 * n + 1 if pool else n + 1
+
+    def smem(rows: int, ns: int, pitch: int) -> int:  # taps, tau, flip, band
+        return 4 * (32 * ns * (kstride + 2) + span(rows) * pitch + 3)
+
+    full = wd * cw
+    rows = max(1, min(ho, WARPS * 16 // max(1, wo * (4 if pool else 1))))
+    ns = 1
+    for cand in (8, 4, 2):
+        if (cand <= fslices and smem(rows, cand, full) <= SMEM_DEFAULT
+                and b * -(-ho // rows) * -(-fslices // cand) >= sms):
+            ns = cand
+            break
+    while smem(rows, ns, full) > SMEM_LIMIT and rows > 1:
+        rows -= 1
+    cols, chunks, in_cols, pitch = wo, 1, wd, full
+    if smem(rows, ns, full) > SMEM_LIMIT:    # column chunks of one row
+        room = (SMEM_LIMIT // 4 - 3 - 32 * ns * (kstride + 2)) // span(1)
+        cols = ((room - 3) // cw - 1) // (2 if pool else 1)
+        if cols < 1:
+            raise ValueError(f"{cw} channel words do not fit one band in "
+                             f"shared memory")
+        chunks = -(-wo // cols)
+        cols = -(-wo // chunks)
+        in_cols = span(cols)
+        pitch = in_cols * cw + (full - in_cols * cw) % 4
+    bands = -(-ho // rows) if ho > 0 and wo > 0 else 0
+    return ConvTiles(rows, bands, cols, chunks, ns,
+                     (b * bands * chunks, -(-fslices // ns)), ksteps,
+                     kstride, in_cols, pitch, smem(rows, ns, pitch))
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with a 16-byte aligned start (the kernels' cp.async)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def accumulate_tap_popcounts(a: torch.Tensor, w: torch.Tensor, h: int,
@@ -101,9 +202,14 @@ def check_args(a_words, w_words, tau, flip, c: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("conv_block").conv_block_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -122,17 +228,20 @@ def binary_conv2x2_block(a_words: torch.Tensor, w_words: torch.Tensor,
     if a_words.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{a_words.device}")
-    a, w = a_words.contiguous(), w_words.contiguous()
-    tau, flip = tau.contiguous(), flip.contiguous()
+    a, w = aligned16(a_words), aligned16(w_words)
+    tau, flip = aligned16(tau), aligned16(flip)
     b, h, wd, cw = a.shape
     f = w.shape[0]
-    ho, wo = (h - 1) // 2 if pool else h - 1, (wd - 1) // 2 if pool else wd - 1
+    ho, wo = conv_out(h, wd, pool)
     out = torch.empty((b, ho, wo, f // PACK_WIDTH), dtype=torch.int32,
                       device=a.device)
+    if out.numel() == 0:
+        return out
+    tiles = conv_tiles(b, h, wd, f, cw, pool, sms=sm_count(a.device))
     with torch.cuda.device(a.device):
         err = _launcher()(a.data_ptr(), w.data_ptr(), tau.data_ptr(),
                           flip.data_ptr(), out.data_ptr(), b, h, wd, cw, f,
-                          4 * c, int(pool),
+                          4 * c, int(pool), *tiles.args,
                           torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"conv_block launch failed: CUDA error {err}")

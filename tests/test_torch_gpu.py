@@ -30,21 +30,38 @@ def _words(rng, *shape) -> torch.Tensor:
     return torch.from_numpy(w.view(np.int32))
 
 
+def _registry_convs():
+    """Every distinct conv layer shape (h, w, c, f, pool) of the REGISTRY
+    programs, with one program that has it."""
+    shapes = {}
+    for name in sorted(networks.REGISTRY):
+        for _, h, w, c, f, pool in (st for st in interpreter.compile_plan(
+                networks.REGISTRY[name]()).mega if st[0] == "conv"):
+            shapes.setdefault((h, w, c, f, pool), name)
+    return [(name,) + shape for shape, name in shapes.items()]
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    for b, h, w, c, pool in ((8, 32, 32, 256, False), (5, 29, 29, 256, True),
-                             (3, 14, 14, 64, True), (2, 9, 7, 128, False)):
+    odd = ((8, 32, 32, 256, False), (5, 29, 29, 256, True),
+           (3, 14, 14, 64, True), (2, 9, 7, 128, False),
+           (3, 10, 9, 32, True), (2, 7, 8, 32, False),     # one word, Cw 1
+           (2, 5, 2500, 256, True), (1, 3, 4000, 256, False))  # chunks
+    for b, h, w, c, pool in odd + tuple(
+            (b, h, w, c, pool) for _, h, w, c, _, pool in _registry_convs()
+            for b in (8, 3)):
         a, wt = _words(rng, b, h, w, c // 32), _words(rng, c, 4, c // 32)
         tau = torch.from_numpy(rng.integers(-4 * c, 4 * c + 1, c,
                                             dtype=np.int32))
         tau[:2] = torch.tensor([-2 ** 31, 2 ** 31 - 256])
         flip = torch.from_numpy(rng.integers(0, 2, c, dtype=np.int32))
-        want = bcb.conv_block_body(a, wt, tau, flip, k4=4 * c, h=h, wd=w,
-                                   pool=pool)
+        want = bcb.conv_block_body(a.to(dev), wt.to(dev), tau.to(dev),
+                                   flip.to(dev), k4=4 * c, h=h, wd=w,
+                                   pool=pool).cpu()
         got = bcb.binary_conv2x2_block(a.to(dev), wt.to(dev), tau.to(dev),
                                        flip.to(dev), c=c, pool=pool)
         assert torch.equal(got.cpu(), want), (b, h, w, c, pool)
@@ -212,23 +229,35 @@ def test_delta_gate_matches_plain_version_on_the_card():
 
 @pytest.mark.gpu
 def test_binary_conv2x2_and_binarize_pack_match_plain_versions_on_the_card():
-    """The unfused packed conv at the chip's layer shapes and at odd ones
-    (c off the word grid up to 70, ragged F, 3-D input, full-range words,
-    a 2x2 map) and sign+pack with -0.0, NaN, +/-1e-30 and K off the word
-    grid: equal to the plain versions, as int32 sums and as words."""
+    """The unfused packed conv at every REGISTRY conv shape at B=8 and B=3
+    and at odd ones (c off the word grid up to 70 and 2048, ragged F, 3-D
+    input, full-range words, a 2x2 map, maps too wide for one staged row,
+    views not 16-byte aligned) and
+    sign+pack with -0.0, NaN, +/-1e-30 and K off the word grid: equal to
+    the plain versions, as int32 sums and as words."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import binarize_pack as bp
     from repro_torch.kernels import binary_conv2x2 as bc
     dev = torch.device("cuda")
     rng = np.random.default_rng(13)
-    for shape, c, f in (((8, 32, 32, 8), 256, 256), ((32, 31, 31, 2), 64, 64),
-                        ((3, 8, 9, 2), 40, 16), ((31, 31, 3), 70, 33),
-                        ((2, 2, 2, 1), 1, 1), ((5, 12, 7, 64), 2048, 40)):
+    odd = (((8, 32, 32, 8), 256, 256), ((32, 31, 31, 2), 64, 64),
+           ((3, 8, 9, 2), 40, 16), ((31, 31, 3), 70, 33),
+           ((2, 2, 2, 1), 1, 1), ((5, 12, 7, 64), 2048, 40),
+           ((1, 3, 500, 64), 2048, 40), ((2, 3, 4000, 8), 256, 33))
+    for shape, c, f in odd + tuple(
+            (((b, h, w, c // 32)), c, f)
+            for _, h, w, c, f, _ in _registry_convs() for b in (8, 3)):
         a, w = _words(rng, *shape), _words(rng, f, 4, shape[-1])
-        want = bc.binary_conv2x2_plain(a, w, c)
+        want = bc.binary_conv2x2_plain(a.to(dev), w.to(dev), c).cpu()
         got = bc.binary_conv2x2(a.to(dev), w.to(dev), c=c)
         assert torch.equal(got.cpu(), want), (shape, c, f)
+    # maps and taps that start 4 bytes past a 16-byte boundary (views)
+    a, w = _words(rng, 3 * 8 * 9 * 2 + 1), _words(rng, 16 * 4 * 2 + 1)
+    a, w = a.to(dev)[1:].view(3, 8, 9, 2), w.to(dev)[1:].view(16, 4, 2)
+    assert a.data_ptr() % 16 and w.data_ptr() % 16
+    assert torch.equal(bc.binary_conv2x2(a, w, c=40),
+                       bc.binary_conv2x2_plain(a, w, 40))
     for m, k in ((256, 960), (300, 100), (8 * 31 * 31, 256), (1, 1),
                  (5, 4096)):
         x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
