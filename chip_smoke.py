@@ -65,6 +65,7 @@ MMA_PROBE = (4, 20_000)         # blocks an SM, iterations of 8 MMAs a warp
 PROFILE_TRIES = 3               # profiler sessions before events stand in
 BATCH = 8
 RAGGED = 5
+SERVE_BATCH = 256                      # the megakernel serve's other batch
 SERVE_REQUESTS = 64
 REPLACES = {
     "conv_block": "src/repro/kernels/binary_conv2x2_block.py:154",
@@ -945,14 +946,18 @@ def main() -> None:
     for name, prog in programs.items():
         plan = interpreter.compile_plan(prog)
         image = {k: v.to(dev) for k, v in images[name].items()}
-        for b in (BATCH, RAGGED):
+        batches = (BATCH, RAGGED) + ((SERVE_BATCH,) if name == "cifar9_s1"
+                                     else ())
+        for b in batches:
             frames = torch.from_numpy(frame_stream(prog, b, b)).to(dev)
             want = mk.megakernel_plain(image, frames, spec=plan.mega)
             got = mk.megakernel_forward(image, frames, spec=plan.mega)
             torch.cuda.synchronize()
             errs["megakernel"] = max(errs["megakernel"],
                                      max_abs_err(got, want))
-        print(f"  megakernel {name} B={BATCH} and B={RAGGED}: equal")
+        geo = mk.cluster_geometry(mk.solo_member_spec(plan.mega))
+        print(f"  megakernel {name} B={', '.join(map(str, batches))} "
+              f"(clusters of {geo.cluster}): equal")
     for names in TILINGS:
         cplan, cimage = interpreter.pack_programs(
             {n: programs[n] for n in names}, {n: images[n] for n in names})
@@ -1642,20 +1647,30 @@ def main() -> None:
 
     plan = interpreter.compile_plan(cifar)
     image = interpreter.ensure_image(artifacts["cifar9_s1"], cifar)
-    frames = torch.from_numpy(frame_stream(cifar, BATCH, 7)).to(dev)
     io = plan.mega[0]
-    nbytes = 4 * (frames.numel() + sum(v.numel() for v in image.values())
-                  + io[5] // io[3] + BATCH * plan.mega[-1][2])
-    smem = mk.smem_bytes(mk.solo_member_spec(plan.mega)[0])
-    print(f"  megakernel cifar9_s1: {BATCH} blocks of {mk.WARPS} warps, "
-          f"{smem} B dynamic shared memory each")
-    row("megakernel",
-        time_ms(lambda: mk.megakernel_forward(image, frames, spec=plan.mega),
-                20),
-        time_ms(lambda: mk.megakernel_plain(image, frames, spec=plan.mega),
-                3),
-        nbytes, member_word_ops(plan.mega, BATCH), None,
-        macs=32 * member_word_ops(plan.mega, BATCH))
+    geo = mk.cluster_geometry(mk.solo_member_spec(plan.mega))
+    print(f"  megakernel cifar9_s1: clusters of {geo.cluster} blocks of "
+          f"{mk.CLUSTER_WARPS} warps, a cluster a frame, {geo.smem} B "
+          f"dynamic shared memory a block")
+    for b in (BATCH, SERVE_BATCH):
+        frames = torch.from_numpy(frame_stream(cifar, b, 7)).to(dev)
+        nbytes = 4 * (frames.numel() + sum(v.numel() for v in image.values())
+                      + io[5] // io[3] + b * plan.mega[-1][2])
+        ms, _, timed_by, events = timings(
+            lambda: mk.megakernel_forward(image, frames, spec=plan.mega),
+            "composite_kernel", None, 20)
+        plain_ms = time_ms(lambda: mk.megakernel_plain(image, frames,
+                                                       spec=plan.mega), 3)
+        if b == BATCH:
+            row("megakernel", ms, plain_ms, nbytes,
+                member_word_ops(plan.mega, b), None, timed_by=timed_by,
+                events=events, macs=32 * member_word_ops(plan.mega, b))
+        else:
+            bound, by = card.mac_bound(nbytes,
+                                       32 * member_word_ops(plan.mega, b))
+            print(f"  megakernel cifar9_s1 B={b}: {ms:.4f} ms ({timed_by}; "
+                  f"events {events[0]:.4f} ms), plain {plain_ms:.4f} ms, "
+                  f"tensor-core bound {bound:.5f} ms ({by}) [{card.smi}]")
 
     for batch, n_req in ((BATCH, 128), (256, 1024)):
         server = ChipServer({"cifar9_s1": cifar},
@@ -1681,16 +1696,18 @@ def main() -> None:
                    .to(dev) for i, n in enumerate(quad))
     nbytes = 4 * (sum(f.numel() for f in frames) + BATCH * sum(cplan.classes)
                   + sum(st[0][5] // st[0][3] for st in cplan.spec))
-    print(f"  composite {'+'.join(quad)}: {len(quad)} x {BATCH} blocks, "
-          f"{max(mk.smem_bytes(st) for st in cplan.spec)} B dynamic shared "
-          f"memory each")
-    row("composite",
-        time_ms(lambda: mk.composite_forward(cimage, frames,
-                                             spec=cplan.spec), 20),
+    geo = mk.cluster_geometry(cplan.spec)
+    print(f"  composite {'+'.join(quad)}: {len(quad)} x {BATCH} clusters of "
+          f"{geo.cluster} blocks, {geo.smem} B dynamic shared memory a block")
+    ms, _, timed_by, events = timings(
+        lambda: mk.composite_forward(cimage, frames, spec=cplan.spec),
+        "composite_kernel", None, 20)
+    row("composite", ms,
         time_ms(lambda: mk.composite_plain(cimage, frames, spec=cplan.spec),
                 3),
         nbytes + image_bytes(cimage),
         sum(member_word_ops(st, BATCH) for st in cplan.spec), None,
+        timed_by=timed_by, events=events,
         macs=32 * sum(member_word_ops(st, BATCH) for st in cplan.spec))
 
     # cascade: face -> owner at B=8; the row is margin -inf (every frame
@@ -1716,12 +1733,13 @@ def main() -> None:
                       + rec_spec[0][5] // rec_spec[0][3])
         ops_e = (member_word_ops(det_spec, BATCH)
                  + member_word_ops(rec_spec, e))
-        ms = time_ms(call, 20)
+        ms, _, timed_by, events = timings(call, "", None, 20)
         if margin == float("-inf"):
             row("cascade", ms,
                 time_ms(lambda: mk.cascade_plain(cimage, frames, ctrl,
                                                  spec=cplan.spec), 3),
-                nbytes + image_bytes(cimage), ops_e, None, macs=32 * ops_e)
+                nbytes + image_bytes(cimage), ops_e, None,
+                timed_by=timed_by, events=events, macs=32 * ops_e)
         else:
             bound_e, _ = card.mac_bound(nbytes + image_bytes(cimage),
                                         32 * ops_e)
@@ -1729,7 +1747,8 @@ def main() -> None:
                 nbytes + image_bytes(cimage),
                 32 * (member_word_ops(det_spec, BATCH)
                       + member_word_ops(rec_spec, counts[1])))
-            print(f"  cascade margin {margin}: {ms:.4f} ms, E {e}, counts[1] "
+            print(f"  cascade margin {margin}: {ms:.4f} ms ({timed_by}), E "
+                  f"{e}, counts[1] "
                   f"{counts[1]}; tensor-core bound {bound_e:.5f} ms on E "
                   f"recognizer frames, {bound_bill:.5f} ms on counts[1] "
                   f"[{card.smi}]")
@@ -1764,7 +1783,7 @@ def main() -> None:
         if n_fresh:
             nbytes += image_bytes(dimage)
         word_ops = BATCH * items + member_word_ops(member, n_fresh)
-        ms = time_ms(call, 20)
+        ms, _, timed_by, events = timings(call, "", None, 20)
         wall_ms, kernels = device_profile(call, 20)
         if kernels:
             busy = sum(kernels.values())
@@ -1781,10 +1800,12 @@ def main() -> None:
             row("delta", ms,
                 time_ms(lambda: mk.delta_plain(dimage, frames, last, llog,
                                                ctrl, spec=dplan.spec), 3),
-                nbytes, word_ops, None, macs=32 * word_ops)
+                nbytes, word_ops, None, timed_by=timed_by, events=events,
+                macs=32 * word_ops)
         else:
             bound, by = card.mac_bound(nbytes, 32 * word_ops)
-            print(f"  delta threshold {thr}: {ms:.4f} ms, E {counts[0]}, "
+            print(f"  delta threshold {thr}: {ms:.4f} ms ({timed_by}; events "
+                  f"{events[0]:.4f} ms), E {counts[0]}, "
                   f"counts[1] {counts[1]}, member frames run {n_fresh}; "
                   f"tensor-core bound {bound:.5f} ms ({by}) [{card.smi}]")
 

@@ -23,8 +23,9 @@
 // (chip_smoke.py phase 7, PERF.md): a layer is one wave of short blocks,
 // each a dependent chain of staging, one or two tiles and the epilogue,
 // so latency, not the MACs, sets its time (3-7 us a layer, tens of times
-// the bound).  The member body of the whole-network kernels keeps its own
-// per-word arithmetic (conv_block.cuh).
+// the bound).  The cluster member body of the whole-network kernels
+// (member_mma.cuh) computes the same layer from the same tile and
+// epilogue (conv_mma.cuh).
 
 #include <cuda_runtime.h>
 
@@ -70,20 +71,10 @@ conv_block_mma(const uint32_t* __restrict__ a, const uint32_t* __restrict__ w,
   const int slice = warp % g.nslices;
   if (n0 + 32 * slice >= f) return;
   const uint32_t* sb = sm.taps + 32 * slice * g.kstride;
-  // the comparator of this lane's 8 features: tau, and the flip bits in
-  // word order
+  // the comparator of this lane's 8 features
   int th[4][2];
-  uint32_t fl = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int fi = 32 * slice + 8 * j + 2 * t;
-    const int2 tp = *reinterpret_cast<const int2*>(sm.tau + fi);
-    const int2 fp = *reinterpret_cast<const int2*>(sm.flip + fi);
-    th[j][0] = tp.x;
-    th[j][1] = tp.y;
-    fl |= (static_cast<uint32_t>(fp.x & 1) | static_cast<uint32_t>(fp.y & 1)
-           << 1) << (8 * j + 2 * t);
-  }
+  const uint32_t fl =
+      load_comparator(sm.tau + 32 * slice, sm.flip + 32 * slice, t, th);
   int pw[4][4] = {};          // the taps' popcounts, from the first tile
   int kc[4][2];               // k4 - 2 pw
   const bool vec = !((cw | static_cast<int>(
@@ -111,33 +102,9 @@ conv_block_mma(const uint32_t* __restrict__ a, const uint32_t* __restrict__ w,
       mma_tile<false>(sa, r0.base, r1.base, sb, g.kstride, g.ksteps, cw,
                       g.pitch, vec, lane, acc, pa, pw);
     }
-    pa[0] = quad_sum(pa[0]);
-    pa[1] = quad_sum(pa[1]);
-    // bit 1 (-1) iff !((s >= tau) ^ flip): the ge bits, XOR flip, inverted
-    uint32_t w0 = 0, w1 = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int bit = 8 * j + 2 * t + e;
-        w0 |= static_cast<uint32_t>(
-                  kc[j][e] - 2 * pa[0] + 4 * acc[j][e] >= th[j][e]) << bit;
-        w1 |= static_cast<uint32_t>(
-                  kc[j][e] - 2 * pa[1] + 4 * acc[j][2 + e] >= th[j][e])
-              << bit;
-      }
-    }
-    const uint32_t mine = 0x03030303u << (2 * t);  // this lane's 8 bits
-    w0 = ~(w0 ^ fl) & mine;
-    w1 = ~(w1 ^ fl) & mine;
-    if (pool) {                 // corners gr >> 2, 2 + (gr >> 2); lane ^ 16
-      w0 &= w1;
-      w0 &= __shfl_xor_sync(kFullMask, w0, 16);
-    }
-    w0 |= __shfl_xor_sync(kFullMask, w0, 1);
-    w0 |= __shfl_xor_sync(kFullMask, w0, 2);
-    w1 |= __shfl_xor_sync(kFullMask, w1, 1);
-    w1 |= __shfl_xor_sync(kFullMask, w1, 2);
+    uint32_t w0, w1;
+    fused_words(acc, quad_sum(pa[0]), quad_sum(pa[1]), kc, th, fl, t,
+                pool != 0, w0, w1);
     if (t == 0) {
       if (pool) {
         if (gr < 4 && r0.out >= 0) {

@@ -1,6 +1,7 @@
-// The fused binary conv layer's per-word arithmetic, shared by the staged
-// conv kernel (conv_block.cu) and the whole-network member body
-// (megakernel.cuh), so both run the identical integer arithmetic.
+// The fused binary conv layer's per-word arithmetic on the CUDA cores, for
+// the one-block member body (megakernel.cuh run_member), which the fused
+// cascade (cascade.cu) alone still runs; the staged conv kernel and the
+// cluster body compute the same layer on the tensor cores (conv_mma.cuh).
 //
 // Conventions (those of repro.core.binarize): +1 -> bit 0, -1 -> bit 1,
 // 32 channels per uint32 word, LSB first.  A map is (H, W, CW) words, row

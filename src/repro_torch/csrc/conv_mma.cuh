@@ -1,6 +1,7 @@
 // The binary implicit GEMM that both packed 2x2 conv kernels share
-// (conv_block.cu, the fused layer; binary_conv2x2.cu, the unfused sums), on
-// Hopper's tensor cores (sm_90a).
+// (conv_block.cu, the fused layer; binary_conv2x2.cu, the unfused sums) and
+// the whole-network member body (member_mma.cuh), on Hopper's tensor cores
+// (sm_90a).
 //
 // Conventions (those of repro.core.binarize): +1 -> bit 0, -1 -> bit 1, 32
 // channels a uint32 word, LSB first.  A map is (B, H, W, CW) words, row
@@ -150,20 +151,21 @@ __device__ __forceinline__ Row row_of(int r, const Band& bd, int pitch,
   return {y * pitch + x * cw, (bd.row0 + yo) * wo + bd.col0 + xo};
 }
 
-// Stages the n words src[0, n) so that word j lands at dst + j + the
-// returned shift, which agrees with src mod 16 bytes: the aligned body
-// moves in 16-byte cp.async, the ragged ends in 4-byte ones.
+// Stages the n words src[0, n) so that word j lands at dst + j + shift,
+// shift = src's word offset mod 16 bytes: the aligned body moves in 16-byte
+// cp.async, the ragged ends in 4-byte ones, by a block of kN threads.
+template <int kN = kThreads>
 __device__ __forceinline__ void stage_run(uint32_t* dst,
                                           const uint32_t* __restrict__ src,
                                           int n, int shift) {
   uint32_t* d = dst + shift;
   const int head = min((4 - shift) & 3, n);
   const int body_end = head + ((n - head) & ~3);
-  for (int j = threadIdx.x; j < head; j += kThreads) cp_async4(d + j, src + j);
-  for (int j = head + 4 * threadIdx.x; j < body_end; j += 4 * kThreads) {
+  for (int j = threadIdx.x; j < head; j += kN) cp_async4(d + j, src + j);
+  for (int j = head + 4 * threadIdx.x; j < body_end; j += 4 * kN) {
     cp_async16(d + j, src + j, true);
   }
-  for (int j = body_end + threadIdx.x; j < n; j += kThreads) {
+  for (int j = body_end + threadIdx.x; j < n; j += kN) {
     cp_async4(d + j, src + j);
   }
 }
@@ -261,6 +263,63 @@ __device__ __forceinline__ void mma_tile(const uint32_t* sa, int base0,
 __device__ __forceinline__ int quad_sum(int v) {
   v += __shfl_xor_sync(kFullMask, v, 1);
   return v + __shfl_xor_sync(kFullMask, v, 2);
+}
+
+// The comparator of lane (g, t)'s 8 features of a 32-feature slice whose
+// tau and flip are staged at tau, flip (8-byte aligned): th[j][e] is
+// feature 8 j + 2 t + e's tau; returns their flip bits in word order.
+__device__ __forceinline__ uint32_t load_comparator(const int32_t* tau,
+                                                    const int32_t* flip,
+                                                    int t, int (&th)[4][2]) {
+  uint32_t fl = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int fi = 8 * j + 2 * t;
+    const int2 tp = *reinterpret_cast<const int2*>(tau + fi);
+    const int2 fp = *reinterpret_cast<const int2*>(flip + fi);
+    th[j][0] = tp.x;
+    th[j][1] = tp.y;
+    fl |= (static_cast<uint32_t>(fp.x & 1) | static_cast<uint32_t>(fp.y & 1)
+           << 1) << fi;
+  }
+  return fl;
+}
+
+// The fused epilogue of one m16 x n32 tile: s = kc - 2 pa + 4 and (pa0,
+// pa1 the quad sums of rows g and g + 8), the comparator, bit 1 (-1) iff
+// !((s >= tau) ^ flip), with pool the AND of a window's four corners (two
+// rows of a lane, then lane ^ 16), and the 32 features of a row ORed into
+// one word over the quad.  w0 is row g's word (with pool, window g & 3's
+// in lanes g < 4), w1 row g + 8's, in every lane of the quad.
+__device__ __forceinline__ void fused_words(const int (&acc)[4][4], int pa0,
+                                            int pa1, const int (&kc)[4][2],
+                                            const int (&th)[4][2],
+                                            uint32_t fl, int t, bool pool,
+                                            uint32_t& w0, uint32_t& w1) {
+  w0 = 0;
+  w1 = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int bit = 8 * j + 2 * t + e;
+      w0 |= static_cast<uint32_t>(kc[j][e] - 2 * pa0 + 4 * acc[j][e] >=
+                                  th[j][e]) << bit;
+      w1 |= static_cast<uint32_t>(kc[j][e] - 2 * pa1 + 4 * acc[j][2 + e] >=
+                                  th[j][e]) << bit;
+    }
+  }
+  const uint32_t mine = 0x03030303u << (2 * t);  // this lane's 8 bits
+  w0 = ~(w0 ^ fl) & mine;
+  w1 = ~(w1 ^ fl) & mine;
+  if (pool) {                   // corners g >> 2, 2 + (g >> 2); lane ^ 16
+    w0 &= w1;
+    w0 &= __shfl_xor_sync(kFullMask, w0, 16);
+  }
+  w0 |= __shfl_xor_sync(kFullMask, w0, 1);
+  w0 |= __shfl_xor_sync(kFullMask, w0, 2);
+  w1 |= __shfl_xor_sync(kFullMask, w1, 1);
+  w1 |= __shfl_xor_sync(kFullMask, w1, 2);
 }
 
 // Shared memory of a block, in words, at the wrapper's geometry (conv_tiles

@@ -10,33 +10,40 @@
 // array; each reads its own rows of one composite weight image
 // (megakernel.cuh).
 //
-// What bounds it on the H100: integer issue on the SMs that have work.  A
-// cifar9 S=1 frame is about 31 M xor+popc word-ops (popc issues at 16 per
-// clock per SM), and this design gives each frame of each member one
-// thread block, so a launch occupies at most sum(B_m) of the 132 SMs.  At
-// batch 8 that leaves most of the card idle; spreading one frame over
-// several SMs (clusters, or a per-layer split of positions) is the first
-// thing a faster version changes.
+// What bounds it on the H100: the tensor cores' binary MACs in principle
+// (cifar9_s1 at batch 8: 8.05 G conv MACs, 0.0010 ms at the binary MAC
+// peak, chip_smoke.py phase 2's probe), against a few hundred KB of frames,
+// weights and logits.  In practice a frame's chain of dependent layers,
+// each a few tiles a warp and a cluster barrier, sets the time of a launch
+// at serving batches (PERF.md section 6, row 4; the clock64 split of
+// launch/time_members.py --clocks).  The one-block body it replaces
+// (megakernel.cuh run_member, now the cascade's alone) ran a frame's 31 M
+// xor+popc word-ops on one SM's CUDA cores: batch 8 kept 8 of 132 SMs
+// busy for 1.42 ms.
 //
-// Design: grid (max B_m, members).  blockIdx.y selects the member's stage
-// table, frame batch and logits; blocks past a member's ragged batch
-// return at once.  Each block runs run_member (megakernel.cuh) on one
-// frame.  Dynamic shared memory is the largest member's two ping-pong map
-// buffers (64 KB for an S=1 member, above the 48 KB default, hence the
-// opt-in; 16 KB for a 4 x S=4 composite).  TPU lane grouping
-// (repro's _run_group) is a schedule of the same arithmetic and has no
-// counterpart here: every member runs its own blocks.
+// Design: the member body of member_mma.cuh, one thread-block cluster a
+// frame, its blocks splitting each conv layer's output rows and trading
+// halo rows through distributed shared memory.  Grid (cluster x max B_m,
+// members): blockIdx.y selects the member's stage table, frame batch and
+// logits, blockIdx.x / cluster the frame; clusters past a member's ragged
+// batch return at once, all their blocks together.  One cluster shape
+// serves the launch, and every member splits its rows over all of its
+// blocks.  The cluster shape, shared memory and tap strides come from the
+// Python wrapper (kernels/megakernel.py cluster_geometry); the launch
+// checks with cudaOccupancyMaxActiveClusters that a cluster fits and
+// fails otherwise.  TPU lane grouping (repro's _run_group) is a schedule
+// of the same arithmetic and has no counterpart here.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "megakernel.cuh"
+#include "member_mma.cuh"
 
 namespace {
 
 using repro_torch::kMaxMembers;
-using repro_torch::kMegaWarps;
+namespace mm = repro_torch::member_mma;
 
 struct CompositeArgs {
   repro_torch::MemberSpec member[kMaxMembers];
@@ -45,41 +52,45 @@ struct CompositeArgs {
   int32_t* out[kMaxMembers];             // (B_m, classes)
   int batch[kMaxMembers];
   repro_torch::ImageRef img;
-  int smem_words;
+  mm::Geometry geo;
 };
 
-__global__ void __launch_bounds__(kMegaWarps * 32)
-composite_kernel(const CompositeArgs args) {
-  extern __shared__ uint32_t smem[];
+__global__ void __launch_bounds__(mm::kThreads)
+composite_kernel(const __grid_constant__ CompositeArgs args) {
+  extern __shared__ uint4 smem4[];
   const int m = blockIdx.y;
-  const int b = blockIdx.x;
-  if (b >= args.batch[m]) return;
+  const int b = blockIdx.x / args.geo.cluster;
+  if (b >= args.batch[m]) return;        // the whole cluster
   const repro_torch::MemberSpec& spec = args.member[m];
-  repro_torch::run_member(
-      spec, args.img,
+  mm::run_frame<false>(
+      spec, args.img, args.geo, m,
       args.frames[m] + static_cast<size_t>(b) * repro_torch::frame_elems(spec),
-      args.thr[m],
-      args.out[m] + static_cast<size_t>(b) * repro_torch::classes(spec), smem,
-      args.smem_words);
+      args.thr[m], nullptr,
+      args.out[m] + static_cast<size_t>(b) * repro_torch::classes(spec),
+      reinterpret_cast<uint32_t*>(smem4));
 }
 
 }  // namespace
 
-// table: the int32 launch table (megakernel.cuh parse_table) built by the
+// table: the int32 launch table (megakernel.cuh parse_table) and geo the
+// launch geometry (member_mma.cuh parse_geometry), both built by the
 // Python wrapper.  frames/thr/out/batch: one entry per member, in member
 // order.  cw/ct/cf/fw: the (composite) weight image.  Returns a CUDA error
-// code: cudaErrorInvalidValue for a table the kernel cannot take, else
-// cudaGetLastError() after the launch.
+// code: cudaErrorInvalidValue for a table or geometry the kernel cannot
+// take, cudaErrorInvalidConfiguration if no cluster fits the device, else
+// the launch's error.
 extern "C" int composite_launch(const void* const* frames,
                                 const void* const* thr, const void* cw,
                                 const void* ct, const void* cf, const void* fw,
                                 void* const* out, const int* batch,
-                                const int* table, int n_table, void* stream) {
+                                const int* table, int n_table, const int* geo,
+                                int n_geo, void* stream) {
   repro_torch::LaunchTable t;
-  if (!repro_torch::parse_table(table, n_table, &t)) {
+  CompositeArgs args{};
+  if (!repro_torch::parse_table(table, n_table, &t) ||
+      !mm::parse_geometry(geo, n_geo, t, &args.geo)) {
     return cudaErrorInvalidValue;
   }
-  CompositeArgs args{};
   int bmax = 0;
   for (int m = 0; m < t.n_members; ++m) {
     args.member[m] = t.member[m];
@@ -94,18 +105,9 @@ extern "C" int composite_launch(const void* const* frames,
   args.img = {static_cast<const uint32_t*>(cw), static_cast<const int32_t*>(ct),
               static_cast<const int32_t*>(cf), static_cast<const uint32_t*>(fw),
               t.ftot, t.cwmax, t.ntot, t.kwmax};
-  args.smem_words = 0;
-  for (int m = 0; m < t.n_members; ++m) {
-    const int words = repro_torch::member_smem_words(t.member[m]);
-    if (words > args.smem_words) args.smem_words = words;
-  }
-
-  const int smem_bytes = 2 * args.smem_words * static_cast<int>(sizeof(uint32_t));
-  const cudaError_t err = repro_torch::allow_smem(composite_kernel, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(bmax),
+  const dim3 grid(static_cast<unsigned>(args.geo.cluster * bmax),
                   static_cast<unsigned>(t.n_members));
-  composite_kernel<<<grid, kMegaWarps * 32, smem_bytes,
-                     static_cast<cudaStream_t>(stream)>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(mm::launch_clusters(
+      composite_kernel, args, grid, args.geo.cluster, args.geo.smem_bytes,
+      static_cast<cudaStream_t>(stream)));
 }

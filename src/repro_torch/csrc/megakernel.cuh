@@ -1,6 +1,9 @@
-// One member's whole network per thread block, shared by the composite
-// megakernel (megakernel.cu), the fused cascade (cascade.cu) and the delta
-// gate (delta.cu).
+// The member spec and launch table of the whole-network kernels
+// (megakernel.cu, cascade.cu, delta.cu, parse_table), and the one-block
+// member body, one member's whole network per thread block, which the fused
+// cascade (cascade.cu) alone still runs: the composite megakernel and the
+// delta gate run the cluster body of member_mma.cuh, and the cascade moves
+// there next (ROADMAP 2.2), which deletes run_member and conv_block.cuh.
 //
 // A member is one program inside a weight image.  A composite image packs
 // several programs side by side: conv layer l of every member lives in
@@ -18,8 +21,7 @@
 //  * The conv chain ping-pongs the packed maps between two shared-memory
 //    buffers.  Warp w owns feature word w % (F/32) for a whole layer, with
 //    its lane's 4 x C/32 weight words in registers, and strides over
-//    positions; the per-word arithmetic is conv_block.cuh's, shared with
-//    the staged conv kernel.
+//    positions; the per-word arithmetic is conv_block.cuh's.
 //  * Weights are read from global memory: the S=1 conv image is 256 KB,
 //    above the 227 KB a block may hold, so it stays in the 50 MB L2.
 //  * The FC tail reads the flattened final map (its (H, W, F/32) word order
@@ -137,9 +139,7 @@ __host__ __device__ inline int classes(const MemberSpec& s) {
 // channel word item % cwio.  Lane j computes channel 32 * word + j as
 // (float)pixel < thr[plane] against the host's float32 threshold table
 // (channels past cin * per are the constant +1 bias, bit 0); the ballot is
-// the word, returned to every lane of the warp.  The member body and the
-// delta gate (delta.cu) both pack through it, so the gate's words are the
-// network's input words.
+// the word, returned to every lane of the warp.
 __device__ __forceinline__ uint32_t thermometer_word(
     const MemberSpec& spec, const int32_t* __restrict__ frame,
     const float* __restrict__ thr, int item, int lane) {
@@ -154,6 +154,83 @@ __device__ __forceinline__ uint32_t thermometer_word(
   return __ballot_sync(kFullMask, bit);
 }
 
+// The three phases of run_member, each called by every thread of the
+// block (member_clocks.cu stamps the time between them).  pack_frame:
+// (H, W, Cin) int32 pixels -> (H, W, cwio) words in cur.
+__device__ __forceinline__ void pack_frame(const MemberSpec& spec,
+                                           const int32_t* __restrict__ frame,
+                                           const float* __restrict__ thr,
+                                           uint32_t* cur) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int items = spec.h * spec.w * spec.cwio;
+  for (int item = warp; item < items; item += kMegaWarps) {
+    const uint32_t word = thermometer_word(spec, frame, thr, item, lane);
+    if (lane == 0) cur[item] = word;
+  }
+}
+
+// Conv layer l: the map in cur -> the next map in nxt.
+__device__ __forceinline__ void conv_layer(const MemberSpec& spec,
+                                           const ImageRef& img, int l,
+                                           const uint32_t* cur,
+                                           uint32_t* nxt) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int h = spec.conv_h[l], wd = spec.conv_w[l];
+  const int c = spec.conv_c[l], f = spec.conv_f[l];
+  const bool pool = spec.conv_pool[l] != 0;
+  const int cwl = c / 32, fwo = f / 32;
+  const int ho = pool ? (h - 1) / 2 : h - 1;
+  const int wo = pool ? (wd - 1) / 2 : wd - 1;
+  const int fwi = warp % fwo;                    // kMegaWarps % fwo == 0
+  const int fidx = fwi * 32 + lane;
+  const size_t row0 = static_cast<size_t>(l) * img.ftot + spec.conv_foff[l];
+  uint32_t wr[4 * kMaxCw];
+  load_taps(img.cw + row0 * 4 * img.cwmax, fidx, cwl, img.cwmax, wr);
+  const int tau = img.ct[row0 + fidx];
+  const int flip = img.cf[row0 + fidx];
+  for (int pos = warp / fwo; pos < ho * wo; pos += kMegaWarps / fwo) {
+    const int yo = pos / wo;
+    const int xo = pos - yo * wo;
+    const uint32_t word = conv_word(cur, wd, cwl, yo, xo, pool, wr, 4 * c,
+                                    tau, flip);
+    if (lane == 0) nxt[pos * fwo + fwi] = word;
+  }
+}
+
+// FC layer fi on the flattened packed map in cur: hidden layers sign and
+// pack into nxt, the final layer writes int32 logits to out.
+__device__ __forceinline__ void fc_layer(const MemberSpec& spec,
+                                         const ImageRef& img, int fi,
+                                         const uint32_t* cur, uint32_t* nxt,
+                                         int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = spec.fc_k[fi], n = spec.fc_n[fi];
+  const int kw = (k + 31) / 32;
+  const bool final_layer = fi == spec.n_fc - 1;
+  const uint32_t* rows =
+      img.fw + (static_cast<size_t>(fi) * img.ntot + spec.fc_noff[fi]) *
+                   img.kwmax;
+  for (int chunk = warp; chunk < (n + 31) / 32; chunk += kMegaWarps) {
+    const int nn = chunk * 32 + lane;
+    int s = 0;
+    if (nn < n) {
+      const uint32_t* row = rows + static_cast<size_t>(nn) * img.kwmax;
+      int acc = 0;
+      for (int i = 0; i < kw; ++i) acc += __popc(cur[i] ^ row[i]);
+      s = k - 2 * acc;
+    }
+    if (final_layer) {
+      if (nn < n) out[nn] = s;
+    } else {
+      const uint32_t word = __ballot_sync(kFullMask, nn < n && s < 0);
+      if (lane == 0) nxt[chunk] = word;
+    }
+  }
+}
+
 // One frame (H, W, Cin int32 pixels) of one member -> its int32 logits in
 // out[0 .. classes).  Every thread of the block calls it; smem holds two
 // buffers of smem_words words each.
@@ -163,72 +240,18 @@ __device__ __forceinline__ void run_member(
     int32_t* __restrict__ out, uint32_t* smem, int smem_words) {
   uint32_t* cur = smem;
   uint32_t* nxt = smem + smem_words;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  // 1. thermometer pack: (H, W, Cin) int32 pixels -> (H, W, cwio) words
-  {
-    const int items = spec.h * spec.w * spec.cwio;
-    for (int item = warp; item < items; item += kMegaWarps) {
-      const uint32_t word = thermometer_word(spec, frame, thr, item, lane);
-      if (lane == 0) cur[item] = word;
-    }
-  }
+  pack_frame(spec, frame, thr, cur);
   __syncthreads();
-
-  // 2. the conv chain, maps ping-ponged in shared memory
   for (int l = 0; l < spec.n_conv; ++l) {
-    const int h = spec.conv_h[l], wd = spec.conv_w[l];
-    const int c = spec.conv_c[l], f = spec.conv_f[l];
-    const bool pool = spec.conv_pool[l] != 0;
-    const int cwl = c / 32, fwo = f / 32;
-    const int ho = pool ? (h - 1) / 2 : h - 1;
-    const int wo = pool ? (wd - 1) / 2 : wd - 1;
-    const int fwi = warp % fwo;                    // kMegaWarps % fwo == 0
-    const int fidx = fwi * 32 + lane;
-    const size_t row0 = static_cast<size_t>(l) * img.ftot + spec.conv_foff[l];
-    uint32_t wr[4 * kMaxCw];
-    load_taps(img.cw + row0 * 4 * img.cwmax, fidx, cwl, img.cwmax, wr);
-    const int tau = img.ct[row0 + fidx];
-    const int flip = img.cf[row0 + fidx];
-    for (int pos = warp / fwo; pos < ho * wo; pos += kMegaWarps / fwo) {
-      const int yo = pos / wo;
-      const int xo = pos - yo * wo;
-      const uint32_t word = conv_word(cur, wd, cwl, yo, xo, pool, wr, 4 * c,
-                                      tau, flip);
-      if (lane == 0) nxt[pos * fwo + fwi] = word;
-    }
+    conv_layer(spec, img, l, cur, nxt);
     __syncthreads();
     uint32_t* t = cur;
     cur = nxt;
     nxt = t;
   }
-
-  // 3. the FC tail on the flattened packed map
   for (int fi = 0; fi < spec.n_fc; ++fi) {
-    const int k = spec.fc_k[fi], n = spec.fc_n[fi];
-    const int kw = (k + 31) / 32;
-    const bool final_layer = fi == spec.n_fc - 1;
-    const uint32_t* rows =
-        img.fw + (static_cast<size_t>(fi) * img.ntot + spec.fc_noff[fi]) *
-                     img.kwmax;
-    for (int chunk = warp; chunk < (n + 31) / 32; chunk += kMegaWarps) {
-      const int nn = chunk * 32 + lane;
-      int s = 0;
-      if (nn < n) {
-        const uint32_t* row = rows + static_cast<size_t>(nn) * img.kwmax;
-        int acc = 0;
-        for (int i = 0; i < kw; ++i) acc += __popc(cur[i] ^ row[i]);
-        s = k - 2 * acc;
-      }
-      if (final_layer) {
-        if (nn < n) out[nn] = s;
-      } else {
-        const uint32_t word = __ballot_sync(kFullMask, nn < n && s < 0);
-        if (lane == 0) nxt[chunk] = word;
-      }
-    }
-    if (!final_layer) {
+    fc_layer(spec, img, fi, cur, nxt, out);
+    if (fi != spec.n_fc - 1) {
       __syncthreads();
       uint32_t* t = cur;
       cur = nxt;

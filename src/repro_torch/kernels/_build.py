@@ -27,7 +27,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("conv_block", "xnor_matmul", "megakernel", "cascade", "delta",
-           "binary_conv2x2", "binarize_pack", "flash_attention", "mma_rate")
+           "binary_conv2x2", "binarize_pack", "flash_attention", "mma_rate",
+           "member_clocks")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

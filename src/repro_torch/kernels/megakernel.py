@@ -43,6 +43,7 @@ effect on the cascade's bill is kept (the pad granule ``bpad``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, Sequence, Tuple
 
@@ -53,10 +54,17 @@ from repro_torch.core.binarize import (PACK_WIDTH, pack_bit_lanes,
                                        thermometer_thresholds,
                                        xnor_dot_popcount)
 from repro_torch.kernels.binary_conv2x2_block import (MAX_CHANNEL_WORDS,
+                                                      aligned16,
                                                       conv_block_body)
 from repro_torch.kernels import _build
 
-WARPS = 16                   # warps per block in csrc/megakernel.cuh
+WARPS = 16                   # warps a block of the one-block body
+                             # (csrc/megakernel.cuh, the cascade's)
+CLUSTER_WARPS = 16           # warps a block of the cluster body and the
+                             # delta gate (csrc/member_mma.cuh kWarps)
+MAX_CLUSTER = 8              # a portable cluster: 256 features / 32
+STEP_WORDS = 8               # 256 K bits a mma.sync m16n8k256 step
+GATE_WORDS = 512             # packed words a delta-gate block at most
 MAX_LAYERS = 16              # the chip's 16-slot program memory
 MAX_MEMBERS = 4              # 4 x S=4 sub-arrays tile the 256 channels
 SMEM_LIMIT = 232448          # shared memory one H100 block may use
@@ -389,7 +397,8 @@ def _map_words(stages) -> int:
 
 
 def smem_bytes(stages) -> int:
-    """Dynamic shared memory one block of this member takes."""
+    """Dynamic shared memory one block of this member takes in the
+    one-block body (the cascade's)."""
     return 2 * 4 * _map_words(stages)
 
 
@@ -432,6 +441,130 @@ def composite_table(spec, cw_shape: Tuple[int, ...],
     return tuple(table + [ftot, cwmax, ntot, kwmax])
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterGeometry:
+    """Launch geometry of the cluster member body (csrc/member_mma.cuh
+    ``Geometry``); the kernels take it as it is."""
+    cluster: int         # blocks a cluster: one frame's ranks
+    map_words: int       # words of each ping-pong map buffer (a multiple of 4)
+    kstride: int         # words a staged tap row (8 mod 16)
+    fmax: int            # feature rows of each tap buffer: the widest F
+    pix_words: int       # words of a rank's pixel staging buffer
+    smem: int            # dynamic shared memory bytes a block
+    ksteps: tuple        # each member's 256-bit K steps a conv layer
+
+    @property
+    def args(self) -> tuple:
+        """The int array ``parse_geometry`` reads, in its order."""
+        return (self.cluster, self.map_words, self.kstride, self.fmax,
+                self.pix_words, self.smem) + tuple(
+                    k for member in self.ksteps for k in member)
+
+
+def band_start(ho: int, r: int, n: int) -> int:
+    """Rank r's first output row of a layer of ``ho`` rows over ``n`` ranks
+    (member_mma.cuh band_start): its band is [band_start(ho, r, n),
+    band_start(ho, r + 1, n)), maybe empty."""
+    return ho * r // n
+
+
+def rows_read(first: int, last: int, pool: bool) -> Tuple[int, int]:
+    """The input rows output rows [first, last) of a 2x2 conv read
+    (member_mma.cuh rows_read): one more below, two with the pool."""
+    if first >= last:
+        return 0, 0
+    return (2 * first, 2 * last + 1) if pool else (first, last + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_geometry(spec) -> ClusterGeometry:
+    """Cluster size, buffers, tap strides and shared memory of one launch
+    of the cluster body on the composite ``spec``.
+
+    A cluster has one block for each feature word of the launch's widest
+    conv layer (8 at S=1, 4 at S=2, 2 at S=4, 1 without a conv layer), and
+    every member splits each layer's output rows over all of them.  A block
+    holds two copies of the largest map, two tap buffers of the widest
+    layer's F rows of ``kstride`` words (K padded to whole 256-bit steps;
+    8 mod 16 words, so the 8-byte B loads of a half warp fall in distinct
+    banks), two (tau, flip) pairs, and the pixels of the input rows its
+    first layer reads (the same words then hold a layer's row readers, a
+    word an output row).  A layer's F/32 feature slices must divide the
+    block's warps.  Raises on a spec the kernels cannot take.
+    """
+    fwords, pix, out_rows = [], [], [1]
+    for stages in spec:
+        head, _ = _split_stages(stages)
+        _, h, w, cin, _bits, channels = head[0]
+        if channels % PACK_WIDTH or not 0 < channels // PACK_WIDTH <= (
+                MAX_CHANNEL_WORDS):
+            raise ValueError(f"the cluster body cannot take io channels "
+                             f"{channels}")
+        for _, ch, _w, c, f, pool, _off in head[1:]:
+            if (f % PACK_WIDTH or c % PACK_WIDTH or not 0 < f <= 256
+                    or CLUSTER_WARPS % (f // PACK_WIDTH)
+                    or not 0 < c // PACK_WIDTH <= MAX_CHANNEL_WORDS):
+                raise ValueError(f"the cluster body cannot take conv C={c}, "
+                                 f"F={f}")
+            fwords.append(f // PACK_WIDTH)
+            out_rows.append((ch - 1) // 2 if pool else ch - 1)
+        pix.append((head, h, w, cin))
+    cluster = max(fwords, default=1)
+    rows = []
+    for head, h, w, cin in pix:
+        for r in range(cluster):
+            if len(head) > 1:
+                _, ch, _cw, _c, _f, pool, _off = head[1]
+                ho = (ch - 1) // 2 if pool else ch - 1
+                first, last = rows_read(band_start(ho, r, cluster),
+                                        band_start(ho, r + 1, cluster), pool)
+            else:
+                first, last = 0, h
+            rows.append((last - first) * w * cin)
+    ksteps = tuple(tuple(-(-4 * (st[3] // PACK_WIDTH) // STEP_WORDS)
+                         for st in _split_stages(stages)[0][1:])
+                   for stages in spec)
+    kpad = STEP_WORDS * max((k for m in ksteps for k in m), default=1)
+    kstride = kpad + 8 if kpad % 16 == 0 else kpad
+    fmax = PACK_WIDTH * max(fwords, default=1)
+    map_words = _round4(max(_map_words(stages) for stages in spec))
+    pix_words = _round4(max(max(rows) + 3, max(out_rows)))
+    smem = 4 * (2 * map_words + 2 * fmax * (kstride + 2) + pix_words)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a cluster block needs {smem} B of shared memory, "
+                         f"more than {SMEM_LIMIT}")
+    return ClusterGeometry(cluster, map_words, kstride, fmax, pix_words, smem,
+                           ksteps)
+
+
+@dataclasses.dataclass(frozen=True)
+class GateGeometry:
+    """Launch geometry of the delta gate (csrc/delta.cu gate_kernel)."""
+    blocks: int          # gate blocks a stream
+    pix_words: int       # words of a block's pixel staging buffer
+    smem: int            # dynamic shared memory bytes a gate block
+    cur_stride: int      # words a stream's row of the packed-word scratch
+
+
+@functools.lru_cache(maxsize=64)
+def gate_geometry(stages) -> GateGeometry:
+    """Blocks a stream and buffers of the delta gate for one member: the
+    frame's positions split over blocks of at most GATE_WORDS packed words,
+    each staging its positions' pixels and last words."""
+    _, h, w, cin, _bits, channels = stages[0]
+    hw, cwio = h * w, channels // PACK_WIDTH
+    blocks = min(hw, max(1, -(-hw * cwio // GATE_WORDS)))
+    per = -(-hw // blocks)
+    pix_words = _round4(per * cin + 3)
+    last_words = _round4(per * cwio + 3)
+    return GateGeometry(blocks, pix_words, 4 * (pix_words + last_words),
+                        _round4(hw * cwio))
+
+
 @functools.lru_cache(maxsize=64)
 def _thresholds(bits: int, per: int, device: torch.device) -> torch.Tensor:
     return thermometer_thresholds(bits, per, device=device)
@@ -442,15 +575,23 @@ def _member_thresholds(stages, device) -> torch.Tensor:
     return _thresholds(bits, channels // cin, device)
 
 
+_INTS = ctypes.POINTER(ctypes.c_int)
+# the C entry points' arguments, in order: pointers (and the stream) as
+# c_void_p, ints as c_int, arrays as pointers
+COMPOSITE_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] * 2
+                      + [ctypes.c_void_p] * 4
+                      + [ctypes.POINTER(ctypes.c_void_p), _INTS, _INTS,
+                         ctypes.c_int, _INTS, ctypes.c_int, ctypes.c_void_p])
+CASCADE_ARGTYPES = ([ctypes.c_void_p] * 12 + [_INTS] + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p])
+DELTA_ARGTYPES = ([ctypes.c_void_p] * 16 + [_INTS, ctypes.c_int, _INTS]
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def _composite_launcher():
     fn = _build.library("megakernel").composite_launch
-    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 2
-                   + [ctypes.c_void_p] * 4
-                   + [ctypes.POINTER(ctypes.c_void_p),
-                      ctypes.POINTER(ctypes.c_int),
-                      ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = COMPOSITE_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -458,9 +599,7 @@ def _composite_launcher():
 @functools.lru_cache(maxsize=None)
 def _cascade_launcher():
     fn = _build.library("cascade").cascade_launch
-    fn.argtypes = ([ctypes.c_void_p] * 12
-                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
+    fn.argtypes = CASCADE_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -468,9 +607,7 @@ def _cascade_launcher():
 @functools.lru_cache(maxsize=None)
 def _delta_launcher():
     fn = _build.library("delta").delta_launch
-    fn.argtypes = ([ctypes.c_void_p] * 14
-                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+    fn.argtypes = DELTA_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -484,7 +621,8 @@ def _ptrs(values) -> ctypes.Array:
 
 
 def _image_words(image):
-    return tuple(image[k].contiguous() for k in ("cw", "ct", "cf", "fw"))
+    """The image's words, 16-byte aligned (the kernels' cp.async)."""
+    return tuple(aligned16(image[k]) for k in ("cw", "ct", "cf", "fw"))
 
 
 def _need_cuda(t: torch.Tensor) -> None:
@@ -499,6 +637,7 @@ def _launch_composite(image, frames, spec) -> Tuple[torch.Tensor, ...]:
     _need_cuda(frames[0])
     cw, ct, cf, fw = _image_words(image)
     table = composite_table(spec, tuple(cw.shape), tuple(fw.shape))
+    geo = cluster_geometry(spec)
     dev = frames[0].device
     frames = [f.to(torch.int32).contiguous() for f in frames]
     thr = [_member_thresholds(st, dev) for st in spec]
@@ -512,6 +651,7 @@ def _launch_composite(image, frames, spec) -> Tuple[torch.Tensor, ...]:
             cw.data_ptr(), ct.data_ptr(), cf.data_ptr(), fw.data_ptr(),
             _ptrs([o.data_ptr() for o in outs]),
             _ints([f.shape[0] for f in frames]), _ints(table), len(table),
+            _ints(geo.args), len(geo.args),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"composite launch failed: CUDA error {err}")
@@ -632,19 +772,25 @@ def delta_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
     b = frames.shape[0]
     bpad, rb = cascade_schedule(b, bb, rb)
     (member,) = spec
+    geo, gate = cluster_geometry(spec), gate_geometry(member)
     logits = torch.empty_like(llog)
     new_last = torch.empty_like(last)
     queue = torch.empty(b, dtype=torch.int32, device=dev)
     counts = torch.empty(2, dtype=torch.int32, device=dev)
     deltas = torch.empty(b, dtype=torch.int32, device=dev)
+    # scratch: the gate's packed words and partial deltas
+    cur = torch.empty((b, gate.cur_stride), dtype=torch.int32, device=dev)
+    partial = torch.empty((b, gate.blocks), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _delta_launcher()(
             frames.data_ptr(), _member_thresholds(member, dev).data_ptr(),
             cw.data_ptr(), ct.data_ptr(), cf.data_ptr(), fw.data_ptr(),
             last.data_ptr(), llog.data_ptr(), ctrl.data_ptr(),
-            logits.data_ptr(), new_last.data_ptr(), queue.data_ptr(),
-            counts.data_ptr(), deltas.data_ptr(), _ints(table), len(table),
-            b, bpad, rb, check_every,
+            cur.data_ptr(), partial.data_ptr(), logits.data_ptr(),
+            new_last.data_ptr(), queue.data_ptr(), counts.data_ptr(),
+            deltas.data_ptr(), _ints(table), len(table), _ints(geo.args),
+            len(geo.args), b, bpad, rb, check_every, gate.blocks,
+            gate.pix_words, gate.smem, gate.cur_stride,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"delta launch failed: CUDA error {err}")

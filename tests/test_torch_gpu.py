@@ -108,6 +108,26 @@ def _frames(rng, prog, b):
 
 
 @pytest.mark.gpu
+def test_megakernel_at_the_serve_batch_matches_plain_version_on_the_card():
+    """cifar9_s1 at the megakernel serve's other batch, 256 (more clusters
+    than the card holds at once), and a ragged 131: the cluster body equals
+    megakernel_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    prog = networks.REGISTRY["cifar9_s1"]()
+    image = _random_image(prog, torch.Generator().manual_seed(14))
+    spec = interpreter.compile_plan(prog).mega
+    cimage = {k: v.to(dev) for k, v in image.items()}
+    for b in (256, 131):
+        frames = _frames(rng, prog, b).to(dev)
+        want = mk.megakernel_plain(cimage, frames, spec=spec)
+        got = mk.megakernel_forward(cimage, frames, spec=spec)
+        assert torch.equal(got, want), b
+
+
+@pytest.mark.gpu
 def test_composite_and_cascade_match_plain_versions_on_the_card():
     """Every exact REGISTRY tiling with ragged member batches, and the
     face -> owner cascade over margins, a masked padding lane and drain
