@@ -97,6 +97,11 @@ TILINGS = (("cifar9_s4", "cifar9_s4t", "mnist5", "face_detector"),
            ("cifar9_s2", "mnist5", "face_detector"))
 RAGGED_MEMBERS = (8, 5, 3, 1)
 CASCADE = ("face_detector", "owner_detector")
+DET_CLUSTERS = (2, 8)           # the detector's own cluster shape and the
+                                # recognizer's (mk.cascade_geometry picks)
+CASCADE_EARLIER_MS = 1.7912     # the cascade's device time at B=8, margin
+                                # -inf, on the one-block body it replaced
+                                # (PERF.md section 6; not measured here)
 MARGINS = (float("-inf"), -3.5, 0.0, 7.0, float("inf"))
 SCHEDULES = ((8, 8, 1), (8, 3, 2), (4, 2, 5))        # (bb, rb, check_every)
 # delta-gate thresholds: both sentinels, zero (= the plain megakernel), a
@@ -976,28 +981,45 @@ def main() -> None:
         {n: programs[n] for n in CASCADE}, {n: images[n] for n in CASCADE},
         detector=CASCADE[0], recognizer=CASCADE[1])
     cimage = {k: v.to(dev) for k, v in cimage.items()}
-    for b in (BATCH, RAGGED):
+    # B=8 and ragged at every margin and schedule, each margin also with
+    # the detector at both cluster shapes; B=256 (several waves of
+    # clusters) at the median margin and the first schedule
+    for b in (BATCH, RAGGED, SERVE_BATCH):
+        det_geo, rec_geo = mk.cascade_geometry(cplan.spec, b, card.sms)
         frames = torch.from_numpy(frame_stream(programs[CASCADE[0]], b,
                                                10 + b)).to(dev)
-        n_real = b if b == BATCH else b - 1       # a masked padding lane
+        n_real = b if b != RAGGED else b - 1      # a masked padding lane
         det_l = mk.cascade_plain(cimage, frames,
                                  cplan.margin_ctrl(0.0, b).to(dev),
                                  spec=cplan.spec)[0]
-        margins = MARGINS + (median_margin(margins_of, det_l),)
+        median = median_margin(margins_of, det_l)
+        margins = (median,) if b == SERVE_BATCH else MARGINS + (median,)
+        schedules = SCHEDULES[:1] if b == SERVE_BATCH else SCHEDULES
         escalated = []
         for margin in margins:
             ctrl = cplan.margin_ctrl(margin, n_real).to(dev)
-            for bb, rb, ce in SCHEDULES:
+            for i, (bb, rb, ce) in enumerate(schedules):
                 kw = dict(spec=cplan.spec, bb=bb, rb=rb, check_every=ce)
                 want = mk.cascade_plain(cimage, frames, ctrl, **kw)
                 got = mk.cascade_forward(cimage, frames, ctrl, **kw)
                 torch.cuda.synchronize()
                 errs["cascade"] = max(errs["cascade"],
                                       max_abs_err_all(got, want))
+                for n in DET_CLUSTERS if i == 0 and b != SERVE_BATCH else ():
+                    alt = mk.cascade_forward(cimage, frames, ctrl, **kw,
+                                             det_cluster=n)
+                    torch.cuda.synchronize()
+                    errs["cascade"] = max(errs["cascade"],
+                                          max_abs_err_all(alt, want))
             escalated.append(int(got[3][0]))
-        print(f"  cascade {'->'.join(CASCADE)} B={b} (n_real {n_real}), "
+        print(f"  cascade {'->'.join(CASCADE)} B={b} (n_real {n_real}; "
+              f"detector clusters of {det_geo.cluster}, {det_geo.smem} B a "
+              f"block, recognizer of {rec_geo.cluster}, {rec_geo.smem} B), "
               f"margins {margins} (escalated {escalated}), schedules "
-              f"{SCHEDULES}: det, rec, queue and counts equal")
+              f"{schedules}: det, rec, queue and counts equal"
+              + ("" if b == SERVE_BATCH else
+                 f" (and the detector at clusters of each of "
+                 f"{DET_CLUSTERS}, first schedule)"))
 
     # the delta gate at every shape a main path gives it: cifar9_s1 (the
     # video serve), each variant of the cifar10 family lane, all at B=8,
@@ -1712,8 +1734,9 @@ def main() -> None:
 
     # cascade: face -> owner at B=8; the row is margin -inf (every frame
     # escalates, so E = counts[1] = B and the recognizer work is the same
-    # under either count); margin 0 and the batch's median margin are
-    # timed beside it
+    # under either count); margin 0, the batch's median margin and +inf
+    # (none escalates) are timed beside it, -inf and +inf split by kernel,
+    # and -inf with the detector at each cluster shape
     cplan, cimage = interpreter.pack_cascade(
         {n: programs[n] for n in CASCADE}, {n: packed[n] for n in CASCADE},
         detector=CASCADE[0], recognizer=CASCADE[1])
@@ -1722,7 +1745,14 @@ def main() -> None:
     det_spec, rec_spec = cplan.spec
     det_l = mk.cascade_plain(cimage, frames, cplan.margin_ctrl(0.0, BATCH)
                              .to(dev), spec=cplan.spec)[0]
-    for margin in (float("-inf"), 0.0, median_margin(margins_of, det_l)):
+    det_geo, rec_geo = mk.cascade_geometry(cplan.spec, BATCH, card.sms)
+    print(f"  cascade {'->'.join(CASCADE)} B={BATCH}: detector clusters of "
+          f"{det_geo.cluster}, recognizer clusters of {rec_geo.cluster}, "
+          f"{mk.CLUSTER_WARPS} warps a block; earlier (the one-block body, "
+          f"one block a frame on the CUDA cores; PERF.md section 6): "
+          f"{CASCADE_EARLIER_MS} ms device time at margin -inf")
+    for margin in (float("-inf"), 0.0, median_margin(margins_of, det_l),
+                   float("inf")):
         ctrl = cplan.margin_ctrl(margin, BATCH).to(dev)
         call = lambda: mk.cascade_forward(cimage, frames, ctrl,
                                           spec=cplan.spec)
@@ -1734,7 +1764,24 @@ def main() -> None:
         ops_e = (member_word_ops(det_spec, BATCH)
                  + member_word_ops(rec_spec, e))
         ms, _, timed_by, events = timings(call, "", None, 20)
+        if margin in (float("-inf"), float("inf")):
+            _, kernels = device_profile(call, 20)
+            print(f"  cascade margin {margin} profiled: "
+                  + (kernel_split(kernels, 20, ("detector_kernel",
+                                                "escalate_kernel",
+                                                "recognizer_kernel"))
+                     if kernels else "no device activity recorded, the "
+                     "split not measured"))
         if margin == float("-inf"):
+            for n in DET_CLUSTERS:
+                alt_ms, _, alt_by, alt_ev = timings(
+                    lambda: mk.cascade_forward(cimage, frames, ctrl,
+                                               spec=cplan.spec,
+                                               det_cluster=n),
+                    "", None, 20)
+                print(f"  cascade margin -inf, detector at clusters of {n}: "
+                      f"{alt_ms:.4f} ms ({alt_by}; events {alt_ev[0]:.4f} "
+                      f"ms) [{card.smi}]")
             row("cascade", ms,
                 time_ms(lambda: mk.cascade_plain(cimage, frames, ctrl,
                                                  spec=cplan.spec), 3),

@@ -14,38 +14,48 @@
 //
 // Nothing crosses to the host between the stages: cascade_launch enqueues
 // three kernels on the caller's stream.
-//  1. detector_kernel: one block per frame, the member body of
-//     megakernel.cuh on the detector's rows of the shared image.
+//  1. detector_kernel: one thread-block cluster per frame, the member body
+//     of member_mma.cuh (run_frame) on the detector's rows of the shared
+//     image, at the detector's own cluster geometry.
 //  2. escalate_kernel: one block of 1024 threads reads the detector
 //     logits and ctrl, computes the margins and compacts the mask in frame
 //     order (scan.cuh: tiles of 1024 frames, a ballot per warp, a shuffle
 //     scan over the 32 warp totals), and writes queue and counts.
-//  3. recognizer_kernel: one block per queue row; a block reads E from
-//     counts, zeroes its row and exits if it is at or past E, else runs
-//     the recognizer's member body on frame queue[k].
+//  3. recognizer_kernel: one cluster per queue row at the recognizer's
+//     geometry.  Every block of cluster k reads E from counts (one global
+//     word, written by the scan before this launch, so all ranks agree):
+//     at or past E, rank 0 zeroes rec[k] and the whole cluster returns
+//     before its first cluster barrier; else the cluster runs the member
+//     body on frame queue[k], packing its own words from the pixels (the
+//     two programs' thermometer IO may differ).
 // The recognizer computes the E escalated frames only; counts[1] is the
 // chip's bill, not the GPU's work.
 //
-// What bounds it on the H100: as the megakernel, integer issue on the SMs
-// that have work: B detector blocks, then E recognizer blocks (an S=1
-// recognizer takes 64 KB of shared memory per block).  The scan is a few
-// microseconds at serving batch sizes.
+// What bounds it on the H100: the two members' binary MACs on the tensor
+// cores in principle (face -> owner at batch 8, every frame escalated:
+// 8.9 G MACs), in practice each member frame's chain of dependent layers,
+// as in the megakernel (megakernel.cu): a detector wave of clusters, the
+// scan's few microseconds, then a recognizer wave.  Each stage gets its
+// own cluster geometry (kernels/megakernel.py cascade_geometry), so the
+// narrow detector neither carves the recognizer's shared memory nor waits
+// on its cluster shape.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
-#include "megakernel.cuh"
+#include "member_mma.cuh"
 #include "scan.cuh"
 
 namespace {
 
-using repro_torch::kMegaWarps;
+namespace mm = repro_torch::member_mma;
 
 struct CascadeArgs {
   repro_torch::MemberSpec det, rec;
   repro_torch::ImageRef img;
+  mm::Geometry det_geo, rec_geo;
   const int32_t* frames;         // (B, H, W, Cin), one stream for both
   const float* thr_det;
   const float* thr_rec;
@@ -55,23 +65,22 @@ struct CascadeArgs {
   int32_t* queue;                // (B,)
   int32_t* counts;               // (2,)
   int batch, bpad, rb, check_every, positive_class;
-  int smem_det, smem_rec;        // words per ping-pong buffer
 };
 
-__global__ void __launch_bounds__(kMegaWarps * 32)
-detector_kernel(const CascadeArgs a) {
-  extern __shared__ uint32_t smem[];
-  const int b = blockIdx.x;
-  repro_torch::run_member(
-      a.det, a.img,
+__global__ void __launch_bounds__(mm::kThreads)
+detector_kernel(const __grid_constant__ CascadeArgs a) {
+  extern __shared__ uint4 smem4[];
+  const int b = blockIdx.x / a.det_geo.cluster;
+  mm::run_frame<false>(
+      a.det, a.img, a.det_geo, 0,
       a.frames + static_cast<size_t>(b) * repro_torch::frame_elems(a.det),
-      a.thr_det,
-      a.det_out + static_cast<size_t>(b) * repro_torch::classes(a.det), smem,
-      a.smem_det);
+      a.thr_det, nullptr,
+      a.det_out + static_cast<size_t>(b) * repro_torch::classes(a.det),
+      reinterpret_cast<uint32_t*>(smem4));
 }
 
 __global__ void __launch_bounds__(repro_torch::kScanThreads)
-escalate_kernel(const CascadeArgs a) {
+escalate_kernel(const __grid_constant__ CascadeArgs a) {
   const int thr = a.ctrl[0];
   const int n_real = a.ctrl[1];
   const int ncd = repro_torch::classes(a.det);
@@ -96,48 +105,71 @@ escalate_kernel(const CascadeArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(kMegaWarps * 32)
-recognizer_kernel(const CascadeArgs a) {
-  extern __shared__ uint32_t smem[];
-  const int k = blockIdx.x;
+__global__ void __launch_bounds__(mm::kThreads)
+recognizer_kernel(const __grid_constant__ CascadeArgs a) {
+  extern __shared__ uint4 smem4[];
+  const int k = blockIdx.x / a.rec_geo.cluster;
   const int ncr = repro_torch::classes(a.rec);
   int32_t* out = a.rec_out + static_cast<size_t>(k) * ncr;
+  // the same global word in every block of the cluster: the whole
+  // cluster returns together, before any cluster barrier
   if (k >= a.counts[0]) {
-    for (int c = threadIdx.x; c < ncr; c += blockDim.x) out[c] = 0;
+    if (mm::cluster_rank() == 0) {
+      for (int c = threadIdx.x; c < ncr; c += mm::kThreads) out[c] = 0;
+    }
     return;
   }
-  const int frame = a.queue[k];
-  repro_torch::run_member(
-      a.rec, a.img,
-      a.frames + static_cast<size_t>(frame) * repro_torch::frame_elems(a.rec),
-      a.thr_rec, out, smem, a.smem_rec);
+  mm::run_frame<false>(
+      a.rec, a.img, a.rec_geo, 0,
+      a.frames + static_cast<size_t>(a.queue[k]) *
+                     repro_torch::frame_elems(a.rec),
+      a.thr_rec, nullptr, out, reinterpret_cast<uint32_t*>(smem4));
+}
+
+// The one-member table of member m of t (its offsets into the image kept),
+// which a stage's geometry is checked against.
+repro_torch::LaunchTable stage_table(const repro_torch::LaunchTable& t,
+                                     int m) {
+  repro_torch::LaunchTable s = t;
+  s.n_members = 1;
+  s.member[0] = t.member[m];
+  return s;
 }
 
 }  // namespace
 
 // table: the 2-member launch table (megakernel.cuh parse_table), detector
-// first.  frames (B, H, W, Cin) int32; thr_det/thr_rec the members'
+// first; det_geo and rec_geo: each stage's cluster geometry
+// (member_mma.cuh parse_geometry), checked against the one-member table of
+// its stage.  frames (B, H, W, Cin) int32; thr_det/thr_rec the members'
 // float32 thermometer thresholds; the weight image cw/ct/cf/fw; ctrl (2,)
 // int32 on the device; outputs det (B, Cd), rec (B, Cr), queue (B,),
 // counts (2,) int32.  bpad/rb/check_every: the drain schedule the bill
 // follows (bpad = ceil(B / bb) * bb, 1 <= rb <= bpad).  Returns a CUDA
 // error code: cudaErrorInvalidValue for arguments the kernels cannot take,
+// cudaErrorInvalidConfiguration if a stage's cluster fits no device slot,
 // else the first launch error.
 extern "C" int cascade_launch(const void* frames, const void* thr_det,
                               const void* thr_rec, const void* cw,
                               const void* ct, const void* cf, const void* fw,
                               const void* ctrl, void* det, void* rec,
                               void* queue, void* counts, const int* table,
-                              int n_table, int batch, int bpad, int rb,
-                              int check_every, int positive_class,
-                              void* stream) {
+                              int n_table, const int* det_geo, int n_det_geo,
+                              const int* rec_geo, int n_rec_geo, int batch,
+                              int bpad, int rb, int check_every,
+                              int positive_class, void* stream) {
   repro_torch::LaunchTable t;
+  CascadeArgs a{};
   if (!repro_torch::parse_table(table, n_table, &t) || t.n_members != 2 ||
+      !mm::parse_geometry(det_geo, n_det_geo, stage_table(t, 0),
+                          &a.det_geo) ||
+      !mm::parse_geometry(rec_geo, n_rec_geo, stage_table(t, 1),
+                          &a.rec_geo) ||
       batch < 1 || bpad < batch || rb < 1 || rb > bpad || check_every < 1 ||
-      positive_class < 0 || positive_class >= repro_torch::classes(t.member[0])) {
+      positive_class < 0 ||
+      positive_class >= repro_torch::classes(t.member[0])) {
     return cudaErrorInvalidValue;
   }
-  CascadeArgs a{};
   a.det = t.member[0];
   a.rec = t.member[1];
   a.img = {static_cast<const uint32_t*>(cw), static_cast<const int32_t*>(ct),
@@ -156,23 +188,18 @@ extern "C" int cascade_launch(const void* frames, const void* thr_det,
   a.rb = rb;
   a.check_every = check_every;
   a.positive_class = positive_class;
-  a.smem_det = repro_torch::member_smem_words(a.det);
-  a.smem_rec = repro_torch::member_smem_words(a.rec);
 
   const auto s = static_cast<cudaStream_t>(stream);
-  const int det_bytes = 2 * a.smem_det * static_cast<int>(sizeof(uint32_t));
-  const int rec_bytes = 2 * a.smem_rec * static_cast<int>(sizeof(uint32_t));
-  cudaError_t err = repro_torch::allow_smem(detector_kernel, det_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = repro_torch::allow_smem(recognizer_kernel, rec_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  detector_kernel<<<batch, kMegaWarps * 32, det_bytes, s>>>(a);
-  err = cudaGetLastError();
+  cudaError_t err = mm::launch_clusters(
+      detector_kernel, a,
+      dim3(static_cast<unsigned>(a.det_geo.cluster * batch)),
+      a.det_geo.cluster, a.det_geo.smem_bytes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   escalate_kernel<<<1, repro_torch::kScanThreads, 0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  recognizer_kernel<<<batch, kMegaWarps * 32, rec_bytes, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(mm::launch_clusters(
+      recognizer_kernel, a,
+      dim3(static_cast<unsigned>(a.rec_geo.cluster * batch)),
+      a.rec_geo.cluster, a.rec_geo.smem_bytes, s));
 }

@@ -16,10 +16,9 @@
 // weights and logits.  In practice a frame's chain of dependent layers,
 // each a few tiles a warp and a cluster barrier, sets the time of a launch
 // at serving batches (PERF.md section 6, row 4; the clock64 split of
-// launch/time_members.py --clocks).  The one-block body it replaces
-// (megakernel.cuh run_member, now the cascade's alone) ran a frame's 31 M
-// xor+popc word-ops on one SM's CUDA cores: batch 8 kept 8 of 132 SMs
-// busy for 1.42 ms.
+// launch/time_members.py --clocks).  The body this replaced, one block
+// a frame, ran a frame's 31 M xor+popc word-ops on one SM's CUDA cores:
+// batch 8 kept 8 of 132 SMs busy for 1.42 ms.
 //
 // Design: the member body of member_mma.cuh, one thread-block cluster a
 // frame, its blocks splitting each conv layer's output rows and trading

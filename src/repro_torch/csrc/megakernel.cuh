@@ -1,9 +1,7 @@
 // The member spec and launch table of the whole-network kernels
-// (megakernel.cu, cascade.cu, delta.cu, parse_table), and the one-block
-// member body, one member's whole network per thread block, which the fused
-// cascade (cascade.cu) alone still runs: the composite megakernel and the
-// delta gate run the cluster body of member_mma.cuh, and the cascade moves
-// there next (ROADMAP 2.2), which deletes run_member and conv_block.cuh.
+// (megakernel.cu, cascade.cu, delta.cu and the clock probe
+// member_clocks.cu), which run one member frame on a thread-block cluster
+// (member_mma.cuh).
 //
 // A member is one program inside a weight image.  A composite image packs
 // several programs side by side: conv layer l of every member lives in
@@ -13,32 +11,18 @@
 // [n_off, n_off + N).  A solo program is the one-member case, all offsets
 // 0.  Rows past a member's depth are zero and never read.
 //
-// Design: one block of kMegaWarps warps runs one frame of one member.
-//  * The block thermometer-packs its raw pixels into shared memory
-//    (thermometer_word): lane j of a warp computes channel 32*i + j of one
-//    position as (float)pixel < t[p] against the host's float32 threshold
-//    table, and the ballot is the packed word.
-//  * The conv chain ping-pongs the packed maps between two shared-memory
-//    buffers.  Warp w owns feature word w % (F/32) for a whole layer, with
-//    its lane's 4 x C/32 weight words in registers, and strides over
-//    positions; the per-word arithmetic is conv_block.cuh's.
-//  * Weights are read from global memory: the S=1 conv image is 256 KB,
-//    above the 227 KB a block may hold, so it stays in the 50 MB L2.
-//  * The FC tail reads the flattened final map (its (H, W, F/32) word order
-//    is the FC's K order), one warp per 32 outputs; hidden layers sign and
-//    pack with a ballot (bits past N stay 0), the final layer writes int32
-//    logits.  Only each layer's true (N, Kw) of the zero-padded fw is read.
+// Conventions (those of repro.core.binarize): +1 -> bit 0, -1 -> bit 1,
+// 32 channels per uint32 word, LSB first.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "conv_block.cuh"
-
 namespace repro_torch {
 
-constexpr int kMegaWarps = 16;
+constexpr int kMaxCw = 8;        // 256 channels: the widest map the chip has
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxLayers = 16;   // the chip's program memory holds 16 slots
 constexpr int kMaxMembers = 4;   // 4 x S=4 sub-arrays tile the 256 channels
 
@@ -108,156 +92,12 @@ inline bool parse_table(const int* t, int n, LaunchTable* out) {
   return i == n;
 }
 
-// Words in each of a member's two ping-pong map buffers: its largest map.
-inline int member_smem_words(const MemberSpec& s) {
-  int words = s.h * s.w * s.cwio;
-  for (int l = 0; l < s.n_conv; ++l) {
-    int ho = s.conv_h[l] - 1, wo = s.conv_w[l] - 1;
-    if (s.conv_pool[l]) {
-      ho /= 2;
-      wo /= 2;
-    }
-    const int out = ho * wo * (s.conv_f[l] / 32);
-    if (out > words) words = out;
-  }
-  for (int l = 0; l < s.n_fc; ++l) {
-    const int out = (s.fc_n[l] + 31) / 32;
-    if (out > words) words = out;
-  }
-  return words;
-}
-
 // The frame's elements and the member's class count.
 __host__ __device__ inline int frame_elems(const MemberSpec& s) {
   return s.h * s.w * s.cin;
 }
 __host__ __device__ inline int classes(const MemberSpec& s) {
   return s.fc_n[s.n_fc - 1];
-}
-
-// Thermometer-packed word `item` of one frame: position item / cwio,
-// channel word item % cwio.  Lane j computes channel 32 * word + j as
-// (float)pixel < thr[plane] against the host's float32 threshold table
-// (channels past cin * per are the constant +1 bias, bit 0); the ballot is
-// the word, returned to every lane of the warp.
-__device__ __forceinline__ uint32_t thermometer_word(
-    const MemberSpec& spec, const int32_t* __restrict__ frame,
-    const float* __restrict__ thr, int item, int lane) {
-  const int pos = item / spec.cwio;
-  const int ch = (item - pos * spec.cwio) * 32 + lane;
-  uint32_t bit = 0u;
-  if (ch < spec.cin * spec.per) {
-    const int c = ch / spec.per;
-    const int p = ch - c * spec.per;
-    bit = static_cast<float>(frame[pos * spec.cin + c]) < thr[p];
-  }
-  return __ballot_sync(kFullMask, bit);
-}
-
-// The three phases of run_member, each called by every thread of the
-// block (member_clocks.cu stamps the time between them).  pack_frame:
-// (H, W, Cin) int32 pixels -> (H, W, cwio) words in cur.
-__device__ __forceinline__ void pack_frame(const MemberSpec& spec,
-                                           const int32_t* __restrict__ frame,
-                                           const float* __restrict__ thr,
-                                           uint32_t* cur) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int items = spec.h * spec.w * spec.cwio;
-  for (int item = warp; item < items; item += kMegaWarps) {
-    const uint32_t word = thermometer_word(spec, frame, thr, item, lane);
-    if (lane == 0) cur[item] = word;
-  }
-}
-
-// Conv layer l: the map in cur -> the next map in nxt.
-__device__ __forceinline__ void conv_layer(const MemberSpec& spec,
-                                           const ImageRef& img, int l,
-                                           const uint32_t* cur,
-                                           uint32_t* nxt) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int h = spec.conv_h[l], wd = spec.conv_w[l];
-  const int c = spec.conv_c[l], f = spec.conv_f[l];
-  const bool pool = spec.conv_pool[l] != 0;
-  const int cwl = c / 32, fwo = f / 32;
-  const int ho = pool ? (h - 1) / 2 : h - 1;
-  const int wo = pool ? (wd - 1) / 2 : wd - 1;
-  const int fwi = warp % fwo;                    // kMegaWarps % fwo == 0
-  const int fidx = fwi * 32 + lane;
-  const size_t row0 = static_cast<size_t>(l) * img.ftot + spec.conv_foff[l];
-  uint32_t wr[4 * kMaxCw];
-  load_taps(img.cw + row0 * 4 * img.cwmax, fidx, cwl, img.cwmax, wr);
-  const int tau = img.ct[row0 + fidx];
-  const int flip = img.cf[row0 + fidx];
-  for (int pos = warp / fwo; pos < ho * wo; pos += kMegaWarps / fwo) {
-    const int yo = pos / wo;
-    const int xo = pos - yo * wo;
-    const uint32_t word = conv_word(cur, wd, cwl, yo, xo, pool, wr, 4 * c,
-                                    tau, flip);
-    if (lane == 0) nxt[pos * fwo + fwi] = word;
-  }
-}
-
-// FC layer fi on the flattened packed map in cur: hidden layers sign and
-// pack into nxt, the final layer writes int32 logits to out.
-__device__ __forceinline__ void fc_layer(const MemberSpec& spec,
-                                         const ImageRef& img, int fi,
-                                         const uint32_t* cur, uint32_t* nxt,
-                                         int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int k = spec.fc_k[fi], n = spec.fc_n[fi];
-  const int kw = (k + 31) / 32;
-  const bool final_layer = fi == spec.n_fc - 1;
-  const uint32_t* rows =
-      img.fw + (static_cast<size_t>(fi) * img.ntot + spec.fc_noff[fi]) *
-                   img.kwmax;
-  for (int chunk = warp; chunk < (n + 31) / 32; chunk += kMegaWarps) {
-    const int nn = chunk * 32 + lane;
-    int s = 0;
-    if (nn < n) {
-      const uint32_t* row = rows + static_cast<size_t>(nn) * img.kwmax;
-      int acc = 0;
-      for (int i = 0; i < kw; ++i) acc += __popc(cur[i] ^ row[i]);
-      s = k - 2 * acc;
-    }
-    if (final_layer) {
-      if (nn < n) out[nn] = s;
-    } else {
-      const uint32_t word = __ballot_sync(kFullMask, nn < n && s < 0);
-      if (lane == 0) nxt[chunk] = word;
-    }
-  }
-}
-
-// One frame (H, W, Cin int32 pixels) of one member -> its int32 logits in
-// out[0 .. classes).  Every thread of the block calls it; smem holds two
-// buffers of smem_words words each.
-__device__ __forceinline__ void run_member(
-    const MemberSpec& spec, const ImageRef& img,
-    const int32_t* __restrict__ frame, const float* __restrict__ thr,
-    int32_t* __restrict__ out, uint32_t* smem, int smem_words) {
-  uint32_t* cur = smem;
-  uint32_t* nxt = smem + smem_words;
-  pack_frame(spec, frame, thr, cur);
-  __syncthreads();
-  for (int l = 0; l < spec.n_conv; ++l) {
-    conv_layer(spec, img, l, cur, nxt);
-    __syncthreads();
-    uint32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  for (int fi = 0; fi < spec.n_fc; ++fi) {
-    fc_layer(spec, img, fi, cur, nxt, out);
-    if (fi != spec.n_fc - 1) {
-      __syncthreads();
-      uint32_t* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-  }
 }
 
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more

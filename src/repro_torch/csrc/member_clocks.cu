@@ -1,17 +1,13 @@
-// Clock probes of the two member bodies: not ports of a TPU kernel.
-//  * member_clocks_kernel: the one-block body (megakernel.cuh run_member,
-//    the cascade's), one block a frame, its phases as run_member runs them
-//    (the thermometer pack, each conv layer, the FC tail).
-//  * cluster_clocks_kernel: the cluster body (member_mma.cuh run_frame,
-//    the megakernel's and the delta recompute's), one cluster a frame,
-//    through run_frame's phase hook (the staging, the pack, each conv
-//    layer, the FC tail).
-// Thread 0 of each block stamps clock64 and %globaltimer after the
-// barrier that ends each phase (the FC tail's stamp follows no barrier).
-// The stamps of one thread on one SM are subtracted on the device and
-// written as signed 64-bit deltas, so a reading can be held against the
-// call's device time: src/repro_torch/launch/time_members.py --clocks
-// prints and checks them.
+// Clock probe of the cluster member body: not a port of a TPU kernel.
+// cluster_clocks_kernel runs member_mma.cuh's run_frame (the body of the
+// megakernel, the cascade's two stages and the delta recompute), one
+// cluster a frame, through run_frame's phase hook (the staging, the pack,
+// each conv layer, the FC tail).  Thread 0 of each block stamps clock64
+// and %globaltimer after each phase (the FC tail's stamp follows no
+// barrier).  The stamps of one thread on one SM are subtracted on the
+// device and written as signed 64-bit deltas, so a reading can be held
+// against the call's device time: src/repro_torch/launch/time_members.py
+// --clocks prints and checks them.
 
 #include <cuda_runtime.h>
 
@@ -21,7 +17,6 @@
 
 namespace {
 
-using repro_torch::kMegaWarps;
 using repro_torch::kMaxLayers;
 
 constexpr int kPhases = 4 * kMaxLayers + 3;  // the stamps of run_frame
@@ -30,68 +25,6 @@ __device__ __forceinline__ long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return static_cast<long long>(t);
-}
-
-struct ClockArgs {
-  repro_torch::MemberSpec spec;
-  repro_torch::ImageRef img;
-  const int32_t* frames;         // (B, H, W, Cin)
-  const float* thr;
-  int32_t* out;                  // (B, classes)
-  long long* clocks;             // (B, kPhases) clock64 deltas
-  long long* nanos;              // (B, kPhases) %globaltimer deltas
-  int smem_words;
-};
-
-__global__ void __launch_bounds__(kMegaWarps * 32)
-member_clocks_kernel(const ClockArgs a) {
-  extern __shared__ uint32_t smem[];
-  const int b = blockIdx.x;
-  const repro_torch::MemberSpec& spec = a.spec;
-  uint32_t* cur = smem;
-  uint32_t* nxt = smem + a.smem_words;
-  int32_t* out = a.out + static_cast<size_t>(b) * repro_torch::classes(spec);
-  long long* clk = a.clocks + static_cast<size_t>(b) * kPhases;
-  long long* ns = a.nanos + static_cast<size_t>(b) * kPhases;
-  int phase = 0;
-  long long c0 = clock64(), n0 = global_ns();
-  auto stamp = [&]() {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const long long c1 = clock64(), n1 = global_ns();
-      clk[phase] = c1 - c0;
-      ns[phase] = n1 - n0;
-      c0 = c1;
-      n0 = n1;
-    }
-    ++phase;
-  };
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    c0 = clock64();
-    n0 = global_ns();
-  }
-  repro_torch::pack_frame(
-      spec, a.frames + static_cast<size_t>(b) * repro_torch::frame_elems(spec),
-      a.thr, cur);
-  stamp();
-  for (int l = 0; l < spec.n_conv; ++l) {
-    repro_torch::conv_layer(spec, a.img, l, cur, nxt);
-    stamp();
-    uint32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  for (int fi = 0; fi < spec.n_fc; ++fi) {
-    repro_torch::fc_layer(spec, a.img, fi, cur, nxt, out);
-    if (fi != spec.n_fc - 1) {
-      __syncthreads();
-      uint32_t* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-  }
-  stamp();
 }
 
 namespace mm = repro_torch::member_mma;
@@ -173,40 +106,4 @@ extern "C" int cluster_clocks_launch(const void* frames, const void* thr,
       cluster_clocks_kernel, a,
       dim3(static_cast<unsigned>(a.geo.cluster * batch)), a.geo.cluster,
       a.geo.smem_bytes, static_cast<cudaStream_t>(stream)));
-}
-
-// table: a one-member launch table (megakernel.cuh parse_table); frames
-// (B, H, W, Cin) int32, thr the member's thresholds, the weight image
-// cw/ct/cf/fw; outputs out (B, classes) int32 logits, clocks and nanos
-// (B, 4 kMaxLayers + 3) int64: phase 0 the pack, 1 .. n_conv the conv
-// layers, n_conv + 1 the FC tail.  Returns a CUDA error code.
-extern "C" int member_clocks_launch(const void* frames, const void* thr,
-                                    const void* cw, const void* ct,
-                                    const void* cf, const void* fw, void* out,
-                                    void* clocks, void* nanos,
-                                    const int* table, int n_table, int batch,
-                                    void* stream) {
-  repro_torch::LaunchTable t;
-  if (!repro_torch::parse_table(table, n_table, &t) || t.n_members != 1 ||
-      batch < 1) {
-    return cudaErrorInvalidValue;
-  }
-  ClockArgs a{};
-  a.spec = t.member[0];
-  a.img = {static_cast<const uint32_t*>(cw), static_cast<const int32_t*>(ct),
-           static_cast<const int32_t*>(cf), static_cast<const uint32_t*>(fw),
-           t.ftot, t.cwmax, t.ntot, t.kwmax};
-  a.frames = static_cast<const int32_t*>(frames);
-  a.thr = static_cast<const float*>(thr);
-  a.out = static_cast<int32_t*>(out);
-  a.clocks = static_cast<long long*>(clocks);
-  a.nanos = static_cast<long long*>(nanos);
-  a.smem_words = repro_torch::member_smem_words(a.spec);
-  const int bytes = 2 * a.smem_words * static_cast<int>(sizeof(uint32_t));
-  const cudaError_t err =
-      repro_torch::allow_smem(member_clocks_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  member_clocks_kernel<<<batch, kMegaWarps * 32, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,7 @@
 // The whole-network member body on Hopper's tensor cores (sm_90a), one
 // thread-block cluster a frame: the body of the composite megakernel
-// (megakernel.cu) and of the delta gate's recompute (delta.cu).  The fused
-// cascade (cascade.cu) keeps megakernel.cuh's one-block body until it
-// moves here too (ROADMAP 2.2).
+// (megakernel.cu), of both stages of the fused cascade (cascade.cu) and of
+// the delta gate's recompute (delta.cu).
 //
 // A member is one program of a (composite) weight image, as megakernel.cuh
 // describes it: conv layer l reads rows [f_off, f_off + F) of cw (Lc,

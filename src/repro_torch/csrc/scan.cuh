@@ -14,7 +14,7 @@
 
 #include <cstdint>
 
-#include "conv_block.cuh"
+#include "megakernel.cuh"
 
 namespace repro_torch {
 

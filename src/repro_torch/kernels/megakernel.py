@@ -53,13 +53,12 @@ from repro_torch.core.binarize import (PACK_WIDTH, pack_bit_lanes,
                                        popcount32, thermometer_pack,
                                        thermometer_thresholds,
                                        xnor_dot_popcount)
-from repro_torch.kernels.binary_conv2x2_block import (MAX_CHANNEL_WORDS,
+from repro_torch.kernels.binary_conv2x2_block import (MAX_CHANNEL_WORDS, SMS,
                                                       aligned16,
-                                                      conv_block_body)
+                                                      conv_block_body,
+                                                      sm_count)
 from repro_torch.kernels import _build
 
-WARPS = 16                   # warps a block of the one-block body
-                             # (csrc/megakernel.cuh, the cascade's)
 CLUSTER_WARPS = 16           # warps a block of the cluster body and the
                              # delta gate (csrc/member_mma.cuh kWarps)
 MAX_CLUSTER = 8              # a portable cluster: 256 features / 32
@@ -131,7 +130,7 @@ def _run_fc_tail(fm: torch.Tensor, fw: torch.Tensor, fc_stages) -> torch.Tensor:
     raise AssertionError("member spec must end with a final FC stage")
 
 
-def _run_member(frames, cw, ct, cf, fw, stages) -> torch.Tensor:
+def _member_plain(frames, cw, ct, cf, fw, stages) -> torch.Tensor:
     """One member's network on (B, H, W, Cin) int32 pixels -> (B, classes),
     reading its own rows of the (composite) image."""
     if frames.shape[0] == 0:
@@ -154,7 +153,7 @@ def composite_plain(image: Dict[str, torch.Tensor],
     """Plain PyTorch version of :func:`composite_forward`: each member on
     its own frames and its own rows of the image.  Returns a tuple of
     (B_m, classes_m) int32 logits in member order."""
-    return tuple(_run_member(f.to(torch.int32), image["cw"], image["ct"],
+    return tuple(_member_plain(f.to(torch.int32), image["cw"], image["ct"],
                              image["cf"], image["fw"], stages)
                  for f, stages in zip(frames, spec))
 
@@ -212,14 +211,14 @@ def cascade_plain(image: Dict[str, torch.Tensor], frames: torch.Tensor,
     frames = frames.to(torch.int32)
     b = frames.shape[0]
     cw, ct, cf, fw = (image[k] for k in ("cw", "ct", "cf", "fw"))
-    det = _run_member(frames, cw, ct, cf, fw, det_spec)
+    det = _member_plain(frames, cw, ct, cf, fw, det_spec)
     idx = torch.nonzero(escalation_mask(det, ctrl, positive_class))[:, 0]
     e = int(idx.numel())
     queue = torch.zeros(b, dtype=torch.int32, device=frames.device)
     queue[:e] = idx.to(torch.int32)
     rec = torch.zeros((b, rec_spec[-1][2]), dtype=torch.int32,
                       device=frames.device)
-    rec[:e] = _run_member(frames[idx], cw, ct, cf, fw, rec_spec)
+    rec[:e] = _member_plain(frames[idx], cw, ct, cf, fw, rec_spec)
     bpad, rb = cascade_schedule(b, bb, rb)
     counts = torch.tensor([e, drain_slots(e, bpad, rb, check_every)],
                           dtype=torch.int32, device=frames.device)
@@ -262,7 +261,7 @@ def delta_plain(image: Dict[str, torch.Tensor], frames: torch.Tensor,
         idx = torch.cat([torch.zeros(1, dtype=idx.dtype, device=dev), idx])
     cw, ct, cf, fw = (image[key] for key in ("cw", "ct", "cf", "fw"))
     logits = llog.clone()
-    logits[idx] = _run_member(frames[idx], cw, ct, cf, fw, member)
+    logits[idx] = _member_plain(frames[idx], cw, ct, cf, fw, member)
     counts = torch.tensor([k, slots], dtype=torch.int32, device=dev)
     return logits, new_last, queue, counts, deltas
 
@@ -382,8 +381,7 @@ def check_delta_args(image, frames: torch.Tensor, last: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _map_words(stages) -> int:
-    """Words in one of a member's ping-pong map buffers: its largest map
-    (as ``member_smem_words`` in csrc/megakernel.cuh)."""
+    """Words in one of a member's ping-pong map buffers: its largest map."""
     head, tail = _split_stages(stages)
     _, h, w, _cin, _bits, channels = head[0]
     words = [h * w * channels // PACK_WIDTH]
@@ -396,19 +394,13 @@ def _map_words(stages) -> int:
     return max(words)
 
 
-def smem_bytes(stages) -> int:
-    """Dynamic shared memory one block of this member takes in the
-    one-block body (the cascade's)."""
-    return 2 * 4 * _map_words(stages)
-
-
 @functools.lru_cache(maxsize=256)
 def composite_table(spec, cw_shape: Tuple[int, ...],
                     fw_shape: Tuple[int, ...]) -> Tuple[int, ...]:
     """The int32 launch table ``parse_table`` (csrc/megakernel.cuh) reads,
     after checking that the kernels take the spec: at most 4 members and
-    16 layers of each kind each, F/32 dividing the block's 16 warps,
-    C <= 256 and both ping-pong maps inside one block's shared memory."""
+    16 layers of each kind each, F and C whole words, C <= 256 (the
+    cluster body's own limits are :func:`cluster_geometry`'s)."""
     if not 0 < len(spec) <= MAX_MEMBERS:
         raise ValueError(f"the kernels take 1 to {MAX_MEMBERS} members, got "
                          f"{len(spec)}")
@@ -426,16 +418,13 @@ def composite_table(spec, cw_shape: Tuple[int, ...],
         table += [h, w, cin, channels // cin, channels // PACK_WIDTH,
                   len(convs)]
         for _, ch, cwd, c, f, pool, f_off in convs:
-            if (f % PACK_WIDTH or WARPS % (f // PACK_WIDTH)
-                    or c % PACK_WIDTH or c // PACK_WIDTH > MAX_CHANNEL_WORDS):
+            if (f % PACK_WIDTH or c % PACK_WIDTH
+                    or c // PACK_WIDTH > MAX_CHANNEL_WORDS):
                 raise ValueError(f"the kernels cannot take conv C={c}, F={f}")
             table += [ch, cwd, c, f, int(pool), f_off]
         table.append(len(tail))
         for _, k, n, _final, _pack_out, n_off in tail:
             table += [k, n, n_off]
-        if smem_bytes(stages) > SMEM_LIMIT:
-            raise ValueError(f"maps of {_map_words(stages)} words exceed "
-                             f"shared memory")
     _, ftot, _, cwmax = cw_shape
     _, ntot, kwmax = fw_shape
     return tuple(table + [ftot, cwmax, ntot, kwmax])
@@ -481,20 +470,21 @@ def rows_read(first: int, last: int, pool: bool) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def cluster_geometry(spec) -> ClusterGeometry:
+def cluster_geometry(spec, cluster: int = 0) -> ClusterGeometry:
     """Cluster size, buffers, tap strides and shared memory of one launch
     of the cluster body on the composite ``spec``.
 
-    A cluster has one block for each feature word of the launch's widest
-    conv layer (8 at S=1, 4 at S=2, 2 at S=4, 1 without a conv layer), and
-    every member splits each layer's output rows over all of them.  A block
-    holds two copies of the largest map, two tap buffers of the widest
-    layer's F rows of ``kstride`` words (K padded to whole 256-bit steps;
-    8 mod 16 words, so the 8-byte B loads of a half warp fall in distinct
-    banks), two (tau, flip) pairs, and the pixels of the input rows its
-    first layer reads (the same words then hold a layer's row readers, a
-    word an output row).  A layer's F/32 feature slices must divide the
-    block's warps.  Raises on a spec the kernels cannot take.
+    A cluster has ``cluster`` blocks (1 to 8); 0 means one block for each
+    feature word of the launch's widest conv layer (8 at S=1, 4 at S=2, 2
+    at S=4, 1 without a conv layer).  Every member splits each layer's
+    output rows over all of them.  A block holds two copies of the largest
+    map, two tap buffers of the widest layer's F rows of ``kstride`` words
+    (K padded to whole 256-bit steps; 8 mod 16 words, so the 8-byte B
+    loads of a half warp fall in distinct banks), two (tau, flip) pairs,
+    and the pixels of the input rows its first layer reads (the same words
+    then hold a layer's row readers, a word an output row).  A layer's
+    F/32 feature slices must divide the block's warps.  Raises on a spec
+    the kernels cannot take.
     """
     fwords, pix, out_rows = [], [], [1]
     for stages in spec:
@@ -513,7 +503,10 @@ def cluster_geometry(spec) -> ClusterGeometry:
             fwords.append(f // PACK_WIDTH)
             out_rows.append((ch - 1) // 2 if pool else ch - 1)
         pix.append((head, h, w, cin))
-    cluster = max(fwords, default=1)
+    if not 0 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"a cluster holds 1 to {MAX_CLUSTER} blocks, got "
+                         f"{cluster}")
+    cluster = cluster or max(fwords, default=1)
     rows = []
     for head, h, w, cin in pix:
         for r in range(cluster):
@@ -539,6 +532,27 @@ def cluster_geometry(spec) -> ClusterGeometry:
                          f"more than {SMEM_LIMIT}")
     return ClusterGeometry(cluster, map_words, kstride, fmax, pix_words, smem,
                            ksteps)
+
+
+def cascade_geometry(spec, batch: int, sms: int = SMS, det_cluster: int = 0
+                     ) -> Tuple[ClusterGeometry, ClusterGeometry]:
+    """The cascade's two stage geometries (csrc/cascade.cu), each sized
+    for its member alone, so the narrow detector never carves the
+    recognizer's shared memory: the recognizer's own, and the detector's
+    at ``det_cluster`` blocks a cluster.  ``det_cluster`` 0 picks the
+    recognizer's cluster shape while ``batch`` such clusters, a block an
+    SM, take at most half the card's ``sms``, else the detector's own.
+    More ranks a frame shorten each layer's tile chain, but only while the
+    clusters run in one wave, and a cluster must fit inside one GPC (16 to
+    18 SMs on an H100), so whole clusters of 8 leave SMs over and the card
+    holds fewer than ``sms / 8`` at once.  On an H100, face -> owner: the
+    recognizer's shape is faster at batch 8, the detector's own at 16 and
+    256 (PERF.md)."""
+    det_spec, rec_spec = spec
+    rec = cluster_geometry((rec_spec,))
+    if not det_cluster and 2 * batch * rec.cluster <= sms:
+        det_cluster = rec.cluster
+    return cluster_geometry((det_spec,), det_cluster), rec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -582,8 +596,8 @@ COMPOSITE_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] * 2
                       + [ctypes.c_void_p] * 4
                       + [ctypes.POINTER(ctypes.c_void_p), _INTS, _INTS,
                          ctypes.c_int, _INTS, ctypes.c_int, ctypes.c_void_p])
-CASCADE_ARGTYPES = ([ctypes.c_void_p] * 12 + [_INTS] + [ctypes.c_int] * 6
-                    + [ctypes.c_void_p])
+CASCADE_ARGTYPES = ([ctypes.c_void_p] * 12 + [_INTS, ctypes.c_int] * 3
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 DELTA_ARGTYPES = ([ctypes.c_void_p] * 16 + [_INTS, ctypes.c_int, _INTS]
                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
@@ -692,9 +706,13 @@ def megakernel_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
 
 def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
                     ctrl: torch.Tensor, *, spec, bb: int = 8, rb: int = 0,
-                    check_every: int = 1, positive_class: int = 1):
+                    check_every: int = 1, positive_class: int = 1,
+                    det_cluster: int = 0):
     """Launch the fused cascade on CUDA tensors (raises on any other
-    device): one ``cascade_launch``, three kernels on the current stream.
+    device): one ``cascade_launch``, three kernels on the current stream,
+    each stage at its :func:`cascade_geometry` on this card
+    (``det_cluster``: the detector's blocks a cluster, 0 to pick by the
+    batch).
 
     image: the detector + recognizer composite image
     (``interpreter.pack_cascade``); frames: (B, H, W, Cin) integer pixels,
@@ -726,6 +744,7 @@ def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
     rec = torch.empty((b, rec_spec[-1][2]), dtype=torch.int32, device=dev)
     queue = torch.empty(b, dtype=torch.int32, device=dev)
     counts = torch.empty(2, dtype=torch.int32, device=dev)
+    det_geo, rec_geo = cascade_geometry(spec, b, sm_count(dev), det_cluster)
     with torch.cuda.device(dev):
         err = _cascade_launcher()(
             frames.data_ptr(), _member_thresholds(det_spec, dev).data_ptr(),
@@ -733,7 +752,8 @@ def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
             cw.data_ptr(), ct.data_ptr(), cf.data_ptr(), fw.data_ptr(),
             ctrl.data_ptr(), det.data_ptr(), rec.data_ptr(),
             queue.data_ptr(), counts.data_ptr(), _ints(table), len(table),
-            b, bpad, rb, check_every, positive_class,
+            _ints(det_geo.args), len(det_geo.args), _ints(rec_geo.args),
+            len(rec_geo.args), b, bpad, rb, check_every, positive_class,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"cascade launch failed: CUDA error {err}")

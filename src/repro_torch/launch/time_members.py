@@ -3,9 +3,10 @@
 Times, by ``torch.profiler`` device time a call (every CUDA kernel the
 call launches), the solo megakernel on cifar9_s1 at batches 8, 66, 132
 and 256, and at the serves' batches 8 and 256 the 4 x S=4 composite (B a
-member), the face -> owner cascade with every frame escalated, and the
-delta gate on cifar9_s1 from a warm state with every stream changed (E =
-B) and none (E = 0).
+member), the face -> owner cascade with every frame escalated (and, where
+the tree's wrapper takes ``det_cluster``, with the detector at clusters
+of 2 and of 8, at batch 16 too), and the delta gate on cifar9_s1 from a
+warm state with every stream changed (E = B) and none (E = 0).
 Weights and frames are random from fixed seeds.  It prints each time with
 the card's name and power limit as ``nvidia-smi`` gives them, then one
 JSON line.  It calls only the public wrappers, so the same file times any
@@ -14,19 +15,19 @@ alternate trees in one chip call to compare them on one card::
 
     PYTHONPATH=src python3 src/repro_torch/launch/time_members.py
 
-``--clocks`` instead splits each block of the two member bodies
-(``csrc/member_clocks.cu``: the cascade's one block a frame, the
-megakernel's one cluster a frame) into the staging, the thermometer pack,
-each conv layer and the FC tail by ``clock64`` and ``%globaltimer``
-deltas, and holds the slowest block's total against the probe call's
-device time; it also times one dependent chain of each integer MMA
-(``csrc/mma_rate.cu``).
+``--clocks`` instead splits each block of the cluster member body
+(``csrc/member_clocks.cu``, one cluster a frame) into the staging, the
+thermometer pack, each conv layer and the FC tail by ``clock64`` and
+``%globaltimer`` deltas, and holds the slowest block's total against the
+probe call's device time; it also times one dependent chain of each
+integer MMA (``csrc/mma_rate.cu``).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import subprocess
 
@@ -83,57 +84,6 @@ def frames_of(prog, b: int, seed: int, dev) -> torch.Tensor:
     return torch.from_numpy(frame_stream(prog, b, seed)).to(dev)
 
 
-def _split(fn, extra, spec, image, frames, blocks, names, smi, what):
-    """Run a clock probe (``fn``: member_clocks_launch or
-    cluster_clocks_launch, ``extra`` its geometry arguments) on ``frames``
-    and report each phase's mean over the blocks, the slowest block's
-    total and the call's device time."""
-    cw, ct, cf, fw = (image[k].contiguous() for k in ("cw", "ct", "cf", "fw"))
-    table = mk.composite_table(spec, tuple(cw.shape), tuple(fw.shape))
-    b = frames.shape[0]
-    phases = 4 * mk.MAX_LAYERS + 3
-    out = torch.empty((b, spec[0][-1][2]), dtype=torch.int32,
-                      device=frames.device)
-    clk = torch.zeros((blocks, phases), dtype=torch.int64,
-                      device=frames.device)
-    ns = torch.zeros_like(clk)
-    thr = mk._member_thresholds(spec[0], frames.device)
-
-    def launch():
-        err = fn(frames.data_ptr(), thr.data_ptr(), cw.data_ptr(),
-                 ct.data_ptr(), cf.data_ptr(), fw.data_ptr(), out.data_ptr(),
-                 clk.data_ptr(), ns.data_ptr(),
-                 (ctypes.c_int * len(table))(*table), len(table), *extra(), b,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"clock probe launch failed: CUDA error {err}")
-
-    call_ms = device_ms(launch)
-    launch()
-    torch.cuda.synchronize()
-    want = mk.composite_plain(image, (frames,), spec=spec)[0]
-    if not torch.equal(out, want):
-        raise AssertionError("the clock probe's logits differ from the "
-                             "plain version")
-    clk, ns = clk[:, :len(names)].cpu(), ns[:, :len(names)].cpu()
-    if (clk <= 0).any() or (ns < 0).any():
-        raise AssertionError(f"non-positive clock deltas: {clk.tolist()}")
-    mean_us = (ns.double().mean(0) / 1e3).tolist()
-    mean_clk = clk.double().mean(0).tolist()
-    total_us = float(ns.sum(1).max()) / 1e3
-    print(f"clock split, {what}, B={b}, mean over {blocks} blocks: "
-          + ", ".join(f"{n} {u:.2f} us ({c:,.0f} cycles)"
-                      for n, u, c in zip(names, mean_us, mean_clk)))
-    print(f"  slowest block {total_us:.2f} us by %globaltimer, the call "
-          f"{call_ms * 1e3 if call_ms else float('nan'):.2f} us of device "
-          f"time (torch.profiler); SM clock implied by the slowest block "
-          f"{float(clk.sum(1).max()) / max(total_us, 1e-9):.1f} MHz [{smi}]")
-    return {"card": smi, "body": what, "batch": b, "call_device_ms": call_ms,
-            "slowest_block_us": total_us,
-            "phases": {n: {"us": u, "cycles": c}
-                       for n, u, c in zip(names, mean_us, mean_clk)}}
-
-
 def mma_latency(smi: str) -> dict:
     """SM clocks a dependent mma.sync takes, .b1 m16n8k256 and .s8
     m16n8k32 (csrc/mma_rate.cu mma_latency_launch: one warp, one chain)."""
@@ -156,42 +106,76 @@ def mma_latency(smi: str) -> dict:
     return report
 
 
-def clocks(prog, image, frames, smi: str) -> list:
-    """The clock64 / %globaltimer splits of member_clocks.cu on
-    ``frames``: the one-block body, then the cluster body."""
+def clocks(prog, image, frames, smi: str) -> dict:
+    """Run member_clocks.cu's cluster probe on ``frames`` and report each
+    phase's mean over the blocks, the slowest block's total and the call's
+    device time."""
     from repro_torch.kernels import _build
-    lib = _build.library("member_clocks")
     spec = mk.solo_member_spec(interpreter.compile_plan(prog).mega)
-    n_conv = sum(1 for st in spec[0] if st[0] == "conv")
-    convs = [f"conv {i}" for i in range(n_conv)]
-    ints = ctypes.POINTER(ctypes.c_int)
-    old = lib.member_clocks_launch
-    old.argtypes = [ctypes.c_void_p] * 9 + [ints] + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    old.restype = ctypes.c_int
-    new = lib.cluster_clocks_launch
-    new.argtypes = [ctypes.c_void_p] * 9 + [ints, ctypes.c_int, ints] + [
-        ctypes.c_int] * 2 + [ctypes.c_void_p]
-    new.restype = ctypes.c_int
     geo = mk.cluster_geometry(spec)
+    convs = [f"conv {i}" for i in range(
+        sum(1 for st in spec[0] if st[0] == "conv"))]
+    names = (["staging", "pack"]
+             + [f"{c} {part}" for c in convs
+                for part in ("taps issue", "tiles", "taps wait", "barrier")]
+             + ["fc"])
+    ints = ctypes.POINTER(ctypes.c_int)
+    fn = _build.library("member_clocks").cluster_clocks_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ints, ctypes.c_int, ints] + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cw, ct, cf, fw = (image[k].contiguous() for k in ("cw", "ct", "cf", "fw"))
+    table = mk.composite_table(spec, tuple(cw.shape), tuple(fw.shape))
     b = frames.shape[0]
-    return [
-        _split(old, lambda: (), spec, image, frames, b,
-               ["pack"] + convs + ["fc"], smi, "one block a frame"),
-        _split(new, lambda: ((ctypes.c_int * len(geo.args))(*geo.args),
-                             len(geo.args)),
-               spec, image, frames, b * geo.cluster,
-               ["staging", "pack"] + [f"{c} {part}" for c in convs
-                                      for part in ("taps issue", "tiles",
-                                                   "taps wait", "barrier")]
-               + ["fc"], smi,
-               f"one cluster of {geo.cluster} a frame")]
+    blocks = b * geo.cluster
+    out = torch.empty((b, spec[0][-1][2]), dtype=torch.int32,
+                      device=frames.device)
+    clk = torch.zeros((blocks, 4 * mk.MAX_LAYERS + 3), dtype=torch.int64,
+                      device=frames.device)
+    ns = torch.zeros_like(clk)
+    thr = mk._member_thresholds(spec[0], frames.device)
+
+    def launch():
+        err = fn(frames.data_ptr(), thr.data_ptr(), cw.data_ptr(),
+                 ct.data_ptr(), cf.data_ptr(), fw.data_ptr(), out.data_ptr(),
+                 clk.data_ptr(), ns.data_ptr(),
+                 (ctypes.c_int * len(table))(*table), len(table),
+                 (ctypes.c_int * len(geo.args))(*geo.args), len(geo.args), b,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"clock probe launch failed: CUDA error {err}")
+
+    call_ms = device_ms(launch)
+    launch()
+    torch.cuda.synchronize()
+    want = mk.composite_plain(image, (frames,), spec=spec)[0]
+    if not torch.equal(out, want):
+        raise AssertionError("the clock probe's logits differ from the "
+                             "plain version")
+    clk, ns = clk[:, :len(names)].cpu(), ns[:, :len(names)].cpu()
+    if (clk <= 0).any() or (ns < 0).any():
+        raise AssertionError(f"non-positive clock deltas: {clk.tolist()}")
+    mean_us = (ns.double().mean(0) / 1e3).tolist()
+    mean_clk = clk.double().mean(0).tolist()
+    total_us = float(ns.sum(1).max()) / 1e3
+    what = f"one cluster of {geo.cluster} a frame"
+    print(f"clock split, {what}, B={b}, mean over {blocks} blocks: "
+          + ", ".join(f"{n} {u:.2f} us ({c:,.0f} cycles)"
+                      for n, u, c in zip(names, mean_us, mean_clk)))
+    print(f"  slowest block {total_us:.2f} us by %globaltimer, the call "
+          f"{call_ms * 1e3 if call_ms else float('nan'):.2f} us of device "
+          f"time (torch.profiler); SM clock implied by the slowest block "
+          f"{float(clk.sum(1).max()) / max(total_us, 1e-9):.1f} MHz [{smi}]")
+    return {"card": smi, "body": what, "batch": b, "call_device_ms": call_ms,
+            "slowest_block_us": total_us,
+            "phases": {n: {"us": u, "cycles": c}
+                       for n, u, c in zip(names, mean_us, mean_clk)}}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--clocks", action="store_true",
-                    help="split both member bodies by clock64")
+                    help="split the cluster member body by clock64")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_members needs a CUDA device")
@@ -205,8 +189,8 @@ def main(argv=None) -> dict:
     image = {k: v.to(dev) for k, v in random_image(cifar, gen).items()}
     if args.clocks:
         report = {"mma_latency_cycles": mma_latency(smi),
-                  "clocks": [split for b in (8, 132) for split in clocks(
-                      cifar, image, frames_of(cifar, b, 7, dev), smi)]}
+                  "clocks": [clocks(cifar, image, frames_of(cifar, b, 7, dev),
+                                    smi) for b in (8, 132)]}
         print(json.dumps(report))
         return report
 
@@ -252,6 +236,19 @@ def main(argv=None) -> dict:
             report[f"delta_e{e}_ms_b{b}"] = device_ms(
                 lambda: mk.delta_forward(dimage, frames, last, llog, ctrl,
                                          spec=dplan.spec))
+    if "det_cluster" in inspect.signature(mk.cascade_forward).parameters:
+        for b in (8, 16, 256):
+            frames = frames_of(progs[CASCADE[0]], b, 700, dev)
+            ctrl = kplan.margin_ctrl(float("-inf"), b).to(dev)
+            for n in (2, 8):
+                report[f"cascade_det{n}_ms_b{b}"] = device_ms(
+                    lambda: mk.cascade_forward(kimage, frames, ctrl,
+                                               spec=kplan.spec,
+                                               det_cluster=n))
+        print("cascade, the detector at clusters of 2 / 8: " + ", ".join(
+            f"B={b} {report[f'cascade_det2_ms_b{b}']} / "
+            f"{report[f'cascade_det8_ms_b{b}']} ms" for b in (8, 16, 256))
+            + f" (torch.profiler device time a call) [{smi}]")
     print("megakernel cifar9_s1: " + ", ".join(
         f"B={b} {ms} ms" for b, ms in report["megakernel_ms"].items())
         + "; " + ", ".join(f"{k[:-3]} {v} ms" for k, v in report.items()

@@ -162,10 +162,15 @@ def test_composite_and_cascade_match_plain_versions_on_the_card():
         for bb, rb, ce in ((8, 8, 1), (3, 2, 2), (4, 1, 3)):
             kw = dict(spec=cplan.spec, bb=bb, rb=rb, check_every=ce)
             want = mk.cascade_plain(cimage, frames, ctrl, **kw)
-            got = mk.cascade_forward(dimage, frames.to(dev), ctrl.to(dev),
-                                     **kw)
-            for g, w in zip(got, want):
-                assert torch.equal(g.cpu(), w), (margin, bb, rb, ce)
+            # the detector at the wrapper's pick (the recognizer's
+            # clusters of 8 at this batch) and at its own clusters of 2
+            for det_cluster in (0, 2):
+                got = mk.cascade_forward(dimage, frames.to(dev),
+                                         ctrl.to(dev), **kw,
+                                         det_cluster=det_cluster)
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w), (margin, bb, rb, ce,
+                                                     det_cluster)
 
 
 @pytest.mark.gpu
