@@ -63,6 +63,7 @@ INT8_OPS_PER_S = 1979e12        # dense int8 tensor cores, data sheet (2 ops
                                 # rates (Card.probe_mma)
 MMA_PROBE = (4, 20_000)         # blocks an SM, iterations of 8 MMAs a warp
 PROFILE_TRIES = 3               # profiler sessions before events stand in
+FLOOR_ITERS = 200               # empty-kernel launches the floor probe times
 BATCH = 8
 RAGGED = 5
 SERVE_BATCH = 256                      # the megakernel serve's other batch
@@ -128,6 +129,10 @@ CONV_WIDE = (("wide", 2, 5, 2500, 256, 64, True),
 # binarize_pack: BitLinear's SmolLM-360M MLP input (256 tokens x d_model
 # 960), an odd shape, and cifar9_s1's layer-2 activations at B=8
 PACK_SHAPES = ((256, 960), (300, 100), (8 * 31 * 31, 256))
+# the int32 xnor_matmul's ragged edges: M (a half m16, one past, several
+# tiles), N (inside one n8 tile, odd, past a block), K (one bit, one word,
+# 4 words, 50 words (8-byte copies), 128 words (16 chunks))
+XNOR_RAGGED = ((1, 15, 17, 300), (1, 10, 33), (1, 31, 100, 1600, 4096))
 TRAIN_BATCH = 32
 TRAIN_SEED = 7                         # the detector twin's init seed
 DETECTOR_STEPS = 40
@@ -240,6 +245,30 @@ class Card:
               f"(issue rates {rates[1] / rates[0]:.4f}); binary MAC peak "
               f"{INT8_OPS_PER_S / 2e15:.4f} P (int8, data sheet) x "
               f"{ratio:.4f} = {self.binary_macs_per_s / 1e15:.4f} P MAC/s")
+
+    def probe_floor(self) -> None:
+        """Time an empty kernel (csrc/mma_rate.cu empty_launch) the way
+        phase 7 times every row, by torch.profiler device time a call with
+        CUDA events beside it: the launch floor the smallest kernels sit
+        near."""
+        import ctypes
+
+        from repro_torch.kernels import _build
+        fn = _build.library("mma_rate").empty_launch
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch():
+            if fn(stream):
+                raise RuntimeError("empty_launch failed")
+        self.floor_events_ms = time_ms(launch, FLOOR_ITERS)
+        self.floor_ms = device_ms(launch, FLOOR_ITERS, "empty_kernel")
+        print(f"  launch floor (empty kernel, one warp): "
+              + (f"{self.floor_ms:.5f} ms device (torch.profiler)"
+                 if self.floor_ms is not None else "device time not measured")
+              + f", {self.floor_events_ms:.5f} ms a call by CUDA events back "
+              f"to back [{self.smi}]")
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -902,6 +931,7 @@ def main() -> None:
                 print(f"  {b.name}: {kernel[-40:]}: {m.group(1)} registers, "
                       f"{m.group(2) or 0} B static smem, {spills}")
     card.probe_mma()
+    card.probe_floor()
 
     programs = {n: networks.REGISTRY[n]() for n in networks.REGISTRY}
     cifar = programs["cifar9_s1"]
@@ -938,15 +968,35 @@ def main() -> None:
               f"equal")
     fc_shapes = [("cifar9_s1 final", BATCH, 10, 1024, False),
                  ("mnist5 hidden", BATCH, 64, 256, True),
-                 ("mnist5 final", BATCH, 10, 64, False)]
-    for label, m, n, k, pack in fc_shapes:
-        a, wt = words(gen, m, k // 32), words(gen, n, k // 32)
-        want = xm.xnor_matmul_plain(a.to(dev), wt.to(dev), k, pack_out=pack)
-        got = xm.xnor_matmul(a.to(dev), wt.to(dev), k, pack_out=pack)
+                 ("mnist5 final", BATCH, 10, 64, False),
+                 ("BitLinear", BITLINEAR[2], BITLINEAR[1], BITLINEAR[0],
+                  False)]
+    # random words (bits set past k too); the ragged grid and BitLinear's
+    # shape with both operands 4 bytes off a 16-byte boundary (1-word
+    # cp.async) go through the int32 variant's tiles, masks and chunking
+    ragged = [("ragged", m, n, k, False) for m in XNOR_RAGGED[0]
+              for n in XNOR_RAGGED[1] for k in XNOR_RAGGED[2]]
+    offset = [("offset",) + fc_shapes[3][1:]]
+    for label, m, n, k, pack in fc_shapes + ragged + offset:
+        kw = -(-k // 32)
+        a, wt = words(gen, m, kw).to(dev), words(gen, n, kw).to(dev)
+        if label == "offset":
+            a = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(m, kw)
+            wt = torch.cat([wt.new_zeros(1), wt.flatten()])[1:].view(n, kw)
+        want = xm.xnor_matmul_plain(a, wt, k, pack_out=pack)
+        got = xm.xnor_matmul(a, wt, k, pack_out=pack)
         torch.cuda.synchronize()
         key = "xnor_matmul_pack" if pack else "xnor_matmul"
         errs[key] = max(errs[key], max_abs_err(got, want))
-        print(f"  {key} {label} M={m} K={k} N={n}: equal")
+        if label != "ragged":
+            t = "" if pack else xm.xnor_tiles(m, n, kw, card.sms)
+            print(f"  {key} {label} M={m} K={k} N={n}: equal"
+                  + (f" (tiles {t.bm} x {t.bn}, grid {t.grid}, copies of "
+                     f"{xm.copy_words(kw, a.data_ptr(), wt.data_ptr())} "
+                     f"words)" if t else ""))
+    print(f"  xnor_matmul ragged M in {XNOR_RAGGED[0]} x N in "
+          f"{XNOR_RAGGED[1]} x K in {XNOR_RAGGED[2]} ({len(ragged)} "
+          f"shapes): equal")
     images = {n: random_image(interpreter, p, gen) for n, p in programs.items()}
     for name, prog in programs.items():
         plan = interpreter.compile_plan(prog)
@@ -1123,14 +1173,20 @@ def main() -> None:
         x = torch.randn((m, k), generator=gen)
         x.view(-1)[:5] = torch.tensor([0.0, -0.0, float("nan"), 1e-30,
                                        -1e-30])
+        x.view(-1)[-3:] = torch.tensor([-0.0, float("nan"), -1.0])
         x = x.to(dev)
-        want = bp.binarize_pack_plain(x)
-        got = bp.binarize_pack(x)
-        torch.cuda.synchronize()
-        errs["binarize_pack"] = max(errs["binarize_pack"],
-                                    max_abs_err(got, want))
+        # the same values 4 bytes off a 16-byte boundary take the row path
+        off = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(m, k)
+        paths = []
+        for xi in (x, off):
+            want = bp.binarize_pack_plain(xi)
+            got = bp.binarize_pack(xi)
+            torch.cuda.synchronize()
+            errs["binarize_pack"] = max(errs["binarize_pack"],
+                                        max_abs_err(got, want))
+            paths.append("flat" if bp.pack_path(k, xi.data_ptr()) else "row")
         print(f"  binarize_pack M={m} K={k} (with 0.0, -0.0, NaN, "
-              f"+/-1e-30): equal")
+              f"+/-1e-30), {' and '.join(paths)} paths: equal")
     for label, b, sq, h, kh, d, causal in FLASH_SHAPES:
         qkv = [torch.randn(shape, generator=gen) for shape in
                ((b, sq, h, d), (b, sq, kh, d), (b, sq, kh, d))]
@@ -1539,6 +1595,11 @@ def main() -> None:
     counts, trained = train_phase(card, dev, gen, programs)
     launches["binary_conv2x2"] = counts["binary_conv2x2"]
     launches["binarize_pack"] = counts["binarize_pack"]
+    # xnor_matmul runs on two main paths: the staged serve (phase 5,
+    # cifar9_s1's FC layers) and BitLinear's packed path (phase 6)
+    by_phase = {"xnor_matmul": {"5": launches["xnor_matmul"],
+                                "6": counts["xnor_matmul"]}}
+    launches["xnor_matmul"] += counts["xnor_matmul"]
     face, owner = programs["face_detector"], programs["owner_detector"]
 
     # -- 7. times ------------------------------------------------------------
@@ -1552,32 +1613,45 @@ def main() -> None:
     # bound_ms: with macs (the rows whose work is binary MACs) the tensor
     # cores' bound at the binary MAC peak, the CUDA-core (popc issue) bound
     # beside it as cuda_core_bound_ms; without, the popc bound or the
-    # given one
+    # given one.  shape labels a row timed at more than one shape: the
+    # first call makes the row, later ones add their numbers under
+    # "shapes"
     def row(name, ms, plain_ms, nbytes, word_ops, library_ms, bound=None,
-            timed_by="cuda_events", events=None, macs=None):
+            timed_by="cuda_events", events=None, macs=None, shape=None):
         if macs is not None:
             bound = card.mac_bound(nbytes, macs)
         bound_ms, bound_by = bound or card.popc_bound(nbytes, word_ops)
-        rows[name] = dict(name=name, route="cuda", source=SOURCES[name],
-                          replaces=REPLACES[name],
-                          launches=launches[name],
-                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms, timed_by=timed_by)
+        entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms,
+                     timed_by=timed_by)
+        if name not in rows:
+            rows[name] = dict(name=name, route="cuda", source=SOURCES[name],
+                              replaces=REPLACES[name],
+                              launches=launches[name],
+                              max_abs_err=errs[name], **entry,
+                              launch_floor_ms=card.floor_ms)
+            if name in by_phase:
+                rows[name]["launches_by_phase"] = by_phase[name]
+            if shape is not None:
+                rows[name]["shape"] = shape
+            entry = rows[name]
+        else:
+            entry["shape"] = shape
+            rows[name].setdefault("shapes", []).append(entry)
         extra = ""
         if events is not None:
-            rows[name].update(events_ms=events[0],
-                              library_events_ms=events[1])
+            entry.update(events_ms=events[0], library_events_ms=events[1])
             extra += (f"; CUDA events back to back: {events[0]:.4f} ms, "
                       f"library " + (f"{events[1]:.4f} ms"
                                      if events[1] is not None else "none"))
         if macs is not None:
             core_ms, core_by = card.popc_bound(nbytes, word_ops)
-            rows[name].update(cuda_core_bound_ms=core_ms,
-                              cuda_core_bound_by=core_by)
+            entry.update(cuda_core_bound_ms=core_ms,
+                         cuda_core_bound_by=core_by)
             extra += (f"; CUDA-core bound {core_ms:.5f} ms ({core_by}; "
                       f"{word_ops / 1e9:.4f} G xor+popc words)")
-        print(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        print(f"  {name}" + (f" {shape}" if shape else "")
+              + f": {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               + ("tensor-core bound " if macs is not None else "bound ")
               + f"{bound_ms:.5f} ms ({bound_by}"
               + (f"; {macs / 1e9:.4f} G binary MACs" if macs else "")
@@ -1652,20 +1726,33 @@ def main() -> None:
               f"ms; grid {t.grid}, {t.rows} rows a band, {t.nslices} "
               f"slices a block, {t.smem} B shared memory")
 
-    for key, (label, m, n, k, pack) in (("xnor_matmul", fc_shapes[0]),
+    # xnor_matmul at BitLinear's SmolLM-360M up-projection (phase 6: the
+    # row) and at cifar9_s1's last FC layer (phase 5); xnor_matmul_pack at
+    # mnist5's hidden layer; the library call is a bf16 matmul of the same
+    # +/-1 values (sums up to K are exact in float32 accumulation)
+    for key, (label, m, n, k, pack) in (("xnor_matmul", fc_shapes[3]),
+                                        ("xnor_matmul", fc_shapes[0]),
                                         ("xnor_matmul_pack", fc_shapes[1])):
-        a, wt = words(gen, m, k // 32).to(dev), words(gen, n, k // 32).to(dev)
+        kw = -(-k // 32)
+        a, wt = words(gen, m, kw).to(dev), words(gen, n, kw).to(dev)
         ab = unpack_signs(a, k).to(torch.bfloat16)        # same bits, +/-1
         wb = unpack_signs(wt, k).t().contiguous().to(torch.bfloat16)
         out_words = m * (n // 32 if pack else n)
         ms, lib_ms, timed_by, events = timings(
             lambda: xm.xnor_matmul(a, wt, k, pack_out=pack),
-            "xnor_matmul_kernel", lambda: torch.matmul(ab, wb), 200)
+            "xnor_matmul_pack_kernel" if pack else "xnor_mma_kernel",
+            lambda: torch.matmul(ab, wb), 200)
         row(key, ms,
             time_ms(lambda: xm.xnor_matmul_plain(a, wt, k, pack_out=pack),
-                    50),
-            4 * (a.numel() + wt.numel() + out_words), m * n * (k // 32),
-            lib_ms, timed_by=timed_by, events=events, macs=m * n * k)
+                    20),
+            4 * (a.numel() + wt.numel() + out_words), m * n * kw,
+            lib_ms, timed_by=timed_by, events=events, macs=m * n * k,
+            shape=f"{label} M={m} K={k} N={n}")
+        if not pack:
+            t = xm.xnor_tiles(m, n, kw, card.sms)
+            print(f"    tiles {t.bm} x {t.bn} ({t.wm} x {t.wn} warps of "
+                  f"m16 x n{8 * t.tn}), grid {t.grid}, {t.nchunks} chunks "
+                  f"of {t.kchunk} K steps, {t.smem} B shared memory")
 
     plan = interpreter.compile_plan(cifar)
     image = interpreter.ensure_image(artifacts["cifar9_s1"], cifar)
@@ -1945,24 +2032,20 @@ def main() -> None:
         print(f"    binary_conv2x2 {label} B={b}: {lms:.4f} ms ({lby}), "
               f"events {lev[0]:.4f} ms")
 
-    # binarize_pack: the row is BitLinear's (256 tokens, 960); bytes bound
-    # it (each float read once, each word written once; one ballot per
-    # word is the operation count)
+    # binarize_pack: the row is BitLinear's (256 tokens, 960), then
+    # cifar9_s1's layer-2 activations at B=8 and the odd shape; bytes bound
+    # it (each float read once, each word written once; a word is the
+    # operation count)
     for m, k in PACK_SHAPES:
         x = torch.randn((m, k), generator=gen).to(dev)
         kw = -(-k // 32)
+        path = "flat" if bp.pack_path(k, x.data_ptr()) else "row"
         ms, _, timed_by, events = timings(lambda: bp.binarize_pack(x),
-                                          "binarize_pack_kernel", None, 200)
-        if (m, k) == PACK_SHAPES[0]:
-            row("binarize_pack", ms,
-                time_ms(lambda: bp.binarize_pack_plain(x), 50),
-                4 * (m * k + m * kw), m * kw, None, timed_by=timed_by,
-                events=events)
-        else:
-            bound, by = card.popc_bound(4 * (m * k + m * kw), m * kw)
-            print(f"  binarize_pack M={m} K={k}: {ms:.4f} ms ({timed_by}; "
-                  f"events {events[0]:.4f} ms), bound {bound:.5f} ms ({by}) "
-                  f"[{card.smi}]")
+                                          "binarize_pack", None, 200)
+        row("binarize_pack", ms,
+            time_ms(lambda: bp.binarize_pack_plain(x), 20),
+            4 * (m * k + m * kw), m * kw, None, timed_by=timed_by,
+            events=events, shape=f"M={m} K={k} ({path} path)")
 
     # one training step (forward_train, autograd, adamw) of each program
     for name, prog in (("face_detector", face), ("owner_detector", owner)):

@@ -7,7 +7,9 @@
 // times both and scales the data sheet's int8 MAC rate by their measured
 // MAC-rate ratio for the binary MACs' bound.  mma_latency_launch times one
 // dependent chain of either MMA in one warp: the latency a chain of
-// dependent MMAs (a tile's K steps) pays.
+// dependent MMAs (a tile's K steps) pays.  empty_launch launches a kernel
+// that does nothing: its device time is the card's launch floor, which the
+// smallest kernels of the port (one block, a few microseconds) sit near.
 
 #include <cuda_runtime.h>
 
@@ -75,6 +77,8 @@ mma_latency_kernel(int iters, uint32_t seed, int* sink, long long* clocks) {
   if (s == 0x7fffffff) sink[0] = s;
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // binary != 0: the .b1 MMA, else the .s8 one; blocks x 8 warps, each
@@ -106,5 +110,11 @@ extern "C" int mma_latency_launch(int binary, int iters, void* sink,
   } else {
     mma_latency_kernel<false><<<1, 32, 0, s>>>(iters, kSeed, out, clk);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch-floor probe: one block of one warp running no instruction.
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,12 +4,16 @@ The counterpart of ``repro.kernels.xnor_matmul``:
 ``out[m, n] = K - 2 * popcount(a[m] ^ w[n])`` over 32-bit words, and the
 ``pack_out`` variant that signs the sums and packs them along N.  The
 kernel is ``csrc/xnor_matmul.cu``; :func:`xnor_matmul_plain` is the same
-function in PyTorch, which the CPU path and the tests use.
+function in PyTorch, which the CPU path and the tests use.  The int32
+variant is a binary GEMM on the tensor cores (``mma.sync.m16n8k256 .b1``)
+whose launch geometry is :func:`xnor_tiles`; the packed variant runs one
+warp a word and takes no geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -17,9 +21,109 @@ import torch
 from repro_torch.core.binarize import (PACK_WIDTH, pack_bit_lanes,
                                        xnor_dot_popcount)
 from repro_torch.kernels import _build
+from repro_torch.kernels.binary_conv2x2_block import sm_count
+
+WARPS = 8                    # csrc/xnor_matmul.cu: kWarps
+STEP_WORDS = 8               # 256 K bits a mma.sync m16n8k256 step
+KCHUNK = 4                   # K steps a staged chunk, the most (a power
+                             # of 2; launch/time_packed.py --sweep)
+WARP_TILES = (1, 2, 4, 5, 8)  # n8 tiles a warp: the kernel's instantiations
+SMEM_DEFAULT = 48 * 1024     # shared memory a block has without the opt-in
+GRID_M_LIMIT = 65535         # gridDim.y
+SMS = 132                    # H100 SXM
 
 # kernel launches since the last reset, per kernel (not per variant call)
 LAUNCHES = {"xnor_matmul": 0, "xnor_matmul_pack": 0}
+# xnor_matmul_launch: a, w, out; m, n, kw, k, pack_out, XnorTiles.args, the
+# copy width, the grid and shared memory; the stream
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class XnorTiles:
+    """Launch geometry of the tensor-core int32 variant (see xnor_tiles);
+    the kernel takes it as it is (csrc/xnor_matmul.cu Tiles) and computes
+    none of it."""
+    tn: int              # n8 tiles a warp (a warp: one m16 x 8 tn strip)
+    wm: int              # warps along M (a block: 16 wm rows)
+    wn: int              # warps along N (a block: 8 tn wn columns)
+    kchunk: int          # 256-bit K steps a staged chunk
+    nchunks: int         # chunks: ceil(ksteps / kchunk)
+    kstride: int         # words a staged row (8 mod 16)
+    grid: tuple          # (N tiles, M tiles)
+    smem: int            # dynamic shared memory bytes a block
+
+    @property
+    def bm(self) -> int:
+        return 16 * self.wm
+
+    @property
+    def bn(self) -> int:
+        return 8 * self.tn * self.wn
+
+    @property
+    def args(self) -> tuple:
+        """The C entry point's geometry arguments, in its order (the copy
+        width, which depends on the operands, goes after)."""
+        return (self.tn, self.wm, self.wn, self.kchunk, self.nchunks,
+                self.kstride)
+
+
+def make_tiles(m: int, n: int, kw: int, wm: int, tn: int,
+               kchunk: int = KCHUNK) -> XnorTiles:
+    """The geometry of ``wm`` x (WARPS / wm) warps of m16 x n(8 tn) strips
+    on an (M, N, Kw) product, K staged ``kchunk`` steps at a time (a power
+    of 2; the least power of 2 that holds all of K when K has fewer steps),
+    double-buffered when it has more than one chunk."""
+    ksteps = -(-kw // STEP_WORDS)
+    while kchunk > 1 and kchunk // 2 >= ksteps:
+        kchunk //= 2
+    nchunks = -(-ksteps // kchunk)
+    kstride = kchunk * STEP_WORDS + (8 if kchunk % 2 == 0 else 0)
+    wn = WARPS // wm
+    bm, bn = 16 * wm, 8 * tn * wn
+    smem = 4 * (2 if nchunks > 1 else 1) * (bm + bn) * kstride
+    return XnorTiles(tn, wm, wn, kchunk, nchunks, kstride,
+                     (-(-n // bn), -(-m // bm)), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def xnor_tiles(m: int, n: int, kw: int, sms: int = SMS) -> XnorTiles:
+    """Block tile, K chunking and shared memory of one int32 launch.
+
+    A block of ``WARPS`` warps, ``wm`` along M and ``wn`` along N, computes
+    a (16 wm) x (8 tn wn) tile; a warp row wholly past M is never taken
+    (so M <= 16 is one block along M).  Of the tiles whose staged chunks
+    fit the default 48 KB, the one with the least work on the busiest SM
+    wins (waves over ``sms`` SMs x the tile's outputs), then the fewest
+    blocks, then the fewest staged rows: at BitLinear's 256 x 2560, 64 x 80
+    tiles, 128 blocks in one wave.  K is staged ``KCHUNK`` steps at a time:
+    its four steps at BitLinear in one chunk.
+    """
+    best = None
+    for wm in (1, 2, 4, 8):
+        if 16 * (wm - 1) >= m:
+            break
+        for tn in WARP_TILES:
+            t = make_tiles(m, n, kw, wm, tn)
+            if t.smem > SMEM_DEFAULT or t.grid[1] > GRID_M_LIMIT:
+                continue
+            blocks = t.grid[0] * t.grid[1]
+            key = (-(-blocks // sms) * t.bm * t.bn, blocks, t.bm + t.bn)
+            if best is None or key < best[0]:
+                best = (key, t)
+    if best is None:
+        raise ValueError(f"no tile fits M={m}, N={n}")
+    return best[1]
+
+
+def copy_words(kw: int, *ptrs: int) -> int:
+    """Words a cp.async stages (4, 2 or 1): the widest that divides Kw and
+    keeps every operand's rows aligned to its bytes."""
+    for cpw in (4, 2):
+        if kw % cpw == 0 and all(p % (4 * cpw) == 0 for p in ptrs):
+            return cpw
+    return 1
 
 
 def xnor_matmul_plain(a_words: torch.Tensor, w_words: torch.Tensor, k: int,
@@ -55,18 +159,20 @@ def check_args(a_words: torch.Tensor, w_words: torch.Tensor, k: int,
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("xnor_matmul").xnor_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 def xnor_matmul(a_words: torch.Tensor, w_words: torch.Tensor, k: int, *,
-                pack_out: bool = False) -> torch.Tensor:
+                pack_out: bool = False,
+                tiles: XnorTiles = None) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on any other device).
 
     a_words: (M, Kw) int32 words; w_words: (N, Kw) int32 words; k: the
     true channel count.  Returns (M, N) int32, or (M, N // 32) int32 words
-    when ``pack_out``.
+    when ``pack_out``.  ``tiles`` overrides :func:`xnor_tiles` (a
+    :func:`make_tiles` geometry, for tile sweeps).
     """
     check_args(a_words, w_words, k, pack_out)
     if a_words.device.type != "cuda":
@@ -77,9 +183,15 @@ def xnor_matmul(a_words: torch.Tensor, w_words: torch.Tensor, k: int, *,
     (m, kw), n = a.shape, w.shape[0]
     out = torch.empty((m, n // PACK_WIDTH if pack_out else n),
                       dtype=torch.int32, device=a.device)
+    if pack_out:
+        geometry = (0,) * 10
+    else:
+        t = tiles or xnor_tiles(m, n, kw, sm_count(a.device))
+        geometry = (*t.args, copy_words(kw, a.data_ptr(), w.data_ptr()),
+                    *t.grid, t.smem)
     with torch.cuda.device(a.device):
         err = _launcher()(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
-                          kw, k, int(pack_out),
+                          kw, k, int(pack_out), *geometry,
                           torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"xnor_matmul launch failed: CUDA error {err}")

@@ -284,13 +284,52 @@ def test_binary_conv2x2_and_binarize_pack_match_plain_versions_on_the_card():
     assert torch.equal(bc.binary_conv2x2(a, w, c=40),
                        bc.binary_conv2x2_plain(a, w, 40))
     for m, k in ((256, 960), (300, 100), (8 * 31 * 31, 256), (1, 1),
-                 (5, 4096)):
+                 (5, 4096), (3, 32), (7, 96)):
         x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
         x.view(-1)[:5] = torch.tensor([0.0, -0.0, float("nan"), 1e-30,
                                        -1e-30])[:min(5, m * k)]
         want = bp.binarize_pack_plain(x)
-        got = bp.binarize_pack(x.to(dev))
-        assert torch.equal(got.cpu(), want), (m, k)
+        # x as it is (the flat path where K % 32 == 0), and the same values
+        # 4 bytes past a 16-byte boundary (the row path)
+        xd = x.to(dev)
+        off = torch.cat([xd.new_zeros(1), xd.flatten()])[1:].view(m, k)
+        assert not bp.pack_path(k, off.data_ptr())
+        assert bp.pack_path(k, xd.data_ptr()) == (k % 32 == 0)
+        for xi in (xd, off):
+            assert torch.equal(bp.binarize_pack(xi).cpu(), want), (m, k)
+
+
+@pytest.mark.gpu
+def test_xnor_matmul_on_the_tensor_cores_matches_plain_version_on_the_card():
+    """The int32 xnor_matmul at BitLinear's SmolLM-360M shape (M=256,
+    K=960, N=2560) and at ragged M, N and K (half an m16, one row past it,
+    an N inside one n8 tile, odd N, one bit, K off the 256-bit grid, 16
+    staged chunks), on random words with bits set past K, with aligned
+    operands and with operands 4 bytes past a 16-byte boundary: equal to
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    shapes = [(256, 2560, 960)] + [(m, n, k) for m in (1, 15, 17, 300)
+                                    for n in (1, 10, 33)
+                                    for k in (1, 31, 100, 1600, 4096)]
+    for m, n, k in shapes:
+        kw = -(-k // 32)
+        a, w = _words(rng, m, kw).to(dev), _words(rng, n, kw).to(dev)
+        want = xm.xnor_matmul_plain(a, w, k)
+        assert torch.equal(xm.xnor_matmul(a, w, k), want), (m, n, k)
+        # K staged one step a chunk: double-buffered wherever K has more
+        t = xm.make_tiles(m, n, kw, xm.xnor_tiles(m, n, kw).wm, 1, 1)
+        assert torch.equal(xm.xnor_matmul(a, w, k, tiles=t), want), \
+            (m, n, k, t)
+    for m, n, k in ((256, 2560, 960), (17, 33, 100)):
+        kw = -(-k // 32)
+        a = _words(rng, m * kw + 1).to(dev)[1:].view(m, kw)
+        w = _words(rng, n * kw + 1).to(dev)[1:].view(n, kw)
+        assert xm.copy_words(kw, a.data_ptr(), w.data_ptr()) == 1
+        assert torch.equal(xm.xnor_matmul(a, w, k),
+                           xm.xnor_matmul_plain(a, w, k)), (m, n, k)
 
 
 @pytest.mark.gpu
