@@ -12,10 +12,12 @@ owner ``CascadePipeline``, fused and host-side; the delta-gated
 folded and served through ``ChipServer``, and a BitLinear layer at
 SmolLM-360M's MLP width; ``repro_torch.launch.serve`` serving SmolLM-360M
 at full width, prefill through the flash-attention kernel, then greedy
-decode), checks the answers against the float reference, and times every
-kernel beside its bound, its plain version and a PyTorch library
-yardstick.  Needs one CUDA device
-and no arguments; exits non-zero on any failure, and without a CUDA
+decode; ``cifar9_s1`` under the continuous policy on Poisson and bursty
+traces, and a ``ServeFleet`` of two replicas with a killed host and a
+warm-started replacement), checks the answers against the float
+reference, and times every kernel (a call in a CUDA graph) beside its
+bound, its plain version and a PyTorch library yardstick.  Needs one
+CUDA device and no arguments; exits non-zero on any failure, and without a CUDA
 device or outside a checkout of the repository.
 
 Phases: 1 environment, 2 build, 3 kernels vs plain versions, 4 end to end
@@ -25,15 +27,21 @@ rule; SmolLM-360M in float32: prefill logits through the kernel == through
 its plain version, prefill + 4 decode steps == the teacher-forced
 forward; in bf16 the kernel at each probability type == chunked attention
 at the same one), 5 serve (the chip tier; the LM serve, its flash launches
-and bf16 greedy agreement between kernel and plain runs), 6 train -> fold
+and bf16 greedy agreement between kernel and plain runs), 5b continuous
+serving and the fleet (the continuous ladder 1-32 held bit-exact for the
+megakernel, a staged lane and the composite; 400 frames at 200 frames/s
+under the continuous and the static policy; a shared continuous
+composite; two replicas, host0 killed, zero loss; one replica over a
+group of two device entries), 6 train -> fold
 -> serve (the STE training of
 ``face_detector`` and ``owner_detector``, each step on the card held
 against the same step on the CPU; the packed conv against the float conv
 on the trained weights; the folded detector served through ``ChipServer``;
 BitLinear's packed path against its STE forward), 7 times (and the LM
 serve's prefill ms, decode ms per token, tok/s and device idle share).
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+Near the end come ``{"kernels": [...]}`` and the card's name and power
+limit on lines of their own; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -62,7 +70,8 @@ INT8_OPS_PER_S = 1979e12        # dense int8 tensor cores, data sheet (2 ops
                                 # by the probe's measured binary / int8 MAC
                                 # rates (Card.probe_mma)
 MMA_PROBE = (4, 20_000)         # blocks an SM, iterations of 8 MMAs a warp
-PROFILE_TRIES = 3               # profiler sessions before events stand in
+PROFILE_TRIES = 3               # profiler sessions before giving up
+GRAPH_CALLS = 50                # calls a CUDA graph phase 7 times replays
 FLOOR_ITERS = 200               # empty-kernel launches the floor probe times
 BATCH = 8
 RAGGED = 5
@@ -133,6 +142,13 @@ PACK_SHAPES = ((256, 960), (300, 100), (8 * 31 * 31, 256))
 # tiles), N (inside one n8 tile, odd, past a block), K (one bit, one word,
 # 4 words, 50 words (8-byte copies), 128 words (16 chunks))
 XNOR_RAGGED = ((1, 15, 17, 300), (1, 10, 33), (1, 31, 100, 1600, 4096))
+# phase 5b: continuous serving of cifar9_s1 through the megakernel at
+# repro's driver defaults (200 frames/s offered, SLO 50 ms); the window
+# target ceil(200 x 0.05 x 0.5) = 5 sits below the batch, so the ladder runs
+CONT_BATCH, CONT_SLO_MS, CONT_RATE, CONT_FRAMES = 32, 50.0, 200.0, 400
+CONT_TRAFFIC = ("poisson", "bursty")
+LADDER = (1, 2, 4, 8, 16, 32)          # the ladder {1, 2, 4, ..., 32}
+FLEET_KILL_AFTER = 16                  # host0 dies after 16 served frames
 TRAIN_BATCH = 32
 TRAIN_SEED = 7                         # the detector twin's init seed
 DETECTOR_STEPS = 40
@@ -178,7 +194,7 @@ def sh(*cmd: str) -> str:
                           text=True).stdout.strip()
 
 
-def phase(n: int, title: str) -> None:
+def phase(n, title: str) -> None:
     print(f"\n=== phase {n}: {title}", flush=True)
 
 
@@ -248,25 +264,29 @@ class Card:
 
     def probe_floor(self) -> None:
         """Time an empty kernel (csrc/mma_rate.cu empty_launch) the way
-        phase 7 times every row, by torch.profiler device time a call with
-        CUDA events beside it: the launch floor the smallest kernels sit
-        near."""
+        phase 7 times every row, a call in a CUDA graph, with CUDA events
+        back to back and torch.profiler device time beside it: the launch
+        floor the smallest kernels sit near."""
         import ctypes
 
         from repro_torch.kernels import _build
+        from repro_torch.launch.timing import graph_ms
         fn = _build.library("mma_rate").empty_launch
         fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        stream = torch.cuda.current_stream().cuda_stream
 
-        def launch():
-            if fn(stream):
+        def launch():       # on the current stream: graph_ms captures it
+            if fn(torch.cuda.current_stream().cuda_stream):
                 raise RuntimeError("empty_launch failed")
         self.floor_events_ms = time_ms(launch, FLOOR_ITERS)
-        self.floor_ms = device_ms(launch, FLOOR_ITERS, "empty_kernel")
+        self.floor_profiler_ms = device_ms(launch, FLOOR_ITERS,
+                                           "empty_kernel")
+        self.floor_ms = graph_ms(launch, GRAPH_CALLS)
         print(f"  launch floor (empty kernel, one warp): "
-              + (f"{self.floor_ms:.5f} ms device (torch.profiler)"
-                 if self.floor_ms is not None else "device time not measured")
+              f"{self.floor_ms:.5f} ms a call in a CUDA graph, "
+              + (f"{self.floor_profiler_ms:.5f} ms device (torch.profiler)"
+                 if self.floor_profiler_ms is not None
+                 else "profiler device time not measured")
               + f", {self.floor_events_ms:.5f} ms a call by CUDA events back "
               f"to back [{self.smi}]")
 
@@ -859,6 +879,265 @@ def train_phase(card, dev, gen, programs):
 
 
 
+def staged_pair(plan, packed, frames):
+    """A staged lane on the card, stage by stage, each kernel beside its
+    plain version on the same input (the kernel's output feeds the next
+    stage): (int32 logits, {kernel: max abs err}); raises on a
+    disagreement."""
+    from repro_torch.core import binarize
+    from repro_torch.core.chip import neuron_array as na
+    from repro_torch.kernels import binary_conv2x2_block as bcb
+    from repro_torch.kernels import xnor_matmul as xm
+    errs = {"conv_block": 0, "xnor_matmul": 0, "xnor_matmul_pack": 0}
+    ci = fi = 0
+    x = logits = None
+    for st in plan.stages:
+        if hasattr(st, "bits"):                      # the IO stage
+            x = na.thermometer_encode_packed(frames, st.bits, st.channels)
+        elif hasattr(st, "pool"):                    # a conv layer
+            p = packed["conv"][ci]
+            ci += 1
+            args = (x, p["w_words"], p["tau"], p["flip"])
+            got = bcb.binary_conv2x2_block(*args, c=st.c, pool=st.pool)
+            want = bcb.conv_block_body(*args, k4=4 * st.c, h=x.shape[1],
+                                       wd=x.shape[2], pool=st.pool)
+            errs["conv_block"] = max(errs["conv_block"],
+                                     max_abs_err(got, want))
+            x = got
+        else:                                        # an FC layer
+            x = x.reshape(x.shape[0], -1)
+            p = packed["fc"][fi]
+            fi += 1
+            key = "xnor_matmul_pack" if st.pack_out else "xnor_matmul"
+            got = xm.xnor_matmul(x, p["w_words"], st.in_features,
+                                 pack_out=st.pack_out)
+            want = xm.xnor_matmul_plain(x, p["w_words"], st.in_features,
+                                        pack_out=st.pack_out)
+            errs[key] = max(errs[key], max_abs_err(got, want))
+            if st.final:
+                logits = got
+            elif st.pack_out:
+                x = got
+            else:       # odd-width hidden FC: threshold at 0, repack
+                x = binarize.pack_signs(binarize.hard_sign(got.float()),
+                                        axis=-1)
+    return logits, errs
+
+
+def serving_phase(card, dev, programs, artifacts, offline, cifar_params,
+                  quad, quad_packed, lane_frames, quad_served, errs):
+    """Phase 5b: the ladder of the continuous policy held bit-exact,
+    continuous serving of cifar9_s1 at full width beside the static policy
+    on the same traces, a shared continuous composite, a two-replica fleet
+    with a kill and a warm-started replacement, and one replica over a
+    group of two device entries.  Returns the launches of each kernel the
+    phase's serves made, the counts set to 0 before each serve and read
+    after it."""
+    from repro_torch.core.chip import interpreter
+    from repro_torch.kernels import cache as warmcache
+    from repro_torch.kernels import megakernel as mk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.chip_serve import frame_stream
+    from repro_torch.serving import (ChipServer, FaultInjector, ServeFleet,
+                                     make_trace, replay)
+    launches = {}
+
+    def count(counts, *names):
+        for k in names:
+            launches[k] = launches.get(k, 0) + counts[k]
+
+    # the ladder: the megakernel and a staged lane at every size a
+    # continuous dispatch of batch 32 can take, and the 4 x S=4 composite
+    # with every member padded to the same size (a ragged shared dispatch)
+    cifar = programs["cifar9_s1"]
+    plan = interpreter.compile_plan(cifar)
+    art = artifacts["cifar9_s1"]
+    image = interpreter.ensure_image(art, cifar)
+    cplan, cimage = interpreter.pack_programs(
+        {n: programs[n] for n in quad}, {n: quad_packed[n] for n in quad})
+    for b in LADDER:
+        frames = torch.from_numpy(frame_stream(cifar, b, 40 + b)).to(dev)
+        want = mk.megakernel_plain(image, frames, spec=plan.mega)
+        got = mk.megakernel_forward(image, frames, spec=plan.mega)
+        errs["megakernel"] = max(errs["megakernel"], max_abs_err(got, want))
+        logits, lane = staged_pair(plan, art, frames)
+        for k, v in lane.items():
+            errs[k] = max(errs[k], v)
+        if not torch.equal(logits, got):
+            raise AssertionError(f"B={b}: staged lane != megakernel")
+        members = tuple(torch.from_numpy(frame_stream(programs[n], b,
+                                                      50 + b + i)).to(dev)
+                        for i, n in enumerate(quad))
+        errs["composite"] = max(errs["composite"], max_abs_err_all(
+            mk.composite_forward(cimage, members, spec=cplan.spec),
+            mk.composite_plain(cimage, members, spec=cplan.spec)))
+    torch.cuda.synchronize()
+    print(f"  ladder {LADDER}: megakernel cifar9_s1, its staged lane "
+          f"(conv_block x 8, xnor_matmul) and the composite "
+          f"{'+'.join(quad)} (every member at the size) == plain versions; "
+          f"staged == megakernel")
+
+    # continuous serving at full width vs the static policy, real clock
+    bank = frame_stream(cifar, CONT_FRAMES, 900)
+    ref = interpreter.forward_infer(
+        interpreter.fold_params(cifar_params, cifar), cifar, bank,
+        device=dev)[1].cpu().numpy()
+    for kind in CONT_TRAFFIC:
+        trace = make_trace(kind, ["cifar9_s1"], CONT_RATE, CONT_FRAMES,
+                           seed=0)
+        for policy in ("continuous", "static"):
+            server = ChipServer({"cifar9_s1": cifar}, {"cifar9_s1": art},
+                                batch=CONT_BATCH, megakernel=True,
+                                device=dev, policy=policy,
+                                slo_ms=CONT_SLO_MS)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = replay(server, trace, {"cifar9_s1": bank})
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            server.close()
+            st = server.stats()
+            got = np.full(CONT_FRAMES, -1)
+            for r in results:
+                got[r.rid] = r.label
+            if len(results) != CONT_FRAMES or not np.array_equal(got, ref):
+                raise AssertionError(f"{kind} {policy}: labels != float "
+                                     f"reference")
+            if st.billed != st.total_served + sum(st.padded.values()):
+                raise AssertionError(f"{kind} {policy}: billed != served + "
+                                     f"padded")
+            if counts["megakernel"] != st.dispatches:
+                raise AssertionError(f"{kind} {policy}: launches {counts}")
+            if policy == "continuous":
+                count(counts, "megakernel")
+            trace_recs = server.latency_trace()
+            met = sum(e["latency_ms"] <= CONT_SLO_MS
+                      for e in trace_recs) / len(trace_recs)
+            print(f"  {kind} {policy}: {CONT_FRAMES} frames offered at "
+                  f"{CONT_RATE:.0f} f/s over {trace.duration_s:.3f} s, "
+                  f"dispatch sizes {st.dispatch_sizes} (size: dispatches), "
+                  f"p50 {st.p50_ms:.3f} / p95 {st.p95_ms:.3f} / p99 "
+                  f"{st.p99_ms:.3f} ms ({met:.4f} within {CONT_SLO_MS:.0f} "
+                  f"ms), padding ratio {st.padding_ratio:.4f}, billed "
+                  f"{st.billed} == {st.total_served} served + "
+                  f"{sum(st.padded.values())} padded, {CONT_FRAMES / wall:.1f} "
+                  f"frames/s over the replay, {st.host_frames_per_s:,.1f} "
+                  f"frames/s inside dispatches; labels == float reference "
+                  f"[{card.smi}]")
+
+    # the 4 x S=4 group shared under the continuous policy, up to 11
+    # frames a lane: a full composite dispatch, then a ragged one on the
+    # ladder (every member padded to 4); labels == phase 5's shared serve
+    # of the same frames (its rids run lane after lane)
+    server = ChipServer({n: programs[n] for n in quad},
+                        {n: quad_packed[n] for n in quad}, batch=BATCH,
+                        megakernel=True, device=dev, shared=True,
+                        policy="continuous")
+    which, first = {}, 0
+    for n in quad:
+        for j, f in enumerate(lane_frames[n][:11]):
+            which[server.submit(n, f)] = quad_served[first + j]
+        first += len(lane_frames[n])
+    ops.reset_launch_counts()
+    results = server.drain()
+    counts = ops.launch_counts()
+    server.close()
+    st = server.stats()
+    if sorted(r.rid for r in results) != sorted(which) or any(
+            (r.program, r.label) != which[r.rid] for r in results):
+        raise AssertionError("shared continuous labels != shared static")
+    if (counts["composite"] != st.shared_dispatches or not
+            st.shared_dispatches or min(st.dispatch_sizes) >= BATCH):
+        raise AssertionError(f"shared continuous: launches {counts}, sizes "
+                             f"{st.dispatch_sizes}")
+    count(counts, "composite", "megakernel")
+    print(f"  shared continuous {'+'.join(quad)}: {st.total_served} served, "
+          f"dispatch sizes {st.dispatch_sizes}, {st.shared_dispatches} "
+          f"composite launches, billed {st.billed} == served + padded "
+          f"{sum(st.padded.values())}; labels == phase 5's shared serve")
+
+    # a fleet of two replicas sharing the card, staged lanes; host0 killed
+    # after FLEET_KILL_AFTER served frames, a replacement warm-started
+    fprogs = {n: programs[n] for n in artifacts}
+    streams = {n: frame_stream(programs[n], SERVE_REQUESTS // 2, 100 + i)
+               for i, n in enumerate(artifacts)}
+    warmcache.invalidate()
+    fleet = ServeFleet(fprogs, artifacts, replicas=2, batch=BATCH,
+                       injector=FaultInjector("host0", FLEET_KILL_AFTER),
+                       replace=True, prefetch=2)
+    hits_built = warmcache.stats()["hits"]
+    ops.reset_launch_counts()
+    which, results = {}, []
+    for j in range(SERVE_REQUESTS // 2):
+        for n in fprogs:
+            which[fleet.submit(n, streams[n][j])] = (n, j)
+        if j % 4 == 3:
+            results.extend(fleet.step())
+    results += fleet.drain()
+    counts = ops.launch_counts()
+    fleet.close()
+    st = fleet.stats()
+    if sorted(r.rid for r in results) != sorted(which):
+        raise AssertionError("fleet lost or repeated frames")
+    for r in results:
+        n, j = which[r.rid]
+        if r.program != n or r.label != offline[n][j]:
+            raise AssertionError(f"fleet frame {r.rid}: label != plain path")
+    if not (st.billed == st.total_served + sum(st.padded.values())
+            and st.total_served == len(which) + st.refired_frames
+            and st.failed_replicas == ("host0",)
+            and st.warm_start["hits"] > hits_built
+            and st.recovery_ms is not None):
+        raise AssertionError(f"fleet books: {st}")
+    if not all(counts[k] for k in ("conv_block", "xnor_matmul",
+                                   "xnor_matmul_pack")):
+        raise AssertionError(f"fleet launches {counts}")
+    count(counts, "conv_block", "xnor_matmul", "xnor_matmul_pack")
+    for name, rs in sorted(st.replicas.items()):
+        print(f"  fleet {name}{' (FAILED)' if name in st.failed_replicas else ''}"
+              f": {rs.total_served} served, {sum(rs.padded.values())} "
+              f"padded, {rs.dispatches} dispatches")
+    print(f"  fleet of 2 on {card.name} (one card: the replicas share it, "
+          f"placement across GPUs unchecked): {len(which)} frames, none "
+          f"lost, labels == plain path; {st.migrated_frames} migrated "
+          f"(+{st.refired_frames} refired), billed {st.billed} == "
+          f"{st.total_served} served + {sum(st.padded.values())} padded; "
+          f"warm start {st.warm_start['hits'] - hits_built} hits for the "
+          f"replacement; recovery_ms {st.recovery_ms:.3f} (kill to the "
+          f"replacement's first served frame, host clock); launches "
+          f"{ {k: counts[k] for k in ('conv_block', 'xnor_matmul', 'xnor_matmul_pack')} } "
+          f"[{card.smi}]")
+
+    # one replica over the device group (cuda:0, cuda:0): every dispatch
+    # scattered in two shares and gathered back
+    server = ChipServer(fprogs, artifacts, batch=BATCH, megakernel=True,
+                        mesh=(dev, dev))
+    which = {}
+    for j in range(SERVE_REQUESTS // 2):
+        for n in fprogs:
+            which[server.submit(n, streams[n][j])] = (n, j)
+    ops.reset_launch_counts()
+    results = server.drain()
+    counts = ops.launch_counts()
+    server.close()
+    st = server.stats()
+    if sorted(r.rid for r in results) != sorted(which):
+        raise AssertionError("group replica lost or repeated frames")
+    for r in results:
+        n, j = which[r.rid]
+        if r.label != offline[n][j]:
+            raise AssertionError(f"group replica frame {r.rid}: label != "
+                                 f"plain path")
+    if counts["megakernel"] != 2 * st.dispatches:
+        raise AssertionError(f"group replica: launches {counts}")
+    count(counts, "megakernel")
+    print(f"  replica over ({dev}, {dev}): {st.total_served} served in "
+          f"{st.dispatches} dispatches, {counts['megakernel']} megakernel "
+          f"launches (two shares a dispatch), labels == plain path")
+    print(f"  phase 5b launches {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one "
@@ -877,6 +1156,7 @@ def main() -> None:
     from repro_torch.kernels import xnor_matmul as xm
     from repro_torch.launch import serve as lm
     from repro_torch.launch.chip_serve import build_params, frame_stream
+    from repro_torch.launch.timing import graph_ms
     from repro_torch.optim import optimizers as opt
     from repro_torch.serving.cascade import CascadePipeline, margins_of
     from repro_torch.serving.server import ChipServer
@@ -1587,6 +1867,16 @@ def main() -> None:
     lm_report, lm_counts = lm_serve(card)
     launches["flash_attention"] = lm_counts["flash_attention"]
 
+    # -- 5b. continuous serving and the fleet --------------------------------
+    phase("5b", f"continuous serving (SLO {CONT_SLO_MS:.0f} ms, batch "
+                f"{CONT_BATCH}) and a fleet of 2 replicas with a kill")
+    by_phase = {k: {"5": v} for k, v in launches.items()}
+    for k, v in serving_phase(card, dev, programs, artifacts, offline,
+                              cifar_params, quad, packed, lane_frames,
+                              served[True], errs).items():
+        by_phase[k]["5b"] = v
+        launches[k] += v
+
     # -- 6. train -> fold -> serve -------------------------------------------
     phase(6, f"train -> fold -> serve on the card (face_detector "
              f"{DETECTOR_STEPS} steps, owner_detector {OWNER_STEPS} steps, "
@@ -1595,21 +1885,27 @@ def main() -> None:
     counts, trained = train_phase(card, dev, gen, programs)
     launches["binary_conv2x2"] = counts["binary_conv2x2"]
     launches["binarize_pack"] = counts["binarize_pack"]
-    # xnor_matmul runs on two main paths: the staged serve (phase 5,
-    # cifar9_s1's FC layers) and BitLinear's packed path (phase 6)
-    by_phase = {"xnor_matmul": {"5": launches["xnor_matmul"],
-                                "6": counts["xnor_matmul"]}}
+    # xnor_matmul runs on three main paths: the staged serve (phase 5,
+    # cifar9_s1's FC layers), the fleet (phase 5b) and BitLinear's packed
+    # path (phase 6)
+    by_phase["xnor_matmul"]["6"] = counts["xnor_matmul"]
     launches["xnor_matmul"] += counts["xnor_matmul"]
     face, owner = programs["face_detector"], programs["owner_detector"]
 
     # -- 7. times ------------------------------------------------------------
-    phase(7, f"times (torch.profiler device time and CUDA events, warm L2) "
+    phase(7, f"times (CUDA-graph events, with CUDA events back to back and "
+             f"torch.profiler device time beside them, warm L2) "
              f"[{card.smi}]")
     rows = {}
 
-    # timed_by names what ms and library_ms measure: "cuda_events", the
-    # mean over back-to-back calls (host launch path included), or
-    # "profiler_device", the device time a call from torch.profiler.
+    # timed_by names what ms and library_ms measure: "cuda_graph_events",
+    # a call's mean over GRAPH_CALLS calls captured in one CUDA graph and
+    # replayed between two CUDA events (timing.graph_ms: device time with
+    # no host gap, and no drift within this long process); "cuda_events",
+    # the mean over back-to-back calls (host launch path included), where
+    # a call cannot be captured.  events holds (events ms, library events
+    # ms, profiler ms, library profiler ms): the back-to-back events and
+    # torch.profiler's device time a call, kept beside the graph reading.
     # bound_ms: with macs (the rows whose work is binary MACs) the tensor
     # cores' bound at the binary MAC peak, the CUDA-core (popc issue) bound
     # beside it as cuda_core_bound_ms; without, the popc bound or the
@@ -1617,7 +1913,8 @@ def main() -> None:
     # first call makes the row, later ones add their numbers under
     # "shapes"
     def row(name, ms, plain_ms, nbytes, word_ops, library_ms, bound=None,
-            timed_by="cuda_events", events=None, macs=None, shape=None):
+            timed_by="cuda_graph_events", events=None, macs=None,
+            shape=None):
         if macs is not None:
             bound = card.mac_bound(nbytes, macs)
         bound_ms, bound_by = bound or card.popc_bound(nbytes, word_ops)
@@ -1630,7 +1927,7 @@ def main() -> None:
                               launches=launches[name],
                               max_abs_err=errs[name], **entry,
                               launch_floor_ms=card.floor_ms)
-            if name in by_phase:
+            if len(by_phase.get(name, {})) > 1:
                 rows[name]["launches_by_phase"] = by_phase[name]
             if shape is not None:
                 rows[name]["shape"] = shape
@@ -1640,10 +1937,15 @@ def main() -> None:
             rows[name].setdefault("shapes", []).append(entry)
         extra = ""
         if events is not None:
-            entry.update(events_ms=events[0], library_events_ms=events[1])
+            entry.update(events_ms=events[0], library_events_ms=events[1],
+                         profiler_ms=events[2],
+                         library_profiler_ms=events[3])
             extra += (f"; CUDA events back to back: {events[0]:.4f} ms, "
                       f"library " + (f"{events[1]:.4f} ms"
-                                     if events[1] is not None else "none"))
+                                     if events[1] is not None else "none")
+                      + "; torch.profiler device: " + ", library ".join(
+                          f"{x:.4f} ms" if x is not None else "none"
+                          for x in events[2:]))
         if macs is not None:
             core_ms, core_by = card.popc_bound(nbytes, word_ops)
             entry.update(cuda_core_bound_ms=core_ms,
@@ -1651,30 +1953,36 @@ def main() -> None:
             extra += (f"; CUDA-core bound {core_ms:.5f} ms ({core_by}; "
                       f"{word_ops / 1e9:.4f} G xor+popc words)")
         print(f"  {name}" + (f" {shape}" if shape else "")
-              + f": {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              + f": {ms:.5f} ms, plain {plain_ms:.4f} ms, "
               + ("tensor-core bound " if macs is not None else "bound ")
               + f"{bound_ms:.5f} ms ({bound_by}"
               + (f"; {macs / 1e9:.4f} G binary MACs" if macs else "")
               + "), library "
-              + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
+              + (f"{library_ms:.5f} ms" if library_ms is not None else "none")
               + f" (timed by {timed_by}){extra} [{card.smi}]")
 
     def timings(kernel, kname, library, iters):
-        """The kernel's device time a call (its kernels named kname) and
-        the library call's (all its kernels), from torch.profiler, with
-        CUDA events over back-to-back calls beside them: (ms, library ms,
-        timed_by, (events ms, library events ms)).  Where the profiler
-        records nothing, the events stand in for both."""
+        """The kernel's ms a call and the library call's, each from a CUDA
+        graph of GRAPH_CALLS calls between CUDA events, with CUDA events
+        over back-to-back calls and torch.profiler's device time (of the
+        kernels named kname; all of the library call's) beside them: (ms,
+        library ms, timed_by, (events ms, library events ms, profiler ms,
+        library profiler ms)).  A call that cannot be captured keeps the
+        back-to-back events, and timed_by says so."""
         events = (time_ms(kernel, iters),
-                  time_ms(library, iters) if library else None)
-        ms = device_ms(kernel, iters, kname)
-        lib_ms = device_ms(library, iters) if library else None
-        if ms is None or (library and lib_ms is None):
-            print(f"    torch.profiler recorded no device time for "
-                  f"{'the kernel' if ms is None else 'the library call'} "
-                  f"({kname}): CUDA events stand in")
-            return events[0], events[1], "cuda_events", events
-        return ms, lib_ms, "profiler_device", events
+                  time_ms(library, iters) if library else None,
+                  device_ms(kernel, iters, kname),
+                  device_ms(library, iters) if library else None)
+        try:
+            return (graph_ms(kernel, GRAPH_CALLS),
+                    graph_ms(library, GRAPH_CALLS) if library else None,
+                    "cuda_graph_events", events)
+        except RuntimeError as e:
+            print(f"    not capturable in a CUDA graph ({kname or 'all'}): "
+                  f"{str(e).splitlines()[0]}; CUDA events back to back "
+                  f"stand in")
+            return events[0], events[1], "cuda_events (not capturable)", \
+                events
 
     # conv_block: the 8 conv layers of one cifar9_s1 dispatch at batch 8
     conv = [s for s in conv_shapes if s[0] == "cifar9_s1"]
@@ -2080,12 +2388,11 @@ def main() -> None:
     # for like with SDPA, which rounds p to bf16 too), the serve's own
     # float32 p timed beside it.  At this shape a call's host path (the
     # wrapper's checks, ctypes; SDPA's dispatch) takes longer than the
-    # kernel, so the row's ms and library ms are device times a call from
-    # torch.profiler (timed_by "profiler_device"); back-to-back CUDA
-    # events, printed beside, are the host path's cost a call, and stand
-    # in for both (timed_by "cuda_events") where the profiler records no
-    # device activity.  Bound: q, k, v and o once each over HBM, or the
-    # causal FLOPs over the type's peak, the larger; library: one
+    # kernel, so the row's ms and library ms are a call's time in a CUDA
+    # graph (timed_by "cuda_graph_events"); back-to-back CUDA events,
+    # printed beside, are the host path's cost a call, and the profiler's
+    # device time stands beside both.  Bound: q, k, v and o once each over
+    # HBM, or the causal FLOPs over the type's peak, the larger; library: one
     # scaled_dot_product_attention call (B, H, S, D), GQA
     _, b, sq, h, kh, d, causal = FLASH_SHAPES[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2106,6 +2413,7 @@ def main() -> None:
 
         lib_events = time_ms(lib, 200, warmup=20)
         lib_device = device_ms(lib, 50)
+        lib_ms = graph_ms(lib, GRAPH_CALLS)
         for probs_bf16 in (FLASH_PROBS if dtype == torch.bfloat16
                            else (None,)):
             kw = dict(causal=causal, probs_bf16=probs_bf16)
@@ -2114,10 +2422,7 @@ def main() -> None:
                 return fa.flash_attention(q, k, v, **kw)
 
             events = time_ms(kernel, 200, warmup=20)
-            ms, lib_ms = device_ms(kernel, 50, "flash_fwd"), lib_device
-            timed_by = "profiler_device"
-            if ms is None or lib_ms is None:
-                ms, lib_ms, timed_by = events, lib_events, "cuda_events"
+            ms, timed_by = graph_ms(kernel, GRAPH_CALLS), "cuda_graph_events"
             plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                                 **kw), 5)
             label = (f"{str(dtype)[6:]}"
@@ -2125,7 +2430,9 @@ def main() -> None:
                         if probs_bf16 is not None else ""))
             if probs_bf16:
                 row("flash_attention", ms, plain_ms, nbytes, 0, lib_ms,
-                    bound, timed_by)
+                    bound, timed_by,
+                    events=(events, lib_events,
+                            device_ms(kernel, 50, "flash_fwd"), lib_device))
                 row_ms = ms
             else:
                 print(f"  flash_attention {label}: {ms:.4f} ms, plain "
@@ -2145,20 +2452,15 @@ def main() -> None:
     # the row's time over the block-tiles an SM computes is the SM's rate
     q, k, v = (torch.randn(shape, generator=gen).bfloat16().to(dev)
                for shape in ((1, sq, h, d), (1, sq, kh, d), (1, sq, kh, d)))
-    lone = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                probs_bf16=True),
-                     50, "flash_fwd")
+    lone = graph_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                               probs_bf16=True), GRAPH_CALLS)
     _, heaviest = flash_block_tiles(1, sq, h, kh, causal)
     tiles, _ = flash_block_tiles(b, sq, h, kh, causal)
-    print("    bf16 probs_bf16=True, device a call: "
-          + (f"B=1 {lone:.4f} ms, {lone / heaviest * 1e3:.3f} us a key tile "
-             f"of the heaviest block ({heaviest} tiles); "
-             if lone is not None else "B=1 not measured (no device "
-             "activity recorded); ")
-          + (f"B={b} {row_ms * card.sms / tiles * 1e3:.3f} us a 64 x 64 "
-             f"block-tile an SM ({tiles} block-tiles)"
-             if rows["flash_attention"]["timed_by"] == "profiler_device"
-             else f"B={b} not measured"))
+    print(f"    bf16 probs_bf16=True, a call in a CUDA graph: B=1 "
+          f"{lone:.4f} ms, {lone / heaviest * 1e3:.3f} us a key tile of the "
+          f"heaviest block ({heaviest} tiles); B={b} "
+          f"{row_ms * card.sms / tiles * 1e3:.3f} us a 64 x 64 block-tile "
+          f"an SM ({tiles} block-tiles)")
 
     # the LM serve, warm, then profiled: prefill ms, decode ms a token,
     # tok/s, and the device's idle share over the whole serve (parameter

@@ -20,6 +20,11 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def local_devices() -> list:
+    """Every CUDA device of this process (empty without a card)."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def to_device(tree, device: torch.device):
     """Move every tensor of a nested dict/list/tuple artifact to ``device``
     (a no-op for tensors already there)."""

@@ -36,9 +36,25 @@ with ``--target-agreement`` / ``--target-skip``)::
     PYTHONPATH=src python -m repro_torch.launch.chip_serve \
         --video --programs cifar9_s1 --batch 8 --megakernel
 
+``--traffic {poisson,bursty,diurnal}`` replays a seeded arrival trace in
+real time instead of enqueueing everything up front; ``--rate`` sets the
+arrival rate (frames/s), ``--slo-ms`` the per-lane latency SLO, and
+``--policy continuous`` turns on the rolling admission window that
+autoscales the batch against the measured rate.  ``--fleet N`` serves
+through N replica hosts over disjoint groups of the local devices (on one
+card they share it), ``--kill host0`` kills one mid-stream after
+``--kill-after`` served frames, its frames migrating to the survivors and
+a warm-started replacement coming up unless ``--no-replace``; ``--shard``
+serves one replica over every local device, frames scattered::
+
+    PYTHONPATH=src python -m repro_torch.launch.chip_serve \
+        --traffic poisson --rate 200 --policy continuous --slo-ms 50 \
+        --programs cifar9_s1 --requests 400 --batch 32 --megakernel
+    PYTHONPATH=src python -m repro_torch.launch.chip_serve --fleet 2 \
+        --programs mnist5,cifar9_s1 --requests 48 --batch 8 --kill host0
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
-The continuous policy, traffic replay and fleet modes of ``repro``'s
-driver are not ported yet.
+``repro``'s ``--autotune`` and ``--donate`` are not taken.
 """
 
 from __future__ import annotations
@@ -50,10 +66,12 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.chip import energy, interpreter, networks
+from repro_torch.distributed import sharding
 from repro_torch.serving import temporal
 from repro_torch.serving.cascade import CascadePipeline
+from repro_torch.serving.fleet import FaultInjector, ServeFleet
 from repro_torch.serving.server import ChipServer
-from repro_torch.serving.traffic import video_trace
+from repro_torch.serving.traffic import make_trace, replay, video_trace
 
 
 def build_params(program, seed: int, warm_bn: bool, device=None):
@@ -120,13 +138,45 @@ def main(argv=None):
                          "split instead of using --margin: the cheapest "
                          "margin whose escalations capture R of the "
                          "positive frames (detector-labelled)")
-    ap.add_argument("--policy", choices=("static", "operating-point"),
+    ap.add_argument("--policy",
+                    choices=("static", "operating-point", "continuous"),
                     default="static",
                     help="dispatch policy: 'static' serves each lane with "
                          "its own program; 'operating-point' serves program "
                          "families (names in --programs may be "
                          "networks.FAMILIES entries) at the energy-accuracy "
-                         "point the budget and backlog call for")
+                         "point the budget and backlog call for; "
+                         "'continuous' adds the rolling admission window "
+                         "that autoscales the batch against the measured "
+                         "arrival rate and --slo-ms (over the "
+                         "operating-point controller when families are "
+                         "served)")
+    ap.add_argument("--traffic", choices=("poisson", "bursty", "diurnal"),
+                    default=None,
+                    help="replay a seeded arrival trace in real time "
+                         "instead of enqueueing all frames up front")
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="traffic arrival rate in frames/s (all lanes)")
+    ap.add_argument("--slo-ms", type=float, default=50.0,
+                    help="per-lane input-to-label latency SLO for the "
+                         "continuous policy's admission window")
+    ap.add_argument("--shard", action="store_true",
+                    help="serve over every local device (one artifact "
+                         "replica a device, frames scattered)")
+    ap.add_argument("--fleet", type=int, default=1,
+                    help="serve through N replica hosts (disjoint groups "
+                         "of the local devices, shared when fewer; frames "
+                         "scatter in blocks of --batch)")
+    ap.add_argument("--kill", default=None, metavar="REPLICA",
+                    help="fault-inject: kill this replica (e.g. host0) "
+                         "mid-stream; its frames migrate to survivors "
+                         "(requires --fleet >= 2)")
+    ap.add_argument("--kill-after", type=int, default=8,
+                    help="fire the --kill injection once this many frames "
+                         "have been served fleet-wide")
+    ap.add_argument("--no-replace", action="store_true",
+                    help="do not spawn a warm-started replacement for the "
+                         "killed replica")
     ap.add_argument("--budget-uj-s", type=float, default=None,
                     help="operating-point controller energy budget: max "
                          "chip-model average power in uJ/s (uW); tight "
@@ -168,7 +218,7 @@ def main(argv=None):
 
     names = [n.strip() for n in args.programs.split(",") if n.strip()]
     families = {}
-    if args.policy == "operating-point":
+    if args.policy in ("operating-point", "continuous"):
         # family names expand to their member variants behind one lane
         expanded = []
         for n in names:
@@ -191,14 +241,21 @@ def main(argv=None):
     print(f"folding deployment artifacts for {names} ...")
     artifacts = {n: build_artifact(p, args.seed + i, True, dev)
                  for i, (n, p) in enumerate(programs.items())}
+    if args.fleet > 1:
+        return run_fleet(args, dev, programs, artifacts, families)
+    if args.kill:
+        ap.error("--kill needs --fleet >= 2 (nowhere to migrate frames)")
+    mesh = (sharding.serve_mesh(None if args.device is None else [dev])
+            if args.shard else None)
     server = ChipServer(programs, artifacts, batch=args.batch,
                         megakernel=args.megakernel,
-                        prefetch=args.prefetch_depth, device=dev,
+                        prefetch=args.prefetch_depth, device=dev, mesh=mesh,
                         shared=args.shared, policy=args.policy,
                         families=families or None,
-                        budget_uj_s=args.budget_uj_s)
+                        budget_uj_s=args.budget_uj_s, slo_ms=args.slo_ms)
     print(f"resident programs: {names}  (batch={args.batch}, "
-          f"device={dev}, S-modes={[programs[n].s for n in names]}, "
+          f"device={dev}, devices={len(server.mesh)}, "
+          f"S-modes={[programs[n].s for n in names]}, "
           f"megakernel={args.megakernel}, prefetch={args.prefetch_depth}, "
           f"shared={args.shared}, policy={args.policy})")
     for fam, members in families.items():
@@ -216,18 +273,25 @@ def main(argv=None):
                  if groups else "none (S-modes do not tile the array)"))
 
     lanes = list(server.queue.lanes)
-    geom_prog = {lane: programs[server.families.get(lane, (lane,))[0]]
-                 for lane in lanes}
-    per = {lane: frame_stream(geom_prog[lane],
-                              -(-args.requests // len(lanes)),
-                              args.seed + 100 + i)
-           for i, lane in enumerate(lanes)}
-    idx = {lane: 0 for lane in lanes}
-    for submitted in range(args.requests):
-        lane = lanes[submitted % len(lanes)]
-        server.submit(lane, per[lane][idx[lane]])
-        idx[lane] += 1
-    results = server.drain()
+    per = lane_streams(args, programs, lanes, families)
+    if args.traffic:
+        # seeded arrival trace, replayed with real-time pacing: frames hit
+        # the queue at their trace offsets and latency is measured against
+        # the arrival process
+        trace = make_trace(args.traffic, lanes, args.rate, args.requests,
+                           seed=args.seed)
+        print(f"replaying {args.traffic} trace: {len(trace)} frames at "
+              f"{args.rate:,.0f} f/s mean over {len(lanes)} lane(s), "
+              f"seed {args.seed}, SLO {args.slo_ms:.0f} ms "
+              f"({trace.duration_s:.2f} s span)")
+        results = replay(server, trace, per)
+    else:
+        idx = {lane: 0 for lane in lanes}
+        for submitted in range(args.requests):
+            lane = lanes[submitted % len(lanes)]
+            server.submit(lane, per[lane][idx[lane]])
+            idx[lane] += 1
+        results = server.drain()
     server.close()
     stats = server.stats()
 
@@ -255,6 +319,14 @@ def main(argv=None):
                  if stats.budget_uj_s else ", no budget)"))
     print(f"host throughput     : {stats.host_frames_per_s:,.0f} frames/s "
           f"on {dev}")
+    if stats.p99_ms > 0.0:
+        trace_recs = server.latency_trace()
+        met = sum(1 for e in trace_recs
+                  if e["latency_ms"] <= args.slo_ms) / max(1, len(trace_recs))
+        print(f"input-to-label      : p50 {stats.p50_ms:.2f} / "
+              f"p95 {stats.p95_ms:.2f} / p99 {stats.p99_ms:.2f} ms "
+              f"({met:.1%} within the {args.slo_ms:.0f} ms SLO)")
+    print(f"dispatch sizes      : {stats.dispatch_sizes} (size: dispatches)")
     print(f"billing             : {stats.billed} billed == "
           f"{stats.total_served} served + {sum(stats.padded.values())} "
           f"padded (padding ratio {stats.padding_ratio:.3f})")
@@ -266,6 +338,87 @@ def main(argv=None):
           f"{stats.chip.power_w*1e3:.2f} mW avg "
           f"(paper: up to 1700 f/s, 0.9 mW I2L at S=4)")
     return results, stats
+
+
+def lane_streams(args, programs, lanes, families):
+    """Seeded synthetic frames for each lane (a family lane takes its
+    first variant's geometry), enough for ``--requests`` over the lanes."""
+    return {lane: frame_stream(programs[families.get(lane, (lane,))[0]],
+                               -(-args.requests // len(lanes)),
+                               args.seed + 100 + i)
+            for i, lane in enumerate(lanes)}
+
+
+def run_fleet(args, dev, programs, artifacts, families):
+    """Serve through a :class:`~repro_torch.serving.ServeFleet`: N replica
+    hosts over disjoint groups of the local devices (shared when fewer),
+    optional mid-stream fault injection (``--kill host0``) with survivor
+    migration and a warm-started replacement host."""
+    injector = (FaultInjector(args.kill, after_served=args.kill_after)
+                if args.kill else None)
+    fleet = ServeFleet(programs, artifacts, replicas=args.fleet,
+                       batch=args.batch,
+                       devices=None if args.device is None else [dev],
+                       injector=injector, replace=not args.no_replace,
+                       megakernel=args.megakernel,
+                       prefetch=args.prefetch_depth, shared=args.shared,
+                       policy=args.policy, families=families or None,
+                       budget_uj_s=args.budget_uj_s, slo_ms=args.slo_ms)
+    ndev = len({d for ds in fleet._devices.values() for d in ds})
+    print(f"serve fleet: {args.fleet} replicas over {ndev} device(s), "
+          f"batch={args.batch}, policy={args.policy}"
+          + (f", kill {args.kill} after {args.kill_after} frames "
+             f"(replace={not args.no_replace})" if args.kill else ""))
+
+    lanes = list(fleet.lanes)
+    per = lane_streams(args, programs, lanes, families)
+    if args.traffic:
+        trace = make_trace(args.traffic, lanes, args.rate, args.requests,
+                           seed=args.seed)
+        print(f"replaying {args.traffic} trace: {len(trace)} frames at "
+              f"{args.rate:,.0f} f/s over {len(lanes)} lane(s)")
+        results = replay(fleet, trace, per)
+    else:
+        idx = {lane: 0 for lane in lanes}
+        results = []
+        for submitted in range(args.requests):
+            lane = lanes[submitted % len(lanes)]
+            fleet.submit(lane, per[lane][idx[lane]])
+            idx[lane] += 1
+            if submitted % args.batch == args.batch - 1:
+                # interleave serving so a --kill lands mid-stream
+                results.extend(fleet.step())
+        results = sorted(results + fleet.drain(), key=lambda r: r.rid)
+    fleet.close()
+
+    st = fleet.stats()
+    print(f"\nfleet served {st.total_served} frames in {st.dispatches} "
+          f"dispatches across {len(st.replicas)} replica(s)")
+    for name, rs in sorted(st.replicas.items()):
+        mark = " (FAILED)" if name in st.failed_replicas else ""
+        print(f"  {name:>10}{mark}: {sum(rs.served.values()):3d} served, "
+              f"{sum(rs.padded.values())} padded, "
+              f"{rs.dispatches} dispatches")
+    if st.failed_replicas:
+        print(f"failover            : {st.migrated_frames} frames migrated "
+              f"(+{st.refired_frames} refired), recovery "
+              + (f"{st.recovery_ms:.1f} ms" if st.recovery_ms is not None
+                 else "n/a (replacement served no frames)"))
+    print(f"billing             : {st.billed} billed == "
+          f"{st.total_served} served + {sum(st.padded.values())} padded "
+          f"(padding ratio {st.padding_ratio:.3f})")
+    if st.p99_ms > 0.0:
+        print(f"input-to-label      : p50 {st.p50_ms:.2f} / "
+              f"p95 {st.p95_ms:.2f} / p99 {st.p99_ms:.2f} ms (merged)")
+    print(f"host throughput     : {st.host_frames_per_s:,.0f} frames/s on "
+          f"{dev}")
+    print(f"chip-model bill     : {st.chip.uj_per_frame:.2f} uJ/frame, "
+          f"{st.chip.frames_per_s:,.0f} frames/s ({len(st.replicas)} "
+          f"chips in parallel), {st.chip.power_w*1e3:.2f} mW total")
+    ws = st.warm_start
+    print(f"warm-start cache    : {ws['hits']} hits / {ws['misses']} "
+          f"misses, {ws['build_s']*1e3:.0f} ms building")
+    return results, st
 
 
 def run_video(args, names, families):

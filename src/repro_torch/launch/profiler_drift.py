@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.core.chip import interpreter, networks
 from repro_torch.kernels import megakernel as mk
-from repro_torch.launch.time_members import device_ms, frames_of, random_image
-from repro_torch.launch.time_packed import events_ms, graph_ms
+from repro_torch.launch.time_members import frames_of, random_image
+from repro_torch.launch.timing import device_ms, events_ms, graph_ms
 
 ROUNDS, BURST_S, IDLE_S, SEED = 3, 3.0, 10.0, 0
 
@@ -47,9 +47,9 @@ def main() -> dict:
     report = {"card": smi, "samples": []}
 
     def sample(label: str) -> None:
-        got = dict(label=label, b8_profiler_ms=device_ms(calls[8]),
+        got = dict(label=label, b8_profiler_ms=device_ms(calls[8], 20),
                    b8_graph_events_ms=graph_ms(calls[8]),
-                   b256_profiler_ms=device_ms(calls[256]),
+                   b256_profiler_ms=device_ms(calls[256], 20),
                    b256_events_ms=events_ms(calls[256], 20))
         report["samples"].append(got)
         print(f"{label}: B=8 profiler {got['b8_profiler_ms']:.5f} ms, graph "

@@ -23,25 +23,12 @@ from repro_torch.core.chip import interpreter, networks
 from repro_torch.kernels import binary_conv2x2 as bc
 from repro_torch.kernels import binary_conv2x2_block as bcb
 
+try:
+    from repro_torch.launch.timing import device_ms
+except ImportError:     # another tree first on PYTHONPATH: this file's own
+    from timing import device_ms
+
 BATCH, ITERS, SEED = 8, 50, 0
-
-
-def device_ms(fn, iters: int, name: str):
-    """Device ms a call of ``fn``'s CUDA kernels whose names hold ``name``,
-    from torch.profiler over ``iters`` calls (None if none recorded)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == DeviceType.CUDA and name in ev.name]
-    return sum(us) / 1e3 / iters if us else None
 
 
 def main() -> dict:

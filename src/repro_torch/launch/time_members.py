@@ -1,7 +1,9 @@
 """Device time of the whole-network kernels (rows 4-7 of the kernel table).
 
-Times, by ``torch.profiler`` device time a call (every CUDA kernel the
-call launches), the solo megakernel on cifar9_s1 at batches 8, 66, 132
+Times, by CUDA events around a CUDA graph of 50 calls (``launch/timing.py``
+``graph_ms``: device time with no host gap, which does not drift), with
+``torch.profiler`` device time a call (every CUDA kernel the call
+launches) beside it under ``profiler_ms``, the solo megakernel on cifar9_s1 at batches 8, 66, 132
 and 256, and at the serves' batches 8 and 256 the 4 x S=4 composite (B a
 member), the face -> owner cascade with every frame escalated (and, where
 the tree's wrapper takes ``det_cluster``, with the detector at clusters
@@ -10,7 +12,8 @@ warm state with every stream changed (E = B) and none (E = 0).
 Weights and frames are random from fixed seeds.  It prints each time with
 the card's name and power limit as ``nvidia-smi`` gives them, then one
 JSON line.  It calls only the public wrappers, so the same file times any
-tree of the port: put that tree's ``src`` first on ``PYTHONPATH``, and
+tree of the port (run as a script, it takes the ``timing.py`` beside it
+where the tree on ``PYTHONPATH`` has none): put that tree's ``src`` first on ``PYTHONPATH``, and
 alternate trees in one chip call to compare them on one card::
 
     PYTHONPATH=src python3 src/repro_torch/launch/time_members.py
@@ -38,6 +41,11 @@ from repro_torch.core.chip import interpreter, networks
 from repro_torch.kernels import megakernel as mk
 from repro_torch.launch.chip_serve import frame_stream
 
+try:
+    from repro_torch.launch.timing import device_ms, graph_ms
+except ImportError:     # another tree first on PYTHONPATH: this file's own
+    from timing import device_ms, graph_ms
+
 ITERS, SEED = 20, 0
 MEGA_BATCHES = (8, 66, 132, 256)
 BATCHES = (8, 256)              # the serves' batches
@@ -45,26 +53,10 @@ QUAD = ("cifar9_s4", "cifar9_s4t", "mnist5", "face_detector")
 CASCADE = ("face_detector", "owner_detector")
 
 
-def device_ms(fn, iters: int = ITERS, name: str = ""):
-    """Device ms a call of ``fn``'s CUDA kernels whose names hold ``name``,
-    from torch.profiler over ``iters`` calls (None if none recorded in
-    three sessions)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = [ev.time_range.elapsed_us() for ev in prof.events()
-              if ev.device_type == DeviceType.CUDA and name in ev.name]
-        if us:
-            return sum(us) / 1e3 / iters
-    return None
+def both(fn) -> tuple:
+    """(ms a call from a CUDA graph of 50 calls, torch.profiler device ms
+    a call beside it)."""
+    return graph_ms(fn), device_ms(fn, ITERS)
 
 
 def random_image(prog, gen):
@@ -145,7 +137,7 @@ def clocks(prog, image, frames, smi: str) -> dict:
         if err:
             raise RuntimeError(f"clock probe launch failed: CUDA error {err}")
 
-    call_ms = device_ms(launch)
+    call_ms = device_ms(launch, ITERS)
     launch()
     torch.cuda.synchronize()
     want = mk.composite_plain(image, (frames,), spec=spec)[0]
@@ -194,11 +186,16 @@ def main(argv=None) -> dict:
         print(json.dumps(report))
         return report
 
-    report = {"card": smi, "megakernel_ms": {}}
+    report = {"card": smi, "megakernel_ms": {}, "profiler_ms": {}}
+    prof = report["profiler_ms"]
+
+    def put(key, fn):
+        report[key], prof[key] = both(fn)
+
     mega = interpreter.compile_plan(cifar).mega
     for b in MEGA_BATCHES:
         frames = frames_of(cifar, b, 7, dev)
-        report["megakernel_ms"][b] = device_ms(
+        report["megakernel_ms"][b], prof[f"megakernel_b{b}"] = both(
             lambda: mk.megakernel_forward(image, frames, spec=mega))
 
     images = {n: random_image(p, gen) for n, p in progs.items()}
@@ -216,11 +213,11 @@ def main(argv=None) -> dict:
     for b in BATCHES:
         frames = tuple(frames_of(progs[n], b, 600 + i, dev)
                        for i, n in enumerate(QUAD))
-        report[f"composite_ms_b{b}"] = device_ms(
+        put(f"composite_ms_b{b}",
             lambda: mk.composite_forward(cimage, frames, spec=cplan.spec))
         frames = frames_of(progs[CASCADE[0]], b, 700, dev)
         ctrl = kplan.margin_ctrl(float("-inf"), b).to(dev)
-        report[f"cascade_ms_b{b}"] = device_ms(
+        put(f"cascade_ms_b{b}",
             lambda: mk.cascade_forward(kimage, frames, ctrl,
                                        spec=kplan.spec))
         # a warm state: lane i's last frame differs in a corner patch
@@ -233,7 +230,7 @@ def main(argv=None) -> dict:
         llog = torch.zeros((b, dplan.classes), dtype=torch.int32, device=dev)
         for e, thr in (("all", float("-inf")), ("0", float("inf"))):
             ctrl = dplan.delta_ctrl(thr, b).to(dev)
-            report[f"delta_e{e}_ms_b{b}"] = device_ms(
+            put(f"delta_e{e}_ms_b{b}",
                 lambda: mk.delta_forward(dimage, frames, last, llog, ctrl,
                                          spec=dplan.spec))
     if "det_cluster" in inspect.signature(mk.cascade_forward).parameters:
@@ -241,19 +238,19 @@ def main(argv=None) -> dict:
             frames = frames_of(progs[CASCADE[0]], b, 700, dev)
             ctrl = kplan.margin_ctrl(float("-inf"), b).to(dev)
             for n in (2, 8):
-                report[f"cascade_det{n}_ms_b{b}"] = device_ms(
+                put(f"cascade_det{n}_ms_b{b}",
                     lambda: mk.cascade_forward(kimage, frames, ctrl,
                                                spec=kplan.spec,
                                                det_cluster=n))
         print("cascade, the detector at clusters of 2 / 8: " + ", ".join(
             f"B={b} {report[f'cascade_det2_ms_b{b}']} / "
             f"{report[f'cascade_det8_ms_b{b}']} ms" for b in (8, 16, 256))
-            + f" (torch.profiler device time a call) [{smi}]")
+            + f" (a call in a CUDA graph) [{smi}]")
     print("megakernel cifar9_s1: " + ", ".join(
         f"B={b} {ms} ms" for b, ms in report["megakernel_ms"].items())
         + "; " + ", ".join(f"{k[:-3]} {v} ms" for k, v in report.items()
                            if k.endswith(tuple(f"_b{b}" for b in BATCHES)))
-        + f" (torch.profiler device time a call; composite: "
+        + f" (a call in a CUDA graph; composite: "
         f"{'+'.join(QUAD)}, B a member; cascade: "
         f"{'->'.join(CASCADE)}, all escalated; delta: cifar9_s1, every "
         f"stream changed or none) [{smi}]")

@@ -8,7 +8,9 @@ layer (M=8, K=256, N=64), and ``binarize_pack`` at BitLinear's input
 (256, 960), cifar9_s1's layer-2 activations at batch 8 (7688, 256) and an
 odd shape (300, 100).  Each by ``torch.profiler`` device time a call, with
 CUDA events over back-to-back calls and over a CUDA graph of 50 calls
-(device time with no host gaps, a check on the profiler's) beside it.
+(device time with no host gaps, a check on the profiler's) beside it
+(the timers of ``launch/timing.py``; run as a script, this file takes the
+``timing.py`` beside it where the tree on ``PYTHONPATH`` has none).
 Beside each ``xnor_matmul`` shape: a bf16 ``torch.matmul`` of the same
 +/-1 values, and ``fill_`` of an int32 tensor of the output's shape (the
 same bytes written by a plain store kernel); and, where the tree's
@@ -39,6 +41,11 @@ from repro_torch.core.binarize import unpack_signs
 from repro_torch.kernels import binarize_pack as bp
 from repro_torch.kernels import xnor_matmul as xm
 
+try:
+    from repro_torch.launch.timing import device_ms, events_ms, graph_ms
+except ImportError:     # another tree first on PYTHONPATH: this file's own
+    from timing import device_ms, events_ms, graph_ms
+
 ITERS, SEED = 200, 0
 # (label, M, K, N): the int32 variant's main-path shapes, then the packed one
 XNOR = (("cifar9_s1 final", 8, 1024, 10), ("BitLinear", 256, 960, 2560))
@@ -46,43 +53,6 @@ XNOR_PACK = (("mnist5 hidden", 8, 256, 64),)
 # (label, M, K)
 PACK = (("BitLinear input", 256, 960), ("cifar9_s1 layer 2", 8 * 31 * 31, 256),
         ("odd", 300, 100))
-
-
-def device_ms(fn, iters: int = ITERS, name: str = ""):
-    """Device ms a call of ``fn``'s CUDA kernels whose names hold ``name``,
-    from torch.profiler over ``iters`` calls (None if none recorded in
-    three sessions)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = [ev.time_range.elapsed_us() for ev in prof.events()
-              if ev.device_type == DeviceType.CUDA and name in ev.name]
-        if us:
-            return sum(us) / 1e3 / iters
-    return None
-
-
-def events_ms(fn, iters: int = ITERS) -> float:
-    """Mean ms a call over ``iters`` back-to-back calls, by CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def floor_ms():
@@ -102,31 +72,7 @@ def floor_ms():
     def launch():
         if fn(stream):
             raise RuntimeError("empty_launch failed")
-    return device_ms(launch, name="empty_kernel")
-
-
-def graph_ms(fn, calls: int = 50) -> float:
-    """Mean ms a call of ``fn`` replayed from a CUDA graph of ``calls``
-    calls, between two CUDA events: device time with no host gaps, a check
-    on the profiler's."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / calls
+    return device_ms(launch, ITERS, "empty_kernel")
 
 
 def sweep(words, smi: str) -> dict:
@@ -203,10 +149,12 @@ def main() -> dict:
             out = torch.empty((m, n // 32 if pack else n), dtype=torch.int32,
                               device=dev)
             got = report[key][f"{label} M={m} K={k} N={n}"] = dict(
-                ms=device_ms(kernel, name="xnor"), events_ms=events_ms(kernel),
-                graph_ms=graph_ms(kernel), matmul_bf16_ms=device_ms(library),
-                matmul_bf16_events_ms=events_ms(library),
-                fill_ms=device_ms(lambda: out.fill_(1)))
+                ms=device_ms(kernel, ITERS, "xnor"),
+                events_ms=events_ms(kernel, ITERS),
+                graph_ms=graph_ms(kernel),
+                matmul_bf16_ms=device_ms(library, ITERS),
+                matmul_bf16_events_ms=events_ms(library, ITERS),
+                fill_ms=device_ms(lambda: out.fill_(1), ITERS))
             print(f"{key} {label} M={m} K={k} N={n}: {got['ms']} ms device, "
                   f"{got['events_ms']:.4f} ms events, {got['graph_ms']} ms a "
                   f"call in a CUDA graph; bf16 matmul "
@@ -219,8 +167,8 @@ def main() -> dict:
         def kernel():
             return bp.binarize_pack(x)
         got = report["binarize_pack"][f"{label} M={m} K={k}"] = dict(
-            ms=device_ms(kernel, name="binarize_pack"),
-            events_ms=events_ms(kernel), graph_ms=graph_ms(kernel))
+            ms=device_ms(kernel, ITERS, "binarize_pack"),
+            events_ms=events_ms(kernel, ITERS), graph_ms=graph_ms(kernel))
         print(f"binarize_pack {label} M={m} K={k}: {got['ms']} ms device, "
               f"{got['events_ms']:.4f} ms events, {got['graph_ms']} ms a "
               f"call in a CUDA graph [{smi}]")

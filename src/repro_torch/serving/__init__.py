@@ -1,9 +1,11 @@
-"""Chip-tier serving: static-batch execution of compiled plans on the GPU.
+"""Chip-tier serving: execution of compiled plans on the GPU.
 
 * queue    — per-lane FIFOs + round-robin pointer (:mod:`.queue`)
-* policy   — static or operating-point dispatch (:mod:`.policy`)
+* policy   — static, operating-point, or continuous dispatch (:mod:`.policy`)
 * executor — pad/dispatch/finish + prefetch pipeline (:mod:`.executor`)
 * server   — the thin ``ChipServer`` composition (:mod:`.server`)
+* fleet    — N-replica serve fleet with failover migration and
+  warm-started replacement hosts (:mod:`.fleet`)
 * cascade  — detector -> recognizer always-on pipelines (:mod:`.cascade`)
 * temporal — delta-gated always-on video serving: skip unchanged
   frames, downshift quiet scenes (:mod:`.temporal`)
@@ -14,7 +16,13 @@
 from repro_torch.serving.cascade import (CascadePipeline,  # noqa: F401
                                          CascadeResult, calibrate_margin,
                                          margin_for_recall, margins_of)
+from repro_torch.serving.fleet import (  # noqa: F401
+    FaultInjector,
+    FleetStats,
+    ServeFleet,
+)
 from repro_torch.serving.policy import (  # noqa: F401
+    ContinuousPolicy,
     Dispatch,
     DispatchPolicy,
     LaneDispatch,

@@ -1,7 +1,6 @@
 """Dispatch policies: *what to run next* on the serving mechanism.
 
-The counterpart of ``repro.serving.policy``, copied apart from imports,
-for the static policy:
+The counterpart of ``repro.serving.policy``, copied apart from imports:
 
 * :class:`DispatchPolicy` — the interface: given the queue, return the
   next :class:`Dispatch` (which lane(s), which resident program variant
@@ -18,20 +17,24 @@ for the static policy:
   lane's backlog and, when a temporal runtime reports it, the scene's
   activity.  With ``shared=True`` other backlogged lanes whose chosen
   variants tile the array exactly ride the same dispatch as a composite.
+* :class:`ContinuousPolicy` — rolling/continuous batching: an
+  SLO-bounded admission window autoscales the dispatch size against the
+  lane's measured EWMA arrival rate and launches early-and-small when the
+  oldest queued frame's deadline approaches; *what* runs the frames is
+  left to an ``inner`` policy.  Sizes are quantised onto the ladder
+  ``{q, 2q, 4q, ..., batch}`` (``q`` the serving group's device count).
 
 Budget semantics: the controller commits every dispatch's chip-model
 energy and time at *selection* and picks the most accurate variant whose
 inclusion keeps ``spent_uj / chip_time_s`` at or under ``budget_uj_s``;
 when none fits it pins to the cheapest, so for any feasible budget the
 spend never exceeds the allowance by more than one dispatch.
-
-Continuous batching (``ContinuousPolicy``) is not ported yet (ROADMAP.md
-item 4.3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -323,3 +326,118 @@ class OperatingPointPolicy(DispatchPolicy):
                       for l, v in picks)
         batch = None if size == self.ctx.batch else size
         return self._count(Dispatch(lanes, batch=batch))
+
+
+class ContinuousPolicy(DispatchPolicy):
+    """Rolling/continuous batching: an SLO-bounded admission window.
+
+    Instead of padding every dispatch to the fixed lane batch, the head
+    lane's frames are admitted into an in-flight window and dispatched
+    when one of three things happens:
+
+    * the window reaches its *target size* — ``ceil(rate * slo_s *
+      headroom)`` frames, the number the lane's EWMA arrival rate is
+      expected to deliver inside the SLO budget (clamped to
+      ``[min_batch, ctx.batch]``);
+    * the oldest queued frame's **deadline approaches** — its queueing
+      delay exceeds ``slo_s * deadline_frac`` — and the dispatcher
+      launches early-and-small rather than blow the SLO waiting to fill
+      the pad;
+    * the server is **flushing** (drain), which disables waiting
+      entirely.
+
+    The dispatch size is then quantised up onto a bucket ladder
+    ``{q, 2q, 4q, ... ctx.batch}`` (``q = ctx.quantum``, the serve mesh
+    device count) so every launch divides over the serving group and a
+    program's kernels see at most ``log2(batch) + 1`` batch sizes.
+
+    *What* runs the frames is delegated to ``inner`` (default
+    :class:`StaticPolicy`): the operating-point controller autoscales
+    the **variant**, this layer autoscales the **batch** — composition,
+    not replacement.  ``variant_dispatches`` is shared with the inner
+    policy so accounting (and ``downshift_ratio``) reflects what ran.
+
+    Unstamped requests (``t_submit == 0``) carry no deadline, so they
+    dispatch immediately — replay-style callers that never stamp get
+    static-like behaviour at size ``min(pending, batch)``.
+    """
+
+    name = "continuous"
+
+    def __init__(self, slo_ms: float = 50.0, min_batch: int = 1,
+                 headroom: float = 0.5, deadline_frac: float = 0.5,
+                 inner: Optional[DispatchPolicy] = None) -> None:
+        super().__init__()
+        if slo_ms <= 0:
+            raise ValueError(f"slo_ms must be positive, got {slo_ms}")
+        if min_batch < 1:
+            raise ValueError(f"min_batch must be >= 1, got {min_batch}")
+        if not 0.0 < headroom <= 1.0:
+            raise ValueError(f"headroom must be in (0, 1], got {headroom}")
+        if not 0.0 <= deadline_frac <= 1.0:
+            raise ValueError(
+                f"deadline_frac must be in [0, 1], got {deadline_frac}")
+        self.slo_ms = slo_ms
+        self.min_batch = min_batch
+        self.headroom = headroom
+        self.deadline_frac = deadline_frac
+        self.inner = inner if inner is not None else StaticPolicy()
+
+    def _bound(self) -> None:
+        self.inner.bind(self.ctx)
+        # one shared accounting dict: the inner policy does the counting
+        # (it builds every Dispatch), this layer reads the same totals
+        self.variant_dispatches = self.inner.variant_dispatches
+        q = max(1, self.ctx.quantum)
+        ladder = []
+        s = q
+        while s < self.ctx.batch:
+            ladder.append(s)
+            s *= 2
+        ladder.append(self.ctx.batch)
+        self._ladder = tuple(ladder)
+
+    def set_flush(self, flush: bool) -> None:
+        super().set_flush(flush)
+        self.inner.set_flush(flush)
+
+    def variant_order(self, lane: str) -> Tuple[str, ...]:
+        return self.inner.variant_order(lane)
+
+    def downshift_ratio(self) -> float:
+        return self.inner.downshift_ratio()
+
+    def _bucket(self, n: int) -> int:
+        """Smallest ladder size >= n (the pad is billed, so round up as
+        little as possible)."""
+        for s in self._ladder:
+            if s >= n:
+                return s
+        return self._ladder[-1]
+
+    def _target(self, rate: float) -> int:
+        """Window target: how many frames the lane's arrival rate should
+        deliver within ``headroom`` of the SLO budget."""
+        if rate <= 0.0:
+            return self.min_batch
+        want = math.ceil(rate * (self.slo_ms / 1e3) * self.headroom)
+        return max(self.min_batch, min(want, self.ctx.batch))
+
+    def select(self, queue: FrameQueue) -> Optional[Dispatch]:
+        lane = queue.first_backlogged()
+        if lane is None:
+            return None
+        pending = queue.pending(lane)
+        if not self.flush:
+            target = self._target(queue.arrival_rate(lane))
+            oldest = queue.oldest_submit(lane)
+            if oldest is None:
+                deadline_near = True      # unstamped: no deadline to wait on
+            else:
+                waited = self.ctx.clock() - oldest
+                deadline_near = waited >= (
+                    self.slo_ms / 1e3) * self.deadline_frac
+            if pending < target and not deadline_near:
+                return None               # keep the window open
+        size = self._bucket(min(pending, self.ctx.batch))
+        return self.inner.select_sized(queue, size)

@@ -1,20 +1,21 @@
 """ChipServer: the thin composition of queue + policy + executor.
 
-The counterpart of ``repro.serving.server`` for static-policy serving of
-resident programs, one lane each, on one device:
+The counterpart of ``repro.serving.server`` for serving resident programs
+on the GPU:
 
 * :mod:`repro_torch.serving.queue` — per-lane FIFOs + the round-robin
   pointer (who is next);
 * :mod:`repro_torch.serving.policy` — which program variant serves the
-  lane: :class:`StaticPolicy` (each lane its own program, shared-array
-  groups composite) or :class:`OperatingPointPolicy` (program families
-  served at the operating point an energy budget, the backlog and the
-  scene activity call for);
+  lane, and when: :class:`StaticPolicy` (each lane its own program,
+  shared-array groups composite), :class:`OperatingPointPolicy` (program
+  families served at the operating point an energy budget, the backlog
+  and the scene activity call for) or :class:`ContinuousPolicy` (an
+  SLO-bounded admission window over either);
 * :mod:`repro_torch.serving.executor` — pad/dispatch/materialize + the
-  depth-k prefetch pipeline;
+  depth-k prefetch pipeline, over the replica's device group;
 * :class:`ChipServer` (this module) — wires them together and keeps the
-  books (served/padded/billed and the chip-model energy bill via
-  ``energy.serve_report``).
+  books (served/padded/billed, the per-frame latency trace and the
+  chip-model energy bill via ``energy.serve_report``).
 
 ``megakernel=True`` runs dispatches through the whole-network kernel,
 ``prefetch=k`` pipelines submission to depth k, and ``shared=True`` forms
@@ -22,10 +23,13 @@ shared-array groups at admission (programs whose S-modes tile the array
 exactly), each served as one composite launch per batch.  ``families=``
 registers program families (variant sets of one task) behind a single
 queue lane, served through the operating-point controller (``policy=`` /
-``budget_uj_s=``).  The server runs on the GPU unless ``device="cpu"`` is
-passed.  Options of ``repro``'s server that are not ported yet (the
-continuous policy, serving meshes) raise ``NotImplementedError`` naming
-their ROADMAP.md item rather than being ignored.
+``budget_uj_s=``); ``policy="continuous"`` adds the admission window
+(``slo_ms``).  ``mesh=`` (a tuple of devices,
+``distributed.sharding.serve_mesh``) replicates the artifacts on every
+device of the group and scatters each dispatch's frames over them.  The
+server runs on the GPU unless ``device="cpu"`` (or a CPU mesh) is passed.
+``repro``'s ``donate_frames`` and ``interpret`` have no PyTorch
+counterpart and are not taken.
 """
 
 from __future__ import annotations
@@ -35,11 +39,15 @@ import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch import device as _device
 from repro_torch.core.chip import energy, interpreter, isa
+from repro_torch.distributed import sharding
 from repro_torch.serving.executor import Executor
-from repro_torch.serving.policy import (DispatchPolicy, OperatingPointPolicy,
-                                        PolicyContext, StaticPolicy)
+from repro_torch.serving.policy import (ContinuousPolicy, DispatchPolicy,
+                                        OperatingPointPolicy, PolicyContext,
+                                        StaticPolicy)
 from repro_torch.serving.queue import (FrameQueue, FrameRequest, FrameResult,
                                        plan_shared_groups)
 
@@ -68,16 +76,12 @@ class ServeStats:
     p95_ms: float = 0.0               # over timestamped frames (0.0 when
     p99_ms: float = 0.0               # nothing was stamped)
     padding_ratio: float = 0.0        # burned slots / billed slots
+    dispatch_sizes: Dict[int, int] = dataclasses.field(
+        default_factory=dict)         # pad target -> dispatches launched
 
     @property
     def total_served(self) -> int:
         return sum(self.served.values())
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ChipServer option {option} is not ported yet (ROADMAP.md item "
-        f"{item})")
 
 
 class ChipServer:
@@ -98,7 +102,12 @@ class ChipServer:
     policy defaults to the operating-point controller (``budget_uj_s``
     caps the chip-model average power in uJ/s); ``policy`` takes a
     :class:`DispatchPolicy` instance or ``"static"`` /
-    ``"operating-point"``.
+    ``"operating-point"`` / ``"continuous"`` (the admission window of
+    ``slo_ms`` over the static or, with families, the operating-point
+    policy).  ``mesh`` is the replica's device group: ``batch`` must
+    divide over it, and continuous dispatch sizes come in multiples of its
+    size.  ``warm_start`` builds every serving unit through the warm-start
+    cache (``kernels/cache.py``).
     """
 
     def __init__(self, programs: Mapping[str, isa.Program],
@@ -110,11 +119,7 @@ class ChipServer:
                  families: Optional[Mapping[str, Sequence[str]]] = None,
                  policy: Optional[DispatchPolicy | str] = None,
                  budget_uj_s: Optional[float] = None,
-                 mesh=None):
-        if policy == "continuous":
-            raise _not_ported("policy='continuous'", "4.3")
-        if mesh is not None:
-            raise _not_ported("mesh=", "1.8")
+                 mesh=None, slo_ms: float = 50.0, warm_start: bool = True):
         if set(programs) != set(artifacts):
             raise ValueError(
                 f"programs {sorted(programs)} != artifacts {sorted(artifacts)}")
@@ -122,7 +127,17 @@ class ChipServer:
             raise ValueError(f"batch must be >= 1, got {batch}")
         if int(prefetch) < 0:
             raise ValueError(f"prefetch depth must be >= 0, got {prefetch}")
+        ndev = len(mesh) if mesh is not None else 1
+        if batch % ndev:
+            raise ValueError(
+                f"static batch {batch} must divide over the "
+                f"{ndev}-device serving mesh")
+        if mesh is not None and device is not None and \
+                torch.device(device) != torch.device(mesh[0]):
+            raise ValueError(f"device {device} is not the first device of "
+                             f"the serving mesh {tuple(mesh)}")
         self.batch = batch
+        self.slo_ms = slo_ms
         self.f_hz = f_hz
         self.prefetch = int(prefetch)        # pipeline depth, 0 = sync
         self.shared = shared
@@ -158,11 +173,13 @@ class ChipServer:
             **{n: (n,) for n in self.programs if n not in owned}}
 
         # -- mechanism ------------------------------------------------------
+        self.mesh = (sharding.serve_mesh(mesh) if mesh is not None
+                     else (_device.resolve(device),))
+        self.device = self.mesh[0]
         self.executor = Executor(self.programs, artifacts, batch=batch,
-                                 megakernel=megakernel,
-                                 prefetch=self.prefetch, device=device,
-                                 clock=clock)
-        self.device = self.executor.device
+                                 devices=self.mesh, megakernel=megakernel,
+                                 prefetch=self.prefetch,
+                                 warm_start=warm_start, clock=clock)
         self.plans = self.executor.plans
         self.artifacts = self.executor.artifacts
         self.queue = FrameQueue(self._lanes)
@@ -187,9 +204,11 @@ class ChipServer:
             batch=batch, lanes=self._lanes,
             variants=dict(self._lane_variants),
             programs=dict(self.programs), reports=dict(self._reports),
-            groups=groups, clock=clock))
+            groups=groups, quantum=ndev, clock=clock))
 
         # -- accounting -----------------------------------------------------
+        self.failed = False                  # set by fail(); fleets skip it
+        self.aborted_inflight = 0            # in-flight frames fail() dropped
         self._next_rid = 0
         self.reset_stats()
 
@@ -207,8 +226,14 @@ class ChipServer:
         if policy == "operating-point":
             return OperatingPointPolicy(budget_uj_s=budget_uj_s,
                                         shared=self.shared)
+        if policy == "continuous":
+            inner = (OperatingPointPolicy(budget_uj_s=budget_uj_s,
+                                          shared=self.shared)
+                     if self._families else StaticPolicy())
+            return ContinuousPolicy(slo_ms=self.slo_ms, inner=inner)
         raise ValueError(f"unknown policy {policy!r} (have 'static', "
-                         "'operating-point', or a DispatchPolicy)")
+                         "'operating-point', 'continuous', or a "
+                         "DispatchPolicy)")
 
     @property
     def shared_groups(self) -> Tuple[Tuple[str, ...], ...]:
@@ -223,11 +248,14 @@ class ChipServer:
     # -- request side -------------------------------------------------------
 
     def submit(self, program: str, frame,
-               t_submit: Optional[float] = None) -> int:
+               t_submit: Optional[float] = None,
+               rid: Optional[int] = None) -> int:
         """Enqueue one frame on a lane (program or family name); returns
         its request id (arrival order).  ``t_submit`` overrides the
         admission timestamp (``traffic.replay`` stamps the trace's
-        arrival time); by default the server clock stamps *now*."""
+        arrival time); by default the server clock stamps *now*.  ``rid``
+        overrides the locally assigned id: a fleet hands out fleet-wide
+        ids, so results from different replicas never collide."""
         if program not in self._geom:
             raise KeyError(
                 f"program {program!r} not resident "
@@ -238,8 +266,11 @@ class ChipServer:
             raise ValueError(
                 f"{program} expects frames of shape {(h, w, c)}, "
                 f"got {frame.shape}")
-        rid = self._next_rid
-        self._next_rid += 1
+        if rid is None:
+            rid = self._next_rid
+            self._next_rid += 1
+        else:
+            self._next_rid = max(self._next_rid, rid + 1)
         if t_submit is None:
             t_submit = self.clock()
         self.queue.submit(FrameRequest(rid=rid, program=program, frame=frame,
@@ -262,6 +293,7 @@ class ChipServer:
         self._dispatches += 1
         handle = self.executor.launch(dispatch, index)
         size = dispatch.batch if dispatch.batch is not None else self.batch
+        self._sizes[size] = self._sizes.get(size, 0) + 1
         live = []
         for ld in dispatch.lanes:
             n = len(ld.requests)
@@ -283,7 +315,9 @@ class ChipServer:
         With ``prefetch=k`` up to k batches are staged and dispatched
         *before* blocking on the oldest one; batches still leave the queue
         in exactly the synchronous order.  All timing goes through
-        ``self.clock``.
+        ``self.clock``: ``_host_wall_s``, ``t_submit``, ``t_done`` and the
+        latency trace share it, so a ``VirtualClock`` replay never mixes
+        in wall time.
         """
         t0 = self.clock()
         try:
@@ -291,13 +325,20 @@ class ChipServer:
         finally:
             self._host_wall_s += self.clock() - t0
         for r in results:
-            if r.latency_s > 0.0:
-                self._latencies.append(r.latency_s)
+            if r.t_submit <= 0.0 or r.t_done <= 0.0:
+                continue                     # unstamped: no latency account
+            lat = r.t_done - r.t_submit
+            self._latencies.append(lat)
+            self._trace.append(dict(
+                rid=r.rid, lane=r.program, variant=r.variant,
+                dispatch=r.dispatch, t_submit=r.t_submit,
+                t_done=r.t_done, latency_ms=lat * 1e3))
         return results
 
     def drain(self) -> List[FrameResult]:
         """Serve until the queue is empty; results in dispatch order.  The
-        policy is flushed for the duration."""
+        policy is flushed for the duration: a continuous policy's
+        admission window never holds the final ragged batches back."""
         out: List[FrameResult] = []
         self.policy.set_flush(True)
         try:
@@ -314,6 +355,30 @@ class ChipServer:
         ``drain()`` first to collect them) any in-flight dispatches; safe
         to call more than once."""
         self.executor.close()
+
+    def fail(self) -> Dict[str, List[FrameRequest]]:
+        """Simulated host loss: kill this replica and hand back every
+        frame it had not finished serving, grouped by lane with order
+        preserved (in-flight dispatches oldest-first, then the queued
+        FIFO).  The energy already billed for abandoned in-flight
+        dispatches stays billed — it was burned the moment the batch hit
+        the array — so this replica's ``billed == served + padded`` ledger
+        stays consistent; whoever serves the migrated frames bills them
+        again.  The server is unusable afterwards."""
+        orphans: Dict[str, List[FrameRequest]] = {
+            lane: [] for lane in self._lanes}
+        inflight = self.executor.abort()        # in-flight, oldest first
+        self.aborted_inflight = len(inflight)   # the fleet's refired count
+        for req in inflight:
+            orphans[req.program].append(req)
+        for lane in self._lanes:                # then the queued backlog
+            while True:
+                got = self.queue.take(lane, self.batch)
+                if not got:
+                    break
+                orphans[lane].extend(got)
+        self.failed = True
+        return {lane: reqs for lane, reqs in orphans.items() if reqs}
 
     # -- accounting ---------------------------------------------------------
 
@@ -336,8 +401,15 @@ class ChipServer:
         self._host_wall_s = 0.0
         self._billed = 0                     # frame slots launched
         self._latencies: List[float] = []    # stamped input-to-label, s
+        self._trace: List[Dict[str, Any]] = []   # per-frame latency trace
+        self._sizes: Dict[int, int] = {}     # pad target -> dispatches
         for v in self.policy.variant_dispatches:
             self.policy.variant_dispatches[v] = 0
+
+    def latency_trace(self) -> List[Dict[str, Any]]:
+        """Per-frame admission-to-label records (stamped frames only), in
+        completion order."""
+        return list(self._trace)
 
     def stats(self) -> ServeStats:
         chip = energy.serve_report(self.programs, self._vserved,
@@ -378,4 +450,5 @@ class ChipServer:
                           p95_ms=float(p95) * 1e3,
                           p99_ms=float(p99) * 1e3,
                           padding_ratio=(sum(padded.values()) / self._billed
-                                         if self._billed else 0.0))
+                                         if self._billed else 0.0),
+                          dispatch_sizes=dict(sorted(self._sizes.items())))

@@ -19,10 +19,12 @@ import torch
 
 from repro_torch.core.chip import interpreter, isa, networks
 from repro_torch.kernels import binary_conv2x2_block as bcb
+from repro_torch.kernels import cache as warmcache
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import xnor_matmul as xm
 from repro_torch.launch import chip_serve
-from repro_torch.serving.server import ChipServer
+from repro_torch.serving import (ChipServer, FaultInjector, ServeFleet,
+                                 VirtualClock, poisson_trace, replay)
 
 
 def _words(rng, *shape) -> torch.Tensor:
@@ -455,3 +457,101 @@ def test_flash_attention_matches_plain_version_on_the_card():
                                         mode="train")
         assert torch.isfinite(h).all()
         assert torch.allclose(h.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _replay_labels(server, trace, frames, clock):
+    """A VirtualClock replay through ``server``: (rid, label, dispatch,
+    t_submit, t_done) of every result, the pad targets launched, the
+    ledger."""
+    results = replay(server, trace, {trace.lane[0]: frames}, clock=clock,
+                     sleep=clock.sleep)
+    server.close()
+    st = server.stats()
+    assert st.billed == st.total_served + sum(st.padded.values())
+    return ([(r.rid, r.label, r.dispatch, r.t_submit, r.t_done)
+             for r in results], st.dispatch_sizes, st.billed)
+
+
+@pytest.mark.gpu
+def test_continuous_serving_at_every_ladder_size_matches_plain_versions():
+    """The continuous policy's ladder at batch 32 on cifar9_s1: the
+    megakernel and the staged lane (conv_block, xnor_matmul) at each size
+    1, 2, 4, ..., 32 equal their plain versions, and a Poisson replay under
+    a VirtualClock serves the same results on the card as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    prog = networks.REGISTRY["cifar9_s1"]()
+    plan = interpreter.compile_plan(prog)
+    art = chip_serve.build_artifact(prog, seed=5, warm_bn=True, device="cpu")
+    image = interpreter.ensure_image(art, prog)
+    cimage = {k: v.to(dev) for k, v in image.items()}
+    for b in (1, 2, 4, 8, 16, 32):
+        frames = _frames(rng, prog, b)
+        want = mk.megakernel_plain(image, frames, spec=plan.mega)
+        got = mk.megakernel_forward(cimage, frames.to(dev), spec=plan.mega)
+        assert torch.equal(got.cpu(), want), b
+        s_l, s_y = plan.forward(art, frames, device="cpu")
+        g_l, g_y = plan.forward(art, frames, device=dev)
+        assert torch.equal(g_l.cpu(), s_l) and torch.equal(g_y.cpu(), s_y), b
+    trace = poisson_trace(["cifar9_s1"], 400.0, 48, seed=2)
+    frames = chip_serve.frame_stream(prog, 16, 6)
+    runs = []
+    for where, megakernel in ((dev, True), (dev, False), ("cpu", True)):
+        vc = VirtualClock()
+        server = ChipServer({"cifar9_s1": prog}, {"cifar9_s1": art},
+                            batch=32, megakernel=megakernel, device=where,
+                            policy="continuous", slo_ms=50.0, clock=vc)
+        runs.append(_replay_labels(server, trace, frames, vc))
+    assert runs[0] == runs[1] == runs[2]
+    assert len(runs[0][1]) > 1             # several ladder sizes ran
+
+
+@pytest.mark.gpu
+def test_two_replica_failover_on_the_card_matches_the_cpu():
+    """Two replicas sharing the card, mnist5 and cifar9_s1 on staged
+    lanes, host0 killed after 8 served frames and replaced: no frame
+    lost, every label equal to the CPU fleet's under the same kill
+    schedule, the bill exact, the replacement warm-started.  A replica
+    over the group (cuda:0, cuda:0) serves the same labels as one over
+    cuda:0 alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    progs = {n: networks.REGISTRY[n]() for n in ("mnist5", "cifar9_s1")}
+    arts = {n: chip_serve.build_artifact(p, seed=i, warm_bn=True,
+                                         device="cpu")
+            for i, (n, p) in enumerate(progs.items())}
+    streams = {n: chip_serve.frame_stream(p, 20, 30 + i)
+               for i, (n, p) in enumerate(progs.items())}
+    runs = []
+    for devices in (None, ["cpu"]):
+        warmcache.invalidate()
+        vc = VirtualClock()
+        fleet = ServeFleet(progs, arts, replicas=2, batch=4, devices=devices,
+                           injector=FaultInjector("host0", 8), replace=True,
+                           prefetch=2, clock=vc, sleep=vc.sleep)
+        results = []
+        for j in range(20):
+            for n in progs:
+                fleet.submit(n, streams[n][j])
+            if j % 4 == 3:
+                results.extend(fleet.step())
+        results = sorted(results + fleet.drain(), key=lambda r: r.rid)
+        fleet.close()
+        st = fleet.stats()
+        assert [r.rid for r in results] == list(range(40))
+        assert st.billed == st.total_served + sum(st.padded.values())
+        assert st.failed_replicas == ("host0",)
+        assert st.warm_start["hits"] >= 2
+        runs.append(([(r.rid, r.program, r.label) for r in results],
+                     st.migrated_frames, st.refired_frames,
+                     {n: s.total_served for n, s in st.replicas.items()}))
+    assert runs[0] == runs[1]
+    labels = []
+    for mesh in (("cuda:0",), ("cuda:0", "cuda:0")):
+        server = ChipServer(progs, arts, batch=4, mesh=mesh)
+        for n in progs:
+            server.submit_many(n, streams[n][:10])
+        labels.append(sorted((r.rid, r.label) for r in server.drain()))
+    assert labels[0] == labels[1]

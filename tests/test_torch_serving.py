@@ -78,15 +78,26 @@ def test_device_none_needs_a_card():
 
 
 def test_unported_options_raise():
+    """``repro``'s ``donate_frames`` and ``interpret`` have no PyTorch
+    counterpart and are refused; the continuous policy (over the static
+    or the operating-point policy) and a serving mesh are taken, and a
+    batch that does not divide over the mesh is refused as in ``repro``."""
     prog = tnets.mnist5()
     art = chip_serve.build_artifact(prog, seed=0, warm_bn=False,
                                     device="cpu")
-    for kw, item in ((dict(policy="continuous"), "4.3"),
-                     (dict(families={"f": ("mnist5",)},
-                           policy="continuous"), "4.3"),
-                     (dict(mesh=object()), "1.8")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(donate_frames=True), dict(interpret=True)):
+        with pytest.raises(TypeError, match=next(iter(kw))):
             ChipServer({"mnist5": prog}, {"mnist5": art}, device="cpu", **kw)
+    for kw, name in ((dict(policy="continuous"), "continuous"),
+                     (dict(families={"f": ("mnist5",)},
+                           policy="continuous"), "continuous"),
+                     (dict(mesh=("cpu", "cpu")), "static")):
+        server = ChipServer({"mnist5": prog}, {"mnist5": art}, batch=4,
+                            device="cpu", **kw)
+        assert server.policy.name == name
+    with pytest.raises(ValueError, match="divide"):
+        ChipServer({"mnist5": prog}, {"mnist5": art}, batch=3,
+                   mesh=("cpu", "cpu"))
 
 
 def test_chip_serve_driver_on_the_cpu(capsys):
