@@ -32,12 +32,22 @@ serving and the fleet (the continuous ladder 1-32 held bit-exact for the
 megakernel, a staged lane and the composite; 400 frames at 200 frames/s
 under the continuous and the static policy; a shared continuous
 composite; two replicas, host0 killed, zero loss; one replica over a
-group of two device entries), 6 train -> fold
+group of two device entries), 5c the autotune cache (every candidate of
+the megakernel's cluster grid at cifar9_s1 B=8 and 256, of the 4 x S=4
+quad's, of the staged conv's nslices x rows grid at B=8 held bit-exact
+and timed, the delta gate's recompute at every cluster size, the
+winners recorded in a cache file of its own and launched next,
+``chip_serve --autotune`` once, ``BENCH_autotune.json`` unchanged), 6
+train -> fold
 -> serve (the STE training of
 ``face_detector`` and ``owner_detector``, each step on the card held
 against the same step on the CPU; the packed conv against the float conv
 on the trained weights; the folded detector served through ``ChipServer``;
-BitLinear's packed path against its STE forward), 7 times (and the LM
+BitLinear's packed path against its STE forward), 6b LM training
+(SmolLM-360M with ``quant="binary"`` at full width, 5 adamw steps of 8 x
+256 tokens; the scaled() step on the card against the CPU's; the
+binary-LM example twin end to end, its decode's prefill through the
+flash kernel at head dim 32), 7 times (and the LM
 serve's prefill ms, decode ms per token, tok/s and device idle share).
 Near the end come ``{"kernels": [...]}`` and the card's name and power
 limit on lines of their own; the last line is ``{"ok": true, "device":
@@ -165,15 +175,19 @@ LM_CHECK = (2, 512, 4)                 # batch, prompt, decode steps (fp32)
 # tests/test_serve_equiv.py); the sums run in other orders 32 layers deep
 LM_TOL = 2e-4
 # flash attention vs its plain version: (label, B, S, H, KH, D, causal),
-# the serve's prefill at its pull sizes 4 and 1 first; each in float32 and
-# in bf16 at both probability types (FLASH_PROBS)
+# the serve's prefill at its pull sizes 4 and 1 first, the scaled()
+# configs' head dims 32 and 16 last; each in float32 and in bf16 at both
+# probability types (FLASH_PROBS)
 FLASH_SHAPES = (("SmolLM prefill", 4, 512, 15, 5, 64, True),
                 ("SmolLM prefill", 1, 512, 15, 5, 64, True),
                 ("MHA", 2, 256, 8, 8, 64, True),
                 ("MQA", 2, 256, 8, 1, 64, True),
                 ("D=128, G=4", 1, 384, 32, 8, 128, True),
                 ("ragged S", 3, 333, 15, 5, 64, True),
-                ("non-causal", 2, 200, 6, 2, 64, False))
+                ("non-causal", 2, 200, 6, 2, 64, False),
+                ("scaled() D=32", 2, 100, 6, 2, 32, True),
+                ("scaled() D=16", 2, 77, 4, 4, 16, True),
+                ("D=16 non-causal", 1, 90, 4, 1, 16, False))
 # repro's tolerances (tests/test_kernels_flash.py): float32 sums in other
 # orders; in bf16 the output rounds to bf16 (and p too, with probs_bf16)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -187,6 +201,15 @@ FLASH_PROBS = (True, False)
 # and a kernel ignoring the type swaps the two (the plain version against
 # chunked attention: tests/test_torch_flash.py)
 PROBS_SEPARATION = 10.0
+# phase 5c: the autotuner's megakernel grid at the serve's two batches,
+# its staged conv grid on these programs at BATCH
+AUTOTUNE_BATCHES = (BATCH, SERVE_BATCH)
+# the delta gate's changed lanes at each candidate cluster (B=8): all,
+# five with lane 0 unchanged, none
+DELTA_TUNED_LANES = (tuple(range(BATCH)), (1, 2, 4, 6, 7), ())
+STAGED_TUNED = ("cifar9_s1", "mnist5")
+# phase 6b: SmolLM-360M's binary training step at full width
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 256, 5
 
 
 def sh(*cmd: str) -> str:
@@ -1138,6 +1161,454 @@ def serving_phase(card, dev, programs, artifacts, offline, cifar_params,
     return launches
 
 
+def launched_geometry(mk, bcb):
+    """Spies on the ctypes launchers of the composite, conv_block and
+    delta kernels: each launch appends the geometry the wrapper passed
+    (the cluster size; the conv's ConvTiles.args; the recompute's cluster
+    size), so a check reads the geometry a launch really took.  Returns
+    (seen, restore)."""
+    seen = {"cluster": [], "conv": [], "delta": []}
+    composite, conv, delta = (mk._composite_launcher, bcb._launcher,
+                              mk._delta_launcher)
+    real_composite, real_conv, real_delta = composite(), conv(), delta()
+
+    def spy_composite(*args):
+        seen["cluster"].append(args[10][0])         # geo.args[0]
+        return real_composite(*args)
+
+    def spy_conv(*args):
+        seen["conv"].append(tuple(args[12:23]))     # ConvTiles.args
+        return real_conv(*args)
+
+    def spy_delta(*args):
+        seen["delta"].append(args[18][0])           # geo.args[0]
+        return real_delta(*args)
+    mk._composite_launcher = lambda: spy_composite
+    bcb._launcher = lambda: spy_conv
+    mk._delta_launcher = lambda: spy_delta
+
+    def restore():
+        mk._composite_launcher, bcb._launcher = composite, conv
+        mk._delta_launcher = delta
+    return seen, restore
+
+
+def autotune_phase(card, dev, programs, artifacts, quad_images):
+    """Phase 5c: the autotune cache on the card, in a cache file of its
+    own.  The solo megakernel's cluster grid at cifar9_s1 B=8 and 256, the
+    delta gate's recompute at each of its sizes (B=8), the 4 x S=4 quad's
+    at B=8, the staged conv grid at cifar9_s1 B=8: every candidate's
+    outputs == the plain version's (tolerance 0), each grid
+    timed (graph ms, best of 3) and its winner recorded; a cold cache
+    launches the formula's geometry and a recorded entry the recorded one
+    (read from the launchers' arguments); ``chip_serve --autotune`` once
+    in a subprocess; ``BENCH_autotune.json`` unchanged."""
+    import hashlib
+    import os
+    import tempfile
+    from repro_torch.core.binarize import thermometer_pack
+    from repro_torch.core.chip import interpreter
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import binary_conv2x2_block as bcb
+    from repro_torch.kernels import megakernel as mk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.chip_serve import frame_stream
+    from repro_torch.launch.timing import events_ms
+    from repro_torch.serving.server import ChipServer
+
+    bench = ROOT / "BENCH_autotune.json"
+    digest = hashlib.sha256(bench.read_bytes()).hexdigest()
+    tmp = tempfile.mkdtemp(prefix="autotune_")
+    old_env = os.environ.get(autotune.CACHE_ENV)
+    os.environ[autotune.CACHE_ENV] = os.path.join(tmp, "autotune.json")
+    autotune.invalidate()
+    seen, restore = launched_geometry(mk, bcb)
+    winners, path = {}, {}
+
+    def on_path(fn):
+        # the path's launches: the tuners, the launches after a record and
+        # the serves; not the bit-exact comparisons with the plain versions
+        ops.reset_launch_counts()
+        out = fn()
+        for k, v in ops.launch_counts().items():
+            path[k] = path.get(k, 0) + v
+        return out
+
+    def show(label, report, entry, cold):
+        # a recorded 0 is the formula's geometry (no candidate beat it by
+        # autotune.MARGIN)
+        won = {k: entry[k] or cold[k] for k in cold}
+        for cand, ms in report:
+            tags = [t for t, on in (("winner", cand == won),
+                                    ("cold default", cand == cold)) if on]
+            print(f"    {label} {cand}: {ms:.5f} ms"
+                  + (f"  <- {', '.join(tags)}" if tags else ""))
+        print(f"  {label}: recorded {entry} (0: the formula's; the grid's "
+              f"fastest, if another, timed again alternately with the "
+              f"formula and kept only {autotune.MARGIN:.0%} faster) "
+              f"[{card.smi}]")
+
+    try:
+        cifar = programs["cifar9_s1"]
+        plan = interpreter.compile_plan(cifar)
+        image = interpreter.ensure_image(artifacts["cifar9_s1"], cifar)
+        formula = mk.cluster_geometry(mk.solo_member_spec(plan.mega)).cluster
+        solo = {b: torch.from_numpy(frame_stream(cifar, b, 700 + b)).to(dev)
+                for b in AUTOTUNE_BATCHES}
+        for b, frames in solo.items():          # cold, before any record
+            want = mk.megakernel_plain(image, frames, spec=plan.mega)
+            del seen["cluster"][:]
+            cold = plan.forward_mega(image, frames, device=dev)[0]
+            if seen["cluster"] != [formula] or not torch.equal(
+                    cold, want.float()):
+                raise AssertionError(f"cold cache B={b}: launched "
+                                     f"{seen['cluster']}, formula {formula}")
+            for c in autotune.CLUSTERS:
+                got = plan.forward_mega(image, frames, device=dev,
+                                        cluster=c)[0]
+                if not torch.equal(got, want.float()):
+                    raise AssertionError(f"megakernel cluster {c} B={b} != "
+                                         f"plain version")
+        for b, frames in solo.items():
+            report = []
+            entry = on_path(lambda: autotune.tune_mega(plan, image, frames,
+                                                       report=report))
+            show(f"megakernel cifar9_s1 B={b}", report, entry,
+                 {"cluster": formula})
+            del seen["cluster"][:]
+            on_path(lambda: plan.forward_mega(image, frames, device=dev))
+            if seen["cluster"] != [entry["cluster"] or formula]:
+                raise AssertionError(f"after record: launched "
+                                     f"{seen['cluster']}, recorded {entry}")
+            winners[f"megakernel B={b}"] = (entry, report)
+        # the read side's host cost: a dispatch resolving through the
+        # memoised cache against one given its cluster (no lookup), by
+        # CUDA events back to back, alternated; and the lookup alone
+        frames = solo[BATCH]
+        c8 = winners[f"megakernel B={BATCH}"][0]["cluster"] or formula
+        host = {"resolved": [], "explicit": []}
+        for _ in range(5):
+            host["resolved"].append(events_ms(lambda: plan.forward_mega(
+                image, frames, device=dev), 2000))
+            host["explicit"].append(events_ms(lambda: plan.forward_mega(
+                image, frames, device=dev, cluster=c8), 2000))
+        t0 = time.perf_counter()
+        for _ in range(100_000):
+            autotune.mega_tiles(cifar, BATCH, None, dev)
+        lookup_us = (time.perf_counter() - t0) * 10
+        print(f"  host path a dispatch, cifar9_s1 B={BATCH} (CUDA events "
+              f"back to back, 2000 calls, 5 rounds alternated): forward_mega "
+              f"resolving through the cache "
+              f"{[round(v, 5) for v in host['resolved']]} ms, given its "
+              f"cluster {[round(v, 5) for v in host['explicit']]} ms; a "
+              f"memoised lookup alone {lookup_us:.2f} us (host clock) "
+              f"[{card.smi}]")
+        # end to end: cifar9_s1 served at B=256 through a ChipServer, a
+        # cold cache (the formula's clusters of 8) against the tuned one,
+        # alternated; labels equal
+        big = SERVE_BATCH
+        stream = frame_stream(cifar, 8 * big, 730)
+        tuned_env = os.environ[autotune.CACHE_ENV]
+        serve_fps, serve_labels = {"cold": [], "tuned": []}, {}
+        for which in ("cold", "tuned", "cold", "tuned"):
+            os.environ[autotune.CACHE_ENV] = (
+                tuned_env if which == "tuned"
+                else os.path.join(tmp, "cold.json"))
+            autotune.invalidate()
+            server = ChipServer({"cifar9_s1": cifar},
+                                {"cifar9_s1": artifacts["cifar9_s1"]},
+                                batch=big, megakernel=True, device=dev)
+            for f in stream:
+                server.submit("cifar9_s1", f)
+            del seen["cluster"][:]
+            results = on_path(server.drain)
+            server.close()
+            want_c = ((winners[f"megakernel B={big}"][0]["cluster"]
+                       if which == "tuned" else 0) or formula)
+            if set(seen["cluster"]) != {want_c}:
+                raise AssertionError(f"{which} serve launched "
+                                     f"{set(seen['cluster'])}")
+            serve_fps[which].append(server.stats().host_frames_per_s)
+            serve_labels[which] = [r.label for r in sorted(
+                results, key=lambda r: r.rid)]
+        os.environ[autotune.CACHE_ENV] = tuned_env
+        autotune.invalidate()
+        if serve_labels["cold"] != serve_labels["tuned"]:
+            raise AssertionError("tuned serve labels != cold serve labels")
+        print(f"  ChipServer cifar9_s1 batch {big}, {len(stream)} frames "
+              f"(megakernel): cold cache (clusters of {formula}) "
+              f"{[round(v) for v in serve_fps['cold']]} frames/s, tuned "
+              f"(clusters of "
+              f"{winners[f'megakernel B={big}'][0]['cluster'] or formula})"
+              f" {[round(v) for v in serve_fps['tuned']]} frames/s (host "
+              f"clock, cold / tuned alternated); labels equal [{card.smi}]")
+
+        # the delta gate's recompute resolves its cluster through the
+        # megakernel's entry: at every size of the grid, cifar9_s1 B=8
+        # from a warm state with 8, 5 (lane 0 unchanged: the drain's lane-0
+        # rule) and 0 lanes changed, at two drain schedules, == delta_plain;
+        # then the recorded entry is the cluster it launches
+        dplan, dimage = interpreter.pack_delta(cifar, artifacts["cifar9_s1"])
+        dimage = {k: v.to(dev) for k, v in dimage.items()}
+        frames = solo[BATCH]
+        io = cifar.instrs[0]
+        levels = 2 ** io.bits
+        llog = torch.randint(-50, 50, (BATCH, dplan.classes),
+                             generator=torch.Generator().manual_seed(740),
+                             dtype=torch.int32).to(dev)
+        ctrl = dplan.delta_ctrl(1.0, BATCH).to(dev)
+        for lanes in DELTA_TUNED_LANES:
+            prev = frames.clone()
+            for i in lanes:
+                prev[i, :2, :2] = (prev[i, :2, :2] + levels // 2) % levels
+            last = thermometer_pack(prev, io.bits, io.in_channels,
+                                    io.channels)
+            for rb in (0, 2):
+                want = mk.delta_plain(dimage, frames, last, llog, ctrl,
+                                      spec=dplan.spec, rb=rb)
+                if int(want[3][0]) != len(lanes):
+                    raise AssertionError(f"delta: {int(want[3][0])} lanes "
+                                         f"changed, want {len(lanes)}")
+                want = (want[1], want[0]) + tuple(want[2:])
+                for c in autotune.CLUSTERS:
+                    got = dplan.forward_delta(dimage, frames, last, llog,
+                                              ctrl, device=dev, rb=rb,
+                                              cluster=c)[2:]
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(f"delta cluster {c}, lanes "
+                                             f"{lanes}, rb {rb} != plain")
+        del seen["delta"][:]
+        on_path(lambda: dplan.forward_delta(dimage, frames, last, llog, ctrl,
+                                            device=dev))
+        if seen["delta"] != [c8]:
+            raise AssertionError(f"delta after record: launched "
+                                 f"{seen['delta']}, recorded {c8}")
+        print(f"  delta cifar9_s1 B={BATCH}, recompute at clusters "
+              f"{autotune.CLUSTERS}, {[len(x) for x in DELTA_TUNED_LANES]} "
+              f"lanes changed, rb 0 and 2: logits, new_last, queue, counts "
+              f"and deltas == delta_plain; the megakernel's entry steers it "
+              f"(launched at {c8})")
+
+        # the 4 x S=4 quad, B=8 a member
+        cplan, cimage = interpreter.pack_programs(
+            {n: programs[n] for n in TILINGS[0]}, quad_images)
+        frames = tuple(torch.from_numpy(frame_stream(programs[n], BATCH,
+                                                     710 + i)).to(dev)
+                       for i, n in enumerate(TILINGS[0]))
+        want = mk.composite_plain(cimage, frames, spec=cplan.spec)
+        qformula = mk.cluster_geometry(cplan.spec).cluster
+        del seen["cluster"][:]
+        cplan.forward(cimage, frames, device=dev)
+        if seen["cluster"] != [qformula]:
+            raise AssertionError(f"cold composite launched {seen['cluster']}")
+        for c in autotune.CLUSTERS:
+            got = cplan.forward(cimage, frames, device=dev, cluster=c)[0]
+            if not all(torch.equal(g, w.float()) for g, w in zip(got, want)):
+                raise AssertionError(f"composite cluster {c} != plain")
+        report = []
+        entry = on_path(lambda: autotune.tune_composite(
+            cplan, cimage, frames, report=report))
+        show("composite 4 x S=4 B=8", report, entry, {"cluster": qformula})
+        del seen["cluster"][:]
+        on_path(lambda: cplan.forward(cimage, frames, device=dev))
+        if seen["cluster"] != [entry["cluster"] or qformula]:
+            raise AssertionError(f"composite after record: {seen['cluster']}")
+        winners["composite B=8"] = (entry, report)
+
+        # the staged conv grid at B=8: cifar9_s1 (8 conv layers, the last
+        # FC unpacked) and mnist5 (a packed hidden FC)
+        accepted = 0
+        for name in STAGED_TUNED:
+            prog = programs[name]
+            splan = interpreter.compile_plan(prog)
+            frames = torch.from_numpy(frame_stream(prog, BATCH, 720)).to(dev)
+            packed = artifacts[name]
+            simage = interpreter.ensure_image(packed, prog)
+            want = mk.megakernel_plain(simage, frames,
+                                       spec=splan.mega).float()
+            cold_tiles = [t.args for t in splan.conv_geometry(BATCH, 0, 0,
+                                                              dev)]
+            del seen["conv"][:]
+            splan.forward(packed, frames, device=dev)
+            if seen["conv"] != cold_tiles:
+                raise AssertionError(f"cold staged conv {name} launched "
+                                     f"another geometry than conv_tiles")
+            fslices = 256 // prog.s // 32
+            for ns in sorted({min(n, fslices) for n in autotune.NSLICES}):
+                for rows in autotune.ROWS:
+                    try:
+                        splan.conv_geometry(BATCH, ns, rows, dev)
+                    except ValueError:
+                        continue
+                    accepted += 1
+                    got = splan.forward(packed, frames, device=dev,
+                                        conv_tiles=(ns, rows))[0]
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"staged conv {name} ({ns}, "
+                                             f"{rows}) != plain version")
+            report = []
+            entry = on_path(lambda: autotune.tune_staged_conv(
+                splan, packed, frames, report=report))
+            show(f"staged conv {name} B={BATCH}", report, entry,
+                 {"nslices": 0, "rows": 0})
+            del seen["conv"][:]
+            on_path(lambda: splan.forward(packed, frames, device=dev))
+            rec = [t.args for t in splan.conv_geometry(
+                BATCH, entry["nslices"], entry["rows"], dev)]
+            if seen["conv"] != rec:
+                raise AssertionError(f"staged conv {name} after record: "
+                                     f"another geometry than the recorded")
+            winners[f"staged conv {name} B={BATCH}"] = (entry, report)
+        print(f"  every candidate bit-exact with the plain version: "
+              f"{len(autotune.CLUSTERS)} cluster sizes x "
+              f"{len(AUTOTUNE_BATCHES)} batches, {len(autotune.CLUSTERS)} "
+              f"for the quad, {accepted} staged conv geometries of "
+              f"{' and '.join(STAGED_TUNED)}; cold cache "
+              f"== formula, recorded entry == next launch (launcher "
+              f"arguments)")
+    finally:
+        restore()
+        autotune.invalidate()
+
+    # chip_serve --autotune, once, in its own process and cache file
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env[autotune.CACHE_ENV] = os.path.join(tmp, "chip_serve.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.chip_serve",
+           "--programs", "cifar9_s1", "--batch", str(BATCH),
+           "--requests", "16", "--megakernel", "--autotune"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=300, cwd=str(ROOT))
+    line = [ln for ln in out.stdout.splitlines() if "autotuned" in ln]
+    if out.returncode or not line or not os.path.exists(
+            env[autotune.CACHE_ENV]):
+        raise AssertionError(f"chip_serve --autotune rc {out.returncode}: "
+                             f"{out.stdout[-800:]} {out.stderr[-800:]}")
+    print(f"  chip_serve --autotune: {line[0].strip()}; served "
+          f"({time.perf_counter() - t0:.1f} s, rc 0)")
+    if old_env is None:
+        os.environ.pop(autotune.CACHE_ENV, None)
+    else:
+        os.environ[autotune.CACHE_ENV] = old_env
+    if hashlib.sha256(bench.read_bytes()).hexdigest() != digest:
+        raise AssertionError("BENCH_autotune.json changed")
+    print("  BENCH_autotune.json unchanged (sha256)")
+    print(f"  phase 5c launches (tuners, recorded launches, serves) "
+          f"{ {k: v for k, v in path.items() if v} }")
+    return winners, path
+
+
+def lm_train_phase(card, dev):
+    """Phase 6b: SmolLM-360M with quant="binary" at full width, in the
+    config's own dtypes, trained LM_TRAIN_STEPS adamw steps at batch
+    LM_TRAIN_BATCH x LM_TRAIN_SEQ: finite losses, ms a step (host clock
+    around synchronised steps) and the device's busy time (profiler); the
+    first step at scaled() size on the card == the CPU's within
+    ``optimizers.step_tolerance``; then the binary-LM example twin end to
+    end, its greedy decode prefilling through the flash kernel at
+    scaled()'s head dim.  Returns the step line's numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.device import to_device
+    from repro_torch.examples import train_binary_lm
+    from repro_torch.kernels import ops
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.train import steps
+
+    cfg = get_config(LM_ARCH, quant="binary")
+    optimizer = opt.make("adamw", opt.cosine_schedule(3e-4, 2,
+                                                      LM_TRAIN_STEPS))
+    state = steps.create_state(cfg, 0, optimizer, device=dev)
+    train_step = steps.build_train_step(cfg, optimizer)
+    batches = [dtok.batch_for_step(cfg, i, global_batch=LM_TRAIN_BATCH,
+                                   seq_len=LM_TRAIN_SEQ, device=dev)
+               for i in range(LM_TRAIN_STEPS)]
+    losses, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"LM training losses {losses}")
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = train_step(box["state"], batches[0])
+
+    wall_ms, kernels = device_profile(one, 2)
+    busy = sum(kernels.values()) / 2 if kernels else None
+    nparams = sum(p.numel() for p in opt.tree_leaves(state["params"]))
+    print(f"  {LM_ARCH} quant=binary ({nparams / 1e6:.1f} M params, "
+          f"{cfg.dtype} activations, {cfg.param_dtype} params), adamw, "
+          f"batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: losses "
+          f"{[round(v, 4) for v in losses]}; ms a step (host clock, "
+          f"synchronised) {[round(v, 1) for v in ms]} (steady, steps 2-"
+          f"{LM_TRAIN_STEPS}: {np.mean(ms[1:]):.1f} ms; the first warms the "
+          f"libraries); profiled "
+          f"{wall_ms / 2:.1f} ms a step, device busy "
+          + (f"{busy:.1f} ms (idle share {1 - 2 * busy / wall_ms:.4f})"
+             if busy is not None else "not measured")
+          + f" [{card.smi}]")
+
+    # the first step at scaled() size: the card == the CPU
+    small = get_config(LM_ARCH, quant="binary").scaled().with_(
+        dtype="float32", param_dtype="float32")
+    sched = opt.cosine_schedule(1e-3, 2, 10)
+    small_opt = opt.make("adamw", sched)
+    cpu_state = steps.create_state(small, 3, small_opt, device="cpu")
+    batch = dtok.batch_for_step(small, 0, global_batch=4, seq_len=64,
+                                device="cpu")
+    out = {}
+    for where in ("cpu", dev):
+        st = to_device(cpu_state, torch.device(where))
+        out[str(where)] = steps.build_train_step(small, small_opt)(
+            st, {k: v.to(where) for k, v in batch.items()})
+    _, grads = opt.value_and_grad(
+        lambda p: steps.make_loss_fn(small)(p, batch), cpu_state["params"])
+    want = out["cpu"][0]["params"]
+    bounds = opt.step_tolerance(want, grads, float(sched(0)))
+    worst = 0.0
+    for w, g, b in zip(opt.tree_leaves(want),
+                       opt.tree_leaves(out[str(dev)][0]["params"]),
+                       opt.tree_leaves(bounds)):
+        diff = (g.cpu() - w).abs()
+        if not bool(diff.le(b).all()):
+            raise AssertionError(f"LM step on the card off the CPU's by "
+                                 f"{float(diff.max())}")
+        worst = max(worst, float((diff / b).max()))
+    dl = abs(float(out[str(dev)][1]["loss"]) - float(out["cpu"][1]["loss"]))
+    if dl > LM_TOL * (1 + abs(float(out["cpu"][1]["loss"]))):
+        raise AssertionError(f"LM step loss: card - CPU = {dl}")
+    print(f"  scaled() binary step: card == CPU within step_tolerance "
+          f"(worst {worst:.3f} of the bound), loss |card - CPU| {dl:.2e}")
+
+    t0 = time.perf_counter()
+    before = ops.launch_counts()["flash_attention"]
+    with quiet():
+        ex_losses, gen = train_binary_lm.main([])
+    # its greedy decode prefills through the flash kernel at scaled()'s
+    # head dim (32), once a layer
+    flash = ops.launch_counts()["flash_attention"] - before
+    if flash < small.num_layers:
+        raise AssertionError(f"the example's prefill launched flash "
+                             f"attention {flash} times, want at least "
+                             f"{small.num_layers} (head dim "
+                             f"{small.head_dim})")
+    k = min(20, len(ex_losses) // 2)
+    print(f"  examples/train_binary_lm twin on {dev}: {len(ex_losses)} steps "
+          f"(preempted at {train_binary_lm.CRASH_AT}, restored), loss "
+          f"{sum(ex_losses[:k]) / k:.3f} -> {sum(ex_losses[-k:]) / k:.3f}, "
+          f"decoded {tuple(gen.shape)}, flash attention launched {flash} "
+          f"times at head dim {small.head_dim}; OK in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"losses": losses, "ms": ms, "busy_ms": busy,
+            "profiled_ms": wall_ms / 2}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one "
@@ -1877,6 +2348,21 @@ def main() -> None:
         by_phase[k]["5b"] = v
         launches[k] += v
 
+    # -- 5c. the autotune cache ---------------------------------------------
+    phase("5c", "the autotune cache: cluster and conv geometry grids, "
+                "bit-exact and timed (graph ms), cache resolution, "
+                "chip_serve --autotune")
+    t5c = time.perf_counter()
+    _, counts = autotune_phase(card, dev, programs, artifacts,
+                               {n: packed[n] for n in quad})
+    for k in ("conv_block", "xnor_matmul", "xnor_matmul_pack", "megakernel",
+              "composite"):
+        if not counts.get(k):
+            raise AssertionError(f"phase 5c never launched {k}")
+        by_phase[k]["5c"] = counts[k]
+        launches[k] += counts[k]
+    print(f"  phase 5c took {time.perf_counter() - t5c:.1f} s")
+
     # -- 6. train -> fold -> serve -------------------------------------------
     phase(6, f"train -> fold -> serve on the card (face_detector "
              f"{DETECTOR_STEPS} steps, owner_detector {OWNER_STEPS} steps, "
@@ -1891,6 +2377,22 @@ def main() -> None:
     by_phase["xnor_matmul"]["6"] = counts["xnor_matmul"]
     launches["xnor_matmul"] += counts["xnor_matmul"]
     face, owner = programs["face_detector"], programs["owner_detector"]
+
+    # -- 6b. LM training at full width ---------------------------------------
+    phase("6b", f"LM training: {LM_ARCH} quant=binary at full width, "
+                f"{LM_TRAIN_STEPS} adamw steps of {LM_TRAIN_BATCH} x "
+                f"{LM_TRAIN_SEQ}; the binary-LM example twin")
+    t6b = time.perf_counter()
+    ops.reset_launch_counts()
+    lm_train_phase(card, dev)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    # BitLinear trains as a float +/-1 matmul and attention in training is
+    # chunked (the flash kernel has no backward): only the example's
+    # greedy decode runs a row of the table, flash attention at prefill
+    by_phase["flash_attention"]["6b"] = counts.get("flash_attention", 0)
+    launches["flash_attention"] += counts.get("flash_attention", 0)
+    print(f"  phase 6b launches of the table's kernels: {counts or 'none'}; "
+          f"took {time.perf_counter() - t6b:.1f} s")
 
     # -- 7. times ------------------------------------------------------------
     phase(7, f"times (CUDA-graph events, with CUDA events back to back and "

@@ -31,9 +31,14 @@ single-program deployment path:
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``, in
 which case every kernel runs its plain PyTorch version.  Packed words are
-int32 tensors holding the bits of ``repro``'s uint32 words.  The TPU
-schedule knobs of ``repro`` (frame and f tiles, the autotune cache, jit,
-meshes) have no counterpart here.
+int32 tensors holding the bits of ``repro``'s uint32 words.  The launch
+geometry of the card's kernels (the cluster size of the megakernel, the
+composites, the delta gate and the cascade's detector; the staged conv
+layers' feature slices and band rows) is resolved at each call through
+the autotune cache (``kernels.autotune``): an explicit argument, else a
+tuned entry, else the kernels' own formula.  Every geometry computes the
+same integers.  ``repro``'s frame and f tiles, jit and meshes have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import binarize
 from repro_torch.core.chip import isa, neuron_array as na
+from repro_torch.kernels import autotune
+from repro_torch.kernels import binary_conv2x2_block as bcb
 from repro_torch.kernels import ops as kops
 
 BN_EPS = 1e-4
@@ -288,12 +295,23 @@ class InferencePlan:
     stages: Tuple[Any, ...]
     mega: Tuple[Any, ...] = ()   # static stage spec for the megakernel
 
-    def forward(self, packed, images, device=None):
+    def forward(self, packed, images, device=None,
+                conv_tiles: Optional[Tuple[int, int]] = None):
         """Staged packed forward: one fused conv kernel per conv layer, one
-        XNOR matmul per FC.  Returns (float32 logits, int64 labels)."""
+        XNOR matmul per FC.  Returns (float32 logits, int64 labels).
+
+        ``conv_tiles`` = (nslices, rows) forces the conv layers' launch
+        geometry (:meth:`conv_geometry`; either may be None); by default
+        it resolves through the autotune cache for this (program, card,
+        batch), the kernel's formula when cold."""
         dev = _device.resolve(device)
         packed = _device.to_device(packed, dev)
         images = _frames(images, dev)
+        ns, rows = autotune.conv_tiles(self.program, images.shape[0],
+                                       *(conv_tiles or (None, None)),
+                                       device=dev)
+        tiles = (self.conv_geometry(images.shape[0], ns, rows, dev)
+                 if ns or rows else None)
         ci = fi = 0
         x = logits = None
         for st in self.stages:
@@ -301,8 +319,9 @@ class InferencePlan:
                 x = na.thermometer_encode_packed(images, st.bits, st.channels)
             elif isinstance(st, _ConvStage):
                 p = packed["conv"][ci]
-                x = kops.binary_conv2x2_block(x, p["w_words"], p["tau"],
-                                              p["flip"], st.c, pool=st.pool)
+                x = kops.binary_conv2x2_block(
+                    x, p["w_words"], p["tau"], p["flip"], st.c,
+                    pool=st.pool, tiles=tiles and tiles[ci])
                 ci += 1
             else:
                 if x.ndim == 4:
@@ -324,15 +343,39 @@ class InferencePlan:
         logits = logits.to(torch.float32)
         return logits, torch.argmax(logits, dim=-1)
 
-    def forward_mega(self, image, images, device=None):
+    def conv_geometry(self, batch: int, nslices: int = 0, rows: int = 0,
+                      device=None):
+        """The conv layers' launch geometry at ``nslices`` feature slices
+        a block and ``rows`` output rows a band (0 = the formula's; rows
+        capped at each layer's own), one ``make_conv_tiles`` a conv
+        layer.  Raises where a layer cannot take it."""
+        dev = _device.resolve(device)
+        sms = bcb.sm_count(dev) if dev.type == "cuda" else bcb.SMS
+        out = []
+        for st in self.mega:
+            if st[0] == "conv":
+                _, h, w, c, f, pool = st
+                ho = bcb.conv_out(h, w, pool)[0]
+                out.append(bcb.make_conv_tiles(
+                    batch, h, w, f, -(-c // binarize.PACK_WIDTH), pool,
+                    nslices=nslices, rows=min(rows, ho), sms=sms))
+        return tuple(out)
+
+    def forward_mega(self, image, images, device=None,
+                     cluster: Optional[int] = None):
         """Whole-network megakernel forward: one launch per batch, feature
         maps in shared memory.  ``image`` is the weight-image artifact
         (``fold_params(..., image=True)`` / :func:`ensure_image`).
+        ``cluster`` forces the blocks a cluster; by default it resolves
+        through the autotune cache, the kernel's formula when cold.
         Returns (float32 logits, int64 labels)."""
         dev = _device.resolve(device)
         image = _device.to_device(image, dev)
-        return _labels(kops.megakernel_forward(image, _frames(images, dev),
-                                               spec=self.mega))
+        frames = _frames(images, dev)
+        cluster = autotune.mega_tiles(self.program, frames.shape[0], cluster,
+                                      dev)
+        return _labels(kops.megakernel_forward(image, frames, spec=self.mega,
+                                               cluster=cluster or None))
 
     def make_fn(self, megakernel: bool = False, device=None):
         """(artifact, images) -> (logits, labels) on ``device``:
@@ -446,19 +489,26 @@ class CompositePlan:
         chains; ``repro`` convolves each group as one contraction)."""
         return len(kops.member_groups(self.spec))
 
-    def forward(self, image, frames, device=None):
+    def forward(self, image, frames, device=None,
+                cluster: Optional[int] = None):
         """Shared dispatch: per-member frames -> per-member (logits, labels).
 
         ``frames`` is a mapping keyed by member name or a sequence in
-        ``names`` order; member batches may be ragged.  Returns (float32
-        logits, int64 labels) as tuples in ``names`` order.
+        ``names`` order; member batches may be ragged.  ``cluster``
+        forces the launch's blocks a cluster; by default it resolves
+        through the autotune cache under the composite's own key.
+        Returns (float32 logits, int64 labels) as tuples in ``names``
+        order.
         """
         dev = _device.resolve(device)
         image = _device.to_device(image, dev)
         if isinstance(frames, Mapping):
             frames = [frames[n] for n in self.names]
-        outs = kops.composite_forward(
-            image, tuple(_frames(f, dev) for f in frames), spec=self.spec)
+        frames = tuple(_frames(f, dev) for f in frames)
+        cluster = autotune.composite_tiles(
+            self.programs, max(f.shape[0] for f in frames), cluster, dev)
+        outs = kops.composite_forward(image, frames, spec=self.spec,
+                                      cluster=cluster or None)
         logits = tuple(o.to(torch.float32) for o in outs)
         return logits, tuple(torch.argmax(lg, dim=-1) for lg in logits)
 
@@ -608,7 +658,8 @@ class CascadePlan:
 
     def forward_fused(self, image, frames, ctrl, device=None,
                       bb: Optional[int] = None, rb: Optional[int] = None,
-                      check_every: int = 1):
+                      check_every: int = 1,
+                      det_cluster: Optional[int] = None):
         """One fused dispatch: frames -> both stages' answers.
 
         ``ctrl`` is :meth:`margin_ctrl`'s control word (its n_real at most
@@ -619,16 +670,22 @@ class CascadePlan:
         ``counts[1]`` the recognizer slots billed.  ``bb`` (default 8, the
         pad granule), ``rb`` (default ``bb``) and ``check_every`` set the
         drain schedule ``counts[1]`` follows; nothing else depends on them.
+        ``det_cluster`` forces the detector's blocks a cluster; by default
+        it resolves through the autotune cache under the pair's composite
+        key (0, cold: ``cascade_geometry``'s pick by the batch).
         """
         dev = _device.resolve(device)
         image = _device.to_device(image, dev)
         frames = _frames(frames, dev)
         ctrl = torch.as_tensor(ctrl, dtype=torch.int32)
         _check_n_real(ctrl, frames.shape[0])
+        det_cluster = autotune.cascade_tiles(self.programs, frames.shape[0],
+                                             det_cluster, dev)
         det, rec, queue, counts = kops.cascade_forward(
             image, frames, ctrl.to(dev), spec=self.spec,
             bb=8 if bb is None else bb, rb=0 if rb is None else rb,
-            check_every=check_every, positive_class=self.positive_class)
+            check_every=check_every, positive_class=self.positive_class,
+            det_cluster=det_cluster)
         det_l, det_y = _labels(det)
         rec_l, rec_y = _labels(rec)
         return det_l, det_y, rec_l, rec_y, queue, counts
@@ -776,7 +833,7 @@ class DeltaPlan:
 
     def forward_delta(self, image, frames, last, llog, ctrl, device=None,
                       bb: Optional[int] = None, rb: Optional[int] = None,
-                      check_every: int = 1):
+                      check_every: int = 1, cluster: Optional[int] = None):
         """One gated dispatch: advance every stream by one time step.
 
         ``ctrl`` is :meth:`delta_ctrl`'s control word (its n_real at most
@@ -788,18 +845,23 @@ class DeltaPlan:
         indices, ``counts[1]`` the frame slots billed; ``deltas`` the
         per-lane packed Hamming distances.  ``bb`` (default 8, the pad
         granule), ``rb`` (default ``bb``) and ``check_every`` set the drain
-        schedule ``counts[1]`` follows.
+        schedule ``counts[1]`` follows.  ``cluster`` forces the
+        recompute's blocks a cluster; by default it resolves through the
+        autotune cache under the program's key, as the megakernel's.
         """
         dev = _device.resolve(device)
         image = _device.to_device(image, dev)
         frames = _frames(frames, dev)
         ctrl = torch.as_tensor(ctrl, dtype=torch.int32)
         _check_n_real(ctrl, frames.shape[0])
+        cluster = autotune.mega_tiles(self.program, frames.shape[0], cluster,
+                                      dev)
         logits, new_last, queue, counts, deltas = kops.delta_forward(
             image, frames, _frames(last, dev), _frames(llog, dev),
             ctrl.to(dev),
             spec=self.spec, bb=8 if bb is None else bb,
-            rb=0 if rb is None else rb, check_every=check_every)
+            rb=0 if rb is None else rb, check_every=check_every,
+            cluster=cluster or None)
         lf, labels = _labels(logits)
         return lf, labels, new_last, logits, queue, counts, deltas
 

@@ -56,6 +56,11 @@
 // tile's keys; q, k and v are staged in shared memory (v rounded to bf16
 // there when bf16_probs asks), the row's max and sum are shuffles among
 // the four, and each keeps D / 4 output accumulators in registers.
+//
+// Both are instantiated at D = 16, 32, 64 and 128: the full configs' 64
+// and 128 and the scaled() configs' 16 and 32.  The wrapper refuses any
+// other D on the card (qwen1.5-110b's scaled() 8 is below one k16 step of
+// the MMA), so a prefill never leaves this kernel silently.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -590,7 +595,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
 
 // q (B, S, H, D), k and v (B, S, KH, D), o (B, S, H, D), all contiguous
 // and of one type (float32, or bfloat16 when bf16 != 0, then 16-byte
-// aligned), H % KH == 0, D in {64, 128} (checked by the Python wrapper).
+// aligned), H % KH == 0, D in {16, 32, 64, 128} (checked by the Python
+// wrapper).
 // bf16_probs != 0 rounds p and v to bf16 before p . v.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -600,12 +606,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int bf16_probs, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bf16 ? d : -d) {
+    case 16:
+      return launch_bf16<16>(q, k, v, o, b, s, h, kh, scale, causal,
+                             bf16_probs, st);
+    case 32:
+      return launch_bf16<32>(q, k, v, o, b, s, h, kh, scale, causal,
+                             bf16_probs, st);
     case 64:
       return launch_bf16<64>(q, k, v, o, b, s, h, kh, scale, causal,
                              bf16_probs, st);
     case 128:
       return launch_bf16<128>(q, k, v, o, b, s, h, kh, scale, causal,
                               bf16_probs, st);
+    case -16:
+      return launch_f32<16>(q, k, v, o, b, s, h, kh, scale, causal,
+                            bf16_probs, st);
+    case -32:
+      return launch_f32<32>(q, k, v, o, b, s, h, kh, scale, causal,
+                            bf16_probs, st);
     case -64:
       return launch_f32<64>(q, k, v, o, b, s, h, kh, scale, causal,
                             bf16_probs, st);

@@ -9,7 +9,7 @@ words in, packed words out.  The kernel is ``csrc/conv_block.cu``;
 same function in PyTorch, which the CPU path, the plain megakernel and the
 tests use.  :func:`conv_tiles` is the launch geometry of this kernel and of
 the unfused ``csrc/binary_conv2x2.cu``, which share the tensor-core tile
-``csrc/conv_mma.cuh``.
+``csrc/conv_mma.cuh``; :func:`make_conv_tiles` forces its slices and rows.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -69,21 +70,24 @@ def conv_out(h: int, wd: int, pool: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def conv_tiles(b: int, h: int, wd: int, f: int, cw: int, pool: bool, *,
-               sms: int = SMS) -> ConvTiles:
-    """Bands, feature tiles and shared memory of one conv launch.
-
-    A block computes one band of ``rows`` output rows of one frame (rows
-    enough for one m16 tile a warp, 8 x 16 product rows; a pooled row is
-    4 product rows a window) against ``nslices`` x 32 features.  Feature
-    tiles are as wide as leaves a block for every SM (else one slice), and
-    shared memory within the default 48 KB; bands shrink until the
-    block's taps and input rows fit 227 KB, and where one whole input row
-    does not, a band is one output row cut into ``chunks`` runs of
-    ``cols`` columns, so any width runs.
+def make_conv_tiles(b: int, h: int, wd: int, f: int, cw: int, pool: bool, *,
+                    nslices: int = 0, rows: int = 0,
+                    sms: int = SMS) -> ConvTiles:
+    """The launch geometry of one conv launch at ``nslices`` 32-feature
+    slices a block and ``rows`` output rows a band; 0 leaves a field to
+    :func:`conv_tiles`' formula, so ``make_conv_tiles(..., 0, 0)`` is
+    ``conv_tiles``.  A forced ``nslices`` is 1, 2, 4 or 8 and divides the
+    F/32 slices; a forced ``rows`` is at most the layer's output rows, and
+    its band must fit 227 KB of shared memory (one row may be cut into
+    column chunks).  Raises on a geometry the kernels cannot take.
     """
     ho, wo = conv_out(h, wd, pool)
     fslices = -(-f // 32)
+    if nslices and (nslices not in (1, 2, 4, 8) or fslices % nslices):
+        raise ValueError(f"{nslices} feature slices a block do not divide "
+                         f"F={f}'s {fslices}")
+    if rows and not 0 < rows <= ho:
+        raise ValueError(f"{rows} rows a band, the layer has {ho}")
     ksteps = -(-4 * cw // STEP_WORDS)
     kpad = ksteps * STEP_WORDS
     kstride = kpad + 8 if kpad % 16 == 0 else kpad
@@ -95,14 +99,22 @@ def conv_tiles(b: int, h: int, wd: int, f: int, cw: int, pool: bool, *,
         return 4 * (32 * ns * (kstride + 2) + span(rows) * pitch + 3)
 
     full = wd * cw
-    rows = max(1, min(ho, WARPS * 16 // max(1, wo * (4 if pool else 1))))
-    ns = 1
-    for cand in (8, 4, 2):
+    forced_rows = rows
+    # rows enough for one m16 tile a warp, 8 x 16 product rows (a pooled
+    # row is 4 product rows a window)
+    rows = rows or max(1, min(ho, WARPS * 16
+                              // max(1, wo * (4 if pool else 1))))
+    ns = nslices or 1
+    for cand in () if nslices else (8, 4, 2):
         if (cand <= fslices and smem(rows, cand, full) <= SMEM_DEFAULT
                 and b * -(-ho // rows) * -(-fslices // cand) >= sms):
             ns = cand
             break
     while smem(rows, ns, full) > SMEM_LIMIT and rows > 1:
+        if forced_rows:
+            raise ValueError(f"a band of {rows} rows needs "
+                             f"{smem(rows, ns, full)} B of shared memory, "
+                             f"more than {SMEM_LIMIT}")
         rows -= 1
     cols, chunks, in_cols, pitch = wo, 1, wd, full
     if smem(rows, ns, full) > SMEM_LIMIT:    # column chunks of one row
@@ -119,6 +131,23 @@ def conv_tiles(b: int, h: int, wd: int, f: int, cw: int, pool: bool, *,
     return ConvTiles(rows, bands, cols, chunks, ns,
                      (b * bands * chunks, -(-fslices // ns)), ksteps,
                      kstride, in_cols, pitch, smem(rows, ns, pitch))
+
+
+def conv_tiles(b: int, h: int, wd: int, f: int, cw: int, pool: bool, *,
+               sms: int = SMS) -> ConvTiles:
+    """Bands, feature tiles and shared memory of one conv launch.
+
+    A block computes one band of ``rows`` output rows of one frame (rows
+    enough for one m16 tile a warp, 8 x 16 product rows; a pooled row is
+    4 product rows a window) against ``nslices`` x 32 features.  Feature
+    tiles are as wide as leaves a block for every SM (else one slice), and
+    shared memory within the default 48 KB; bands shrink until the
+    block's taps and input rows fit 227 KB, and where one whole input row
+    does not, a band is one output row cut into ``chunks`` runs of
+    ``cols`` columns, so any width runs.  :func:`make_conv_tiles` forces
+    the slices and rows (the autotuner's candidates).
+    """
+    return make_conv_tiles(b, h, wd, f, cw, pool, sms=sms)
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -216,13 +245,15 @@ def _launcher():
 
 def binary_conv2x2_block(a_words: torch.Tensor, w_words: torch.Tensor,
                          tau: torch.Tensor, flip: torch.Tensor, *, c: int,
-                         pool: bool = False) -> torch.Tensor:
+                         pool: bool = False,
+                         tiles: Optional[ConvTiles] = None) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on any other device).
 
     a_words: (B, H, W, Cw) int32 words; w_words: (F, 4, Cw) int32 words;
     tau/flip: (F,) int32 thresholds and directions (flip in {0, 1}); c:
     the true channel count, so the dot length is 4*c.  Returns
-    (B, Ho, Wo, F // 32) int32 words.
+    (B, Ho, Wo, F // 32) int32 words.  ``tiles`` overrides
+    :func:`conv_tiles` (a :func:`make_conv_tiles` geometry of this shape).
     """
     check_args(a_words, w_words, tau, flip, c)
     if a_words.device.type != "cuda":
@@ -237,7 +268,8 @@ def binary_conv2x2_block(a_words: torch.Tensor, w_words: torch.Tensor,
                       device=a.device)
     if out.numel() == 0:
         return out
-    tiles = conv_tiles(b, h, wd, f, cw, pool, sms=sm_count(a.device))
+    tiles = tiles or conv_tiles(b, h, wd, f, cw, pool,
+                               sms=sm_count(a.device))
     with torch.cuda.device(a.device):
         err = _launcher()(a.data_ptr(), w.data_ptr(), tau.data_ptr(),
                           flip.data_ptr(), out.data_ptr(), b, h, wd, cw, f,

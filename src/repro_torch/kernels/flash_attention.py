@@ -29,7 +29,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 BLOCK_K = 64                 # keys per tile (the kernel's kKeys)
-HEAD_DIMS = (64, 128)        # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
 
 # kernel launches since the last reset
 LAUNCHES = {"flash_attention": 0}

@@ -45,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -645,13 +645,14 @@ def _need_cuda(t: torch.Tensor) -> None:
                          f"{t.device}")
 
 
-def _launch_composite(image, frames, spec) -> Tuple[torch.Tensor, ...]:
+def _launch_composite(image, frames, spec, cluster: Optional[int]
+                      ) -> Tuple[torch.Tensor, ...]:
     """One launch of csrc/megakernel.cu's composite kernel (uncounted)."""
     check_args(image, frames, spec)
     _need_cuda(frames[0])
     cw, ct, cf, fw = _image_words(image)
     table = composite_table(spec, tuple(cw.shape), tuple(fw.shape))
-    geo = cluster_geometry(spec)
+    geo = cluster_geometry(spec, cluster or 0)
     dev = frames[0].device
     frames = [f.to(torch.int32).contiguous() for f in frames]
     thr = [_member_thresholds(st, dev) for st in spec]
@@ -673,7 +674,8 @@ def _launch_composite(image, frames, spec) -> Tuple[torch.Tensor, ...]:
 
 
 def composite_forward(image: Dict[str, torch.Tensor],
-                      frames: Sequence[torch.Tensor], *, spec
+                      frames: Sequence[torch.Tensor], *, spec,
+                      cluster: Optional[int] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """Launch the composite kernel on CUDA tensors (raises on any other
     device).
@@ -682,24 +684,27 @@ def composite_forward(image: Dict[str, torch.Tensor],
     ``cw`` (Lc, F_total, 4, Cw_max), ``ct``/``cf`` (Lc, F_total),
     ``fw`` (Lf, N_total, Kw_max), all int32; frames: one (B_m, H_m, W_m,
     Cin_m) integer batch per member, ragged batches allowed; spec: the
-    composite spec.  Returns a tuple of (B_m, classes_m) int32 logits.
+    composite spec; cluster: blocks a cluster (None: the widest conv's
+    feature words, :func:`cluster_geometry`).  Returns a tuple of
+    (B_m, classes_m) int32 logits.
     """
-    outs = _launch_composite(image, tuple(frames), spec)
+    outs = _launch_composite(image, tuple(frames), spec, cluster)
     LAUNCHES["composite"] += 1
     return outs
 
 
 def megakernel_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
-                       *, spec) -> torch.Tensor:
+                       *, spec, cluster: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel for one program on CUDA tensors (raises on any
     other device): the one-member composite.
 
     image: the weight image (``cw`` (Lc, F, 4, F/32), ``ct``/``cf``
     (Lc, F), ``fw`` (Lf, Nmax, Kwmax), all int32); frames: (B, H, W, Cin)
-    integer pixels; spec: ``InferencePlan.mega``.  Returns (B, classes)
-    int32 logits.
+    integer pixels; spec: ``InferencePlan.mega``; cluster: as
+    :func:`composite_forward`.  Returns (B, classes) int32 logits.
     """
-    out, = _launch_composite(image, (frames,), solo_member_spec(spec))
+    out, = _launch_composite(image, (frames,), solo_member_spec(spec),
+                             cluster)
     LAUNCHES["megakernel"] += 1
     return out
 
@@ -763,10 +768,12 @@ def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
 
 def delta_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
                   last: torch.Tensor, llog: torch.Tensor, ctrl: torch.Tensor,
-                  *, spec, bb: int = 8, rb: int = 0, check_every: int = 1):
+                  *, spec, bb: int = 8, rb: int = 0, check_every: int = 1,
+                  cluster: Optional[int] = None):
     """Launch the delta-gated megakernel on CUDA tensors (raises on any
     other device): one ``delta_launch``, three kernels on the current
-    stream.
+    stream, the recompute in clusters of ``cluster`` blocks (as
+    :func:`composite_forward`).
 
     image: the program's weight image (``interpreter.pack_delta``);
     frames: (B, H, W, Cin) integer pixels, slot b = stream b; last:
@@ -792,7 +799,7 @@ def delta_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
     b = frames.shape[0]
     bpad, rb = cascade_schedule(b, bb, rb)
     (member,) = spec
-    geo, gate = cluster_geometry(spec), gate_geometry(member)
+    geo, gate = cluster_geometry(spec, cluster or 0), gate_geometry(member)
     logits = torch.empty_like(llog)
     new_last = torch.empty_like(last)
     queue = torch.empty(b, dtype=torch.int32, device=dev)

@@ -67,70 +67,96 @@ def binary_conv2x2(a_words: torch.Tensor, w_words: torch.Tensor,
 
 def binary_conv2x2_block(a_words: torch.Tensor, w_words: torch.Tensor,
                          tau: torch.Tensor, flip: torch.Tensor, c: int, *,
-                         pool: bool = False) -> torch.Tensor:
+                         pool: bool = False, tiles=None) -> torch.Tensor:
     """Fused packed conv layer: conv -> integer threshold -> pool -> repack.
-    (B, H, W, Cw) words in, (B, Ho, Wo, F//32) words out."""
+    (B, H, W, Cw) words in, (B, Ho, Wo, F//32) words out.  ``tiles`` (a
+    ``make_conv_tiles`` geometry) is the kernel's launch geometry, None
+    for ``conv_tiles``; the plain version computes the same words at
+    any."""
     if _on_cuda(a_words):
         return _bcb.binary_conv2x2_block(a_words, w_words, tau, flip, c=c,
-                                         pool=pool)
+                                         pool=pool, tiles=tiles)
     _bcb.check_args(a_words, w_words, tau, flip, c)
     h, w = a_words.shape[1:3]
     return _bcb.conv_block_body(a_words, w_words, tau, flip, k4=4 * c, h=h,
                                 wd=w, pool=pool)
 
 
+def _check_cluster(spec, cluster: Optional[int]) -> None:
+    """The plain versions compute the same logits at any cluster size, but
+    refuse one the kernel cannot take, as the kernel's wrapper does."""
+    if cluster is not None:
+        _mk.cluster_geometry(spec, cluster)
+
+
 def megakernel_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
-                       *, spec) -> torch.Tensor:
+                       *, spec, cluster: Optional[int] = None
+                       ) -> torch.Tensor:
     """Whole-network inference for one program: raw frames -> int32
     logits, every stage of ``spec`` (``InferencePlan.mega``) in one
-    launch on the GPU."""
+    launch on the GPU, in clusters of ``cluster`` blocks (None: the
+    kernel's own choice)."""
     if _on_cuda(frames):
-        return _mk.megakernel_forward(image, frames, spec=spec)
+        return _mk.megakernel_forward(image, frames, spec=spec,
+                                      cluster=cluster)
     _mk.check_args(image, (frames,), _mk.solo_member_spec(spec))
+    _check_cluster(_mk.solo_member_spec(spec), cluster)
     return _mk.megakernel_plain(image, frames, spec=spec)
 
 
 def composite_forward(image: Dict[str, torch.Tensor],
-                      frames: Sequence[torch.Tensor], *, spec
+                      frames: Sequence[torch.Tensor], *, spec,
+                      cluster: Optional[int] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """Shared-array inference: one frame batch per member of the composite
     ``spec`` (``CompositePlan.spec``) -> one int32 logits tensor per
-    member, every member in one launch on the GPU."""
+    member, every member in one launch on the GPU (``cluster`` as
+    :func:`megakernel_forward`)."""
     frames = tuple(frames)
     if _on_cuda(frames[0]):
-        return _mk.composite_forward(image, frames, spec=spec)
+        return _mk.composite_forward(image, frames, spec=spec,
+                                     cluster=cluster)
     _mk.check_args(image, frames, spec)
+    _check_cluster(spec, cluster)
     return _mk.composite_plain(image, frames, spec=spec)
 
 
 def cascade_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
                     ctrl: torch.Tensor, *, spec, bb: int = 8, rb: int = 0,
-                    check_every: int = 1, positive_class: int = 1):
+                    check_every: int = 1, positive_class: int = 1,
+                    det_cluster: int = 0):
     """Fused detector -> recognizer cascade (``CascadePlan.spec``): frames
     -> ``(det, rec, queue, counts)``, the escalation decided on the device
-    and the recognizer run on the escalated frames only."""
+    and the recognizer run on the escalated frames only (``det_cluster``:
+    the detector's blocks a cluster, 0 to pick by the batch)."""
     kw = dict(spec=spec, bb=bb, rb=rb, check_every=check_every,
               positive_class=positive_class)
     if _on_cuda(frames):
-        return _mk.cascade_forward(image, frames, ctrl, **kw)
+        return _mk.cascade_forward(image, frames, ctrl,
+                                   det_cluster=det_cluster, **kw)
     _mk.check_cascade_args(image, frames, ctrl, spec, bb=bb, rb=rb,
                            check_every=check_every,
                            positive_class=positive_class)
+    if det_cluster:
+        _check_cluster(spec[:1], det_cluster)
     return _mk.cascade_plain(image, frames, ctrl, **kw)
 
 
 def delta_forward(image: Dict[str, torch.Tensor], frames: torch.Tensor,
                   last: torch.Tensor, llog: torch.Tensor, ctrl: torch.Tensor,
-                  *, spec, bb: int = 8, rb: int = 0, check_every: int = 1):
+                  *, spec, bb: int = 8, rb: int = 0, check_every: int = 1,
+                  cluster: Optional[int] = None):
     """Delta-gated whole-network inference (``DeltaPlan.spec``): frames and
     the resident state -> ``(logits, new_last, queue, counts, deltas)``,
     the gate decided on the device and only the changed streams
-    recomputed."""
+    recomputed (``cluster`` as :func:`megakernel_forward`)."""
     kw = dict(spec=spec, bb=bb, rb=rb, check_every=check_every)
     if _on_cuda(frames):
-        return _mk.delta_forward(image, frames, last, llog, ctrl, **kw)
+        return _mk.delta_forward(image, frames, last, llog, ctrl,
+                                 cluster=cluster, **kw)
     _mk.check_delta_args(image, frames, last, llog, ctrl, spec, bb=bb, rb=rb,
                          check_every=check_every)
+    _check_cluster(spec, cluster)
     return _mk.delta_plain(image, frames, last, llog, ctrl, **kw)
 
 

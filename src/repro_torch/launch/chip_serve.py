@@ -53,8 +53,19 @@ serves one replica over every local device, frames scattered::
     PYTHONPATH=src python -m repro_torch.launch.chip_serve --fleet 2 \
         --programs mnist5,cifar9_s1 --requests 48 --batch 8 --kill host0
 
-``--device cpu`` runs the plain PyTorch versions of the kernels instead.
-``repro``'s ``--autotune`` and ``--donate`` are not taken.
+``--autotune`` times each resident program's launch geometry on the card
+before serving (the megakernel's cluster sizes with ``--megakernel``, else
+the staged conv layers' slices and rows; each shared group's composite
+with ``--shared``), prints the winners and records them in the autotune
+cache (``kernels/autotune.py``: ``build/repro_torch/autotune.json``, or
+``$REPRO_TORCH_AUTOTUNE_CACHE``), which the serve then reads::
+
+    PYTHONPATH=src python -m repro_torch.launch.chip_serve \
+        --programs cifar9_s1 --batch 8 --megakernel --autotune
+
+``--device cpu`` runs the plain PyTorch versions of the kernels instead
+(and refuses ``--autotune``: there is no kernel to time).  ``repro``'s
+``--donate`` is not taken.
 """
 
 from __future__ import annotations
@@ -122,6 +133,10 @@ def main(argv=None):
                     help="shared-array dispatch: programs whose S-modes "
                          "tile the 256-channel array exactly run as ONE "
                          "composite launch per batch")
+    ap.add_argument("--autotune", action="store_true",
+                    help="time the best launch geometry for each resident "
+                         "program on the card before serving (persisted in "
+                         "the autotune cache, see kernels/autotune.py)")
     ap.add_argument("--cascade", action="store_true",
                     help="run the always-on cascade: the S=4 face "
                          "detector screens every frame, logit-margin "
@@ -245,6 +260,11 @@ def main(argv=None):
         return run_fleet(args, dev, programs, artifacts, families)
     if args.kill:
         ap.error("--kill needs --fleet >= 2 (nowhere to migrate frames)")
+    if args.autotune:
+        if dev.type != "cuda":
+            ap.error(f"--autotune times the card's kernels and needs a CUDA "
+                     f"device, not {dev}")
+        autotune_programs(args, dev, programs, artifacts)
     mesh = (sharding.serve_mesh(None if args.device is None else [dev])
             if args.shard else None)
     server = ChipServer(programs, artifacts, batch=args.batch,
@@ -338,6 +358,43 @@ def main(argv=None):
           f"{stats.chip.power_w*1e3:.2f} mW avg "
           f"(paper: up to 1700 f/s, 0.9 mW I2L at S=4)")
     return results, stats
+
+
+def autotune_programs(args, dev, programs, artifacts) -> None:
+    """``--autotune``: the megakernel's or the staged conv's tuner for
+    each program, and the composite tuner for each shared group, at
+    ``--batch`` on seeded frames; prints and records the winners (a 0
+    field: no candidate beat the formula's geometry by the tuners'
+    margin, so the formula stays)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.queue import plan_shared_groups
+    for n, p in programs.items():
+        plan = interpreter.compile_plan(p)
+        frames = torch.from_numpy(frame_stream(p, args.batch,
+                                               args.seed)).to(dev)
+        if args.megakernel:
+            image = interpreter.ensure_image(artifacts[n], p)
+            entry = autotune.tune_mega(plan, image, frames)
+            print(f"autotuned {n}: megakernel cluster={entry['cluster']} "
+                  f"({entry['ms']:.4f} ms)")
+        else:
+            packed = interpreter.ensure_packed(artifacts[n])
+            entry = autotune.tune_staged_conv(plan, packed, frames)
+            print(f"autotuned {n}: staged conv nslices={entry['nslices']} "
+                  f"rows={entry['rows']} ({entry['ms']:.4f} ms)")
+    if args.shared:
+        # the shared path's kernel is the composite, keyed under its own
+        # fingerprint: tune each group the server will form
+        for members in plan_shared_groups(programs):
+            cplan, cimage = interpreter.pack_programs(
+                {m: programs[m] for m in members},
+                {m: artifacts[m] for m in members})
+            frames = tuple(torch.from_numpy(frame_stream(
+                programs[m], args.batch, args.seed)).to(dev)
+                for m in members)
+            entry = autotune.tune_composite(cplan, cimage, frames)
+            print(f"autotuned {'+'.join(members)}: composite "
+                  f"cluster={entry['cluster']} ({entry['ms']:.4f} ms)")
 
 
 def lane_streams(args, programs, lanes, families):

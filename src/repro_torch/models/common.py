@@ -5,8 +5,9 @@ The counterpart of ``repro.models.common``.  All modules are functional:
 Initialisers draw from a ``torch.Generator`` on the target device, so the
 weights are the port's own (``convert.lm_params_from_numpy`` carries
 ``repro``'s across).  Projections honor ``quant="binary"`` (BinaryNet W1A1
-with the straight-through estimator).  ``bf16_grads`` is accepted and is
-forward-identical; its bf16 backward waits for the LM training slice.
+with the straight-through estimator).  ``bf16_grads`` keeps the forward
+and casts the cotangent to bf16 before both gradient matmuls
+(:class:`MatmulBF16Grads`, ``repro``'s custom VJP).
 """
 
 from __future__ import annotations
@@ -64,15 +65,43 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
+class MatmulBF16Grads(torch.autograd.Function):
+    """``x @ w`` whose backward casts the cotangent to bf16 BEFORE the two
+    gradient matmuls (``repro.models.common._matmul_bf16_grads``): the
+    activation-gradient stream in bf16, as Megatron's bf16 gradient
+    collectives; dx and dw come back in their operands' types (dw is
+    accumulated in float32 by the optimizer's update)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g16 = g.to(torch.bfloat16)
+        dx = torch.matmul(g16, w.to(torch.bfloat16).t())
+        # contract every leading dim: (..., K) x (..., N) -> (K, N)
+        dw = torch.matmul(x.to(torch.bfloat16).reshape(-1, x.shape[-1]).t(),
+                          g16.reshape(-1, g16.shape[-1]))
+        return dx.to(x.dtype), dw.to(w.dtype)
+
+
 def linear_apply(params, x: torch.Tensor, *, quant: str = "none",
                  bf16_grads: bool = False) -> torch.Tensor:
     w = params["w"]
     if quant == "binary":
         # BinaryNet W1A1 with STE; 1/sqrt(K) keeps activations in range
-        xb = binarize.ste_sign(x)
-        wb = binarize.ste_sign(w)
+        # the product in the operands' promoted type, as jnp.einsum
+        # promotes bf16 activations against float32 weights
+        dt = torch.promote_types(x.dtype, w.dtype)
+        xb = binarize.ste_sign(x).to(dt)
+        wb = binarize.ste_sign(w).to(dt)
         y = torch.matmul(xb, wb) * (1.0 / math.sqrt(x.shape[-1]))
         y = y.to(x.dtype)
+    elif bf16_grads:
+        y = MatmulBF16Grads.apply(x, w.to(x.dtype))
     else:
         y = torch.matmul(x, w.to(x.dtype))
     if "b" in params:

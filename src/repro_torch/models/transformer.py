@@ -8,7 +8,7 @@ is a Python loop over ``r`` here.
 
 Block kinds ported: ``attn``, ``local``, ``global`` and ``dense``.
 ``attn_moe``, ``mamba``, ``mamba_moe``, ``rwkv`` and ``num_codebooks > 1``
-raise ``NotImplementedError``: they are ROADMAP item 1.11's remaining
+raise ``NotImplementedError``: they are ROADMAP §1 item 5's remaining
 work.  ``forward`` returns final hidden states; ``lm_logits`` maps them
 to logits for serving.
 """
@@ -29,7 +29,7 @@ ATTN_KINDS = ("attn", "local", "global", "dense")
 def _check_kind(kind: str) -> None:
     if kind not in ATTN_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP 1.11: MoE, "
+            f"block kind {kind!r} is not ported yet (ROADMAP §1 item 5: MoE, "
             f"mamba and rwkv6 blocks)")
 
 
@@ -39,7 +39,7 @@ def _check_cfg(cfg) -> None:
     if cfg.num_codebooks > 1:
         raise NotImplementedError(
             "multi-codebook (MusicGen) embeddings and heads are not ported "
-            "yet (ROADMAP 1.11)")
+            "yet (ROADMAP §1 item 5)")
 
 
 def tree_index(tree, r: int):

@@ -19,8 +19,10 @@ is ``None`` (autograd's answer for a leaf the loss does not reach)
 counts as zeros.  Updates are computed under ``torch.no_grad()`` into new
 tensors; nothing is updated in place.
 
-``adafactor`` (``repro``'s optimizer for the LM substrate) is not ported:
-``make("adafactor")`` raises, naming ROADMAP.md item 1.11.
+``adafactor`` is ``repro``'s optimizer for the LM substrate: a factored
+second moment (row and column means) for leaves whose last two dims are
+both at least ``min_dim_size_to_factor``, no momentum, update clipping to
+RMS 1.
 """
 
 from __future__ import annotations
@@ -145,6 +147,66 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 
 
 # ---------------------------------------------------------------------------
+# Adafactor (factored second moment, no momentum)
+# ---------------------------------------------------------------------------
+
+def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
+              min_dim_size_to_factor: int = 128) -> Optimizer:
+    """Shazeer & Stern (2018) as ``repro`` has it: ``beta = 1 - t^-decay``,
+    factored ``vr``/``vc`` for leaves whose last two dims are both at
+    least ``min_dim_size_to_factor``, else a full ``v``; the update
+    clipped to RMS <= 1; the global-norm clip first."""
+    def _factored(shape):
+        return (len(shape) >= 2 and shape[-1] >= min_dim_size_to_factor
+                and shape[-2] >= min_dim_size_to_factor)
+
+    def init(params):
+        def mk(p):
+            if _factored(p.shape):
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                          device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                          dtype=torch.float32,
+                                          device=p.device)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        return {"v": tree_map(mk, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        grads, gn = clip_by_global_norm(_fill(grads, params), clip_norm)
+        lr = lr_fn(step).to(gn.device)
+        t = _f32(float(step) + 1.0, gn)
+        beta = 1.0 - t ** (-decay)
+
+        def upd(p, g, s):
+            g = g.to(torch.float32)
+            g2 = g * g + eps
+            if "vr" in s:
+                vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
+                vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+                denom = (vr[..., :, None] * vc[..., None, :]
+                         / torch.clamp(vr.mean(dim=-1, keepdim=True)[
+                             ..., None], min=eps))
+                u = g * torch.rsqrt(denom + eps)
+                ns = {"vr": vr, "vc": vc}
+            else:
+                v = beta * s["v"] + (1 - beta) * g2
+                u = g * torch.rsqrt(v + eps)
+                ns = {"v": v}
+            # update clipping (RMS <= 1), as in the paper
+            rms = torch.sqrt(torch.mean(u * u) + eps)
+            u = u / torch.clamp(rms, min=1.0)
+            return (p.to(torch.float32) - lr * u).to(p.dtype), ns
+
+        # the walk follows params, so each leaf's state dict comes whole
+        out = tree_map(upd, params, grads, state["v"])
+        pick = lambda i: tree_map(lambda p, o: o[i], params, out)
+        return pick(0), {"v": pick(1)}, gn
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
 # SGD with momentum
 # ---------------------------------------------------------------------------
 
@@ -218,12 +280,6 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
     return lr
 
 
-def _adafactor(lr_fn, **kw) -> Optimizer:
-    raise NotImplementedError(
-        "adafactor is not ported yet: it belongs to the LM substrate "
-        "(ROADMAP.md item 1.11)")
-
-
 def make(name: str, lr_fn, **kw) -> Optimizer:
-    return {"adamw": adamw, "adafactor": _adafactor, "sgdm": sgdm}[name](
+    return {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}[name](
         lr_fn, **kw)

@@ -89,7 +89,8 @@ def _quad_sum(v):
     return v + _shfl_xor(v, 2)
 
 
-def emulate(a, w, c, *, tau=None, flip=None, pool=False, trace=None):
+def emulate(a, w, c, *, tau=None, flip=None, pool=False, trace=None,
+            tiles=None):
     """The conv_mma.cuh kernels' arithmetic, lane by lane, on numpy words.
 
     a: (B, H, W, Cw) uint32; w: (F, 4, Cw) uint32.  With ``tau``/``flip``
@@ -97,12 +98,14 @@ def emulate(a, w, c, *, tau=None, flip=None, pool=False, trace=None):
     them binary_conv2x2.cu ((B, H-1, W-1, F) int64 sums).  Raises if an
     output is written twice or never.  ``trace`` (a list) collects
     (block, band row, window, corner) for every pooled product row.
+    ``tiles`` is the launch geometry (default the wrapper's,
+    ``conv_tiles``; a ``make_conv_tiles`` one for the autotuner's).
     """
     fused = tau is not None
     b, h, wd, cw = a.shape
     f = w.shape[0]
     k4 = 4 * c
-    tiles = bcb.conv_tiles(b, h, wd, f, cw, pool)
+    tiles = tiles or bcb.conv_tiles(b, h, wd, f, cw, pool)
     ho, wo = bcb.conv_out(h, wd, pool)
     kpad = tiles.ksteps * 8
     nblk = 32 * tiles.nslices
@@ -118,9 +121,8 @@ def emulate(a, w, c, *, tau=None, flip=None, pool=False, trace=None):
         for by in range(tiles.grid[1]):
             n0 = by * nblk
             sb = np.zeros((nblk, tiles.kstride), np.uint32)
-            for fl in range(min(nblk, f - n0)):
-                sb[fl, :4 * cw] = flat_w[(n0 + fl) * 4 * cw:
-                                         (n0 + fl + 1) * 4 * cw]
+            nf = min(nblk, f - n0)
+            sb[:nf, :4 * cw] = flat_w.reshape(f, 4 * cw)[n0:n0 + nf]
             kconst = k4 - 2 * _popc(sb[:, :kpad]).sum(axis=1)
             for warp in range(bcb.WARPS):
                 sl = warp % tiles.nslices
@@ -143,38 +145,44 @@ def emulate(a, w, c, *, tau=None, flip=None, pool=False, trace=None):
                             win = (r >> 4) * 4 + (r & 3) + 4 * mt
                             trace.append((bx, by, 16 * mt + r, win,
                                           (r >> 2) & 3))
-                    acc = np.zeros((32, 4, 4), np.int64)
-                    pa = np.zeros((32, 2), np.int64)
-                    for s in range(tiles.ksteps):
-                        kw = 8 * s + 2 * T
-                        valid = kw < 4 * cw
-                        seg = (kw >= 2 * cw).astype(np.int64)
-                        off = kw + seg * (tiles.pitch - 2 * cw)
-                        pair = []
-                        for base in (base0, base1):
-                            idx = np.where(valid, base + off, 0)
-                            pair.append((np.where(valid, sa[idx], 0),
-                                         np.where(valid, sa[idx + 1], 0)))
-                        (a0x, a0y), (a1x, a1y) = pair
-                        pa[:, 0] += _popc(a0x) + _popc(a0y)
-                        pa[:, 1] += _popc(a1x) + _popc(a1y)
-                        # the fragments: A rows 0-7 from a0 of lanes (g, t),
-                        # rows 8-15 from a1; B column n from lanes (n, t)
-                        alo = np.concatenate([a0x.reshape(8, 4),
-                                              a1x.reshape(8, 4)])
-                        ahi = np.concatenate([a0y.reshape(8, 4),
-                                              a1y.reshape(8, 4)])
-                        for j in range(4):
-                            brow = 32 * sl + 8 * j + G
-                            blo = sb[brow, kw].reshape(8, 4)
-                            bhi = sb[brow, kw + 1].reshape(8, 4)
-                            prod = (_popc(alo[:, None, :] & blo[None])
-                                    + _popc(ahi[:, None, :] & bhi[None])
-                                    ).sum(axis=-1)             # (16, 8)
-                            acc[:, j, 0] += prod[G, 2 * T]
-                            acc[:, j, 1] += prod[G, 2 * T + 1]
-                            acc[:, j, 2] += prod[G + 8, 2 * T]
-                            acc[:, j, 3] += prod[G + 8, 2 * T + 1]
+                    # every K step s at once: lane t of a quad reads the
+                    # step's words 2t and 2t + 1 (kw), the taps' halves
+                    # a pitch apart past 2 Cw words
+                    kw = 8 * np.arange(tiles.ksteps)[:, None] + 2 * T
+                    valid = kw < 4 * cw
+                    seg = (kw >= 2 * cw).astype(np.int64)
+                    off = kw + seg * (tiles.pitch - 2 * cw)
+                    pair = []
+                    for base in (base0, base1):
+                        idx = np.where(valid, base + off, 0)
+                        pair.append((np.where(valid, sa[idx], 0),
+                                     np.where(valid, sa[idx + 1], 0)))
+                    (a0x, a0y), (a1x, a1y) = pair              # (S, 32)
+                    pa = np.stack([(_popc(a0x) + _popc(a0y)).sum(axis=0),
+                                   (_popc(a1x) + _popc(a1y)).sum(axis=0)],
+                                  axis=1)
+                    # the fragments: A rows 0-7 from a0 of lanes (g, t),
+                    # rows 8-15 from a1; B column n of n8 tile j from
+                    # lanes (n, t), row 32 sl + 8 j + n
+                    nsteps = tiles.ksteps
+                    alo = np.concatenate([a0x.reshape(nsteps, 8, 4),
+                                          a1x.reshape(nsteps, 8, 4)], axis=1)
+                    ahi = np.concatenate([a0y.reshape(nsteps, 8, 4),
+                                          a1y.reshape(nsteps, 8, 4)], axis=1)
+                    brow = 32 * sl + 8 * np.arange(4)[:, None] + G  # (4, 32)
+                    blo = sb[brow[None], kw[:, None, :]].reshape(
+                        nsteps, 4, 8, 4)
+                    bhi = sb[brow[None], kw[:, None, :] + 1].reshape(
+                        nsteps, 4, 8, 4)
+                    prod = (_popc(alo[:, None, :, None, :]
+                                  & blo[:, :, None])
+                            + _popc(ahi[:, None, :, None, :]
+                                    & bhi[:, :, None])
+                            ).sum(axis=(0, -1))                # (4, 16, 8)
+                    acc = np.stack([prod[:, G, 2 * T].T,
+                                    prod[:, G, 2 * T + 1].T,
+                                    prod[:, G + 8, 2 * T].T,
+                                    prod[:, G + 8, 2 * T + 1].T], axis=-1)
                     pa0, pa1 = _quad_sum(pa[:, 0]), _quad_sum(pa[:, 1])
                     s0 = kc - 2 * pa0[:, None, None] + 4 * acc[:, :, 0:2]
                     s1 = kc - 2 * pa1[:, None, None] + 4 * acc[:, :, 2:4]

@@ -395,13 +395,14 @@ def test_training_step_on_the_card_equals_the_cpu():
 
 @pytest.mark.gpu
 def test_flash_attention_matches_plain_version_on_the_card():
-    """The flash-attention kernel vs its plain version at three small shapes
+    """The flash-attention kernel vs its plain version at five small shapes
     (G = 3 with a ragged S, whose 16-row fragments straddle positions; G = 4
-    with D = 128; MQA with D = 128, not causal), in both types and every
+    with D = 128; MQA with D = 128, not causal; the scaled() configs' head
+    dims 32 and 16, the latter not causal), in both types and every
     probability type: within 2e-5 where the chain is float32 throughout,
     3e-2 where p or the output is bf16 (repro's tolerances), and at a given
     probability type ten times closer on the mean to the plain version at
-    that type than at the other.  Prefills of a
+    that type than at the other; a head dim of 8 raises.  Prefills of a
     small SmolLM-shaped model through the kernel, float32 and bf16, launch
     it once per layer and match the chunked forward."""
     if not torch.cuda.is_available():
@@ -413,7 +414,9 @@ def test_flash_attention_matches_plain_version_on_the_card():
     gen = torch.Generator().manual_seed(11)
     for b, s, h, kh, d, causal in ((2, 77, 6, 2, 64, True),
                                    (1, 96, 16, 4, 128, True),
-                                   (1, 130, 8, 1, 128, False)):
+                                   (1, 130, 8, 1, 128, False),
+                                   (2, 70, 6, 2, 32, True),
+                                   (1, 90, 4, 4, 16, False)):
         qkv = [torch.randn(shape, generator=gen) for shape in
                ((b, s, h, d), (b, s, kh, d), (b, s, kh, d))]
         for dtype in (torch.float32, torch.bfloat16):
@@ -442,6 +445,10 @@ def test_flash_attention_matches_plain_version_on_the_card():
                     assert e_same * 10 < e_other, (b, s, h, kh, d, dtype,
                                                    probs_bf16, float(e_same),
                                                    float(e_other))
+    # a head dim the kernel lacks is refused on the card, not rerouted
+    q = torch.zeros((1, 8, 2, 8), device="cuda")
+    with pytest.raises(ValueError, match="head dim 8"):
+        fa.flash_attention(q, q, q)
     cfg = get_config("smollm-360m").with_(num_layers=3, d_model=192,
                                           num_heads=6, num_kv_heads=2,
                                           d_ff=256, vocab_size=1000,
@@ -555,3 +562,154 @@ def test_two_replica_failover_on_the_card_matches_the_cpu():
             server.submit_many(n, streams[n][:10])
         labels.append(sorted((r.rid, r.label) for r in server.drain()))
     assert labels[0] == labels[1]
+
+
+@pytest.mark.gpu
+def test_autotune_candidates_are_bit_exact_and_steer_the_card(tmp_path,
+                                                              monkeypatch):
+    """Every candidate of the three tuners' grids at B=8 (the cluster
+    sizes at cifar9_s1 and the 4 x S=4 quad, the staged conv geometries
+    at cifar9_s1) equals the plain version on the card; each tuner
+    records a winner, and the plans' next launch takes it (read from the
+    geometry the wrapper computes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "autotune.json"))
+    autotune.invalidate()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    gen = torch.Generator().manual_seed(32)
+    clusters = []
+    real_geo = mk.cluster_geometry
+    monkeypatch.setattr(mk, "cluster_geometry", lambda spec, c=0: (
+        clusters.append(real_geo(spec, c).cluster) or real_geo(spec, c)))
+    prog = networks.REGISTRY["cifar9_s1"]()
+    plan = interpreter.compile_plan(prog)
+    image = {k: v.to(dev) for k, v in _random_image(prog, gen).items()}
+    frames = _frames(rng, prog, 8).to(dev)
+    want = mk.megakernel_plain(image, frames, spec=plan.mega).float()
+    for c in autotune.CLUSTERS:
+        assert torch.equal(plan.forward_mega(image, frames, device=dev,
+                                             cluster=c)[0], want), c
+    entry = autotune.tune_mega(plan, image, frames, iters=1)
+    formula = real_geo(mk.solo_member_spec(plan.mega)).cluster
+    clusters.clear()
+    plan.forward_mega(image, frames, device=dev)
+    assert clusters == [entry["cluster"] or formula]      # 0: the formula
+    packed = interpreter.fold_params(interpreter.init_params(
+        gen, prog, device="cpu"), prog, packed=True)
+    ref = plan.forward(packed, frames, device=dev)[0]
+    for ns in autotune.NSLICES:
+        for rows in autotune.ROWS:
+            got = plan.forward(packed, frames, device=dev,
+                               conv_tiles=(ns, rows))[0]
+            assert torch.equal(got, ref), (ns, rows)
+    entry = autotune.tune_staged_conv(plan, packed, frames, iters=1)
+    assert autotune.conv_tiles(prog, 8, device=dev) == (
+        entry["nslices"], entry["rows"])
+    progs = {n: networks.REGISTRY[n]() for n in
+             ("cifar9_s4", "cifar9_s4t", "mnist5", "face_detector")}
+    images = {n: _random_image(p, gen) for n, p in progs.items()}
+    cplan, cimage = interpreter.pack_programs(progs, images)
+    cimage = {k: v.to(dev) for k, v in cimage.items()}
+    qframes = tuple(_frames(rng, p, 8).to(dev) for p in progs.values())
+    qwant = mk.composite_plain(cimage, qframes, spec=cplan.spec)
+    for c in autotune.CLUSTERS:
+        got = cplan.forward(cimage, qframes, device=dev, cluster=c)[0]
+        assert all(torch.equal(g, w.float()) for g, w in zip(got, qwant)), c
+    entry = autotune.tune_composite(cplan, cimage, qframes, iters=1)
+    clusters.clear()
+    cplan.forward(cimage, qframes, device=dev)
+    assert clusters == [entry["cluster"] or real_geo(cplan.spec).cluster]
+    autotune.invalidate()
+
+
+@pytest.mark.gpu
+def test_delta_recompute_at_every_cluster_candidate_matches_plain(
+        tmp_path, monkeypatch):
+    """DeltaPlan.forward_delta at every size of tune_mega's grid (the
+    megakernel's cache entry steers it), cifar9_s1 B=8 from a warm state
+    with 8, 5 (lane 0 unchanged: the drain's lane-0 rule) and 0 lanes
+    changed, at two drain schedules: logits, new_last, queue, counts and
+    deltas equal delta_plain on the card; a recorded megakernel entry is
+    the cluster forward_delta launches next."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.binarize import thermometer_pack
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "autotune.json"))
+    autotune.invalidate()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    gen = torch.Generator().manual_seed(42)
+    prog = networks.REGISTRY["cifar9_s1"]()
+    plan, image = interpreter.pack_delta(prog, _random_image(prog, gen))
+    image = {k: v.to(dev) for k, v in image.items()}
+    io = prog.instrs[0]
+    levels = 2 ** io.bits
+    frames = _frames(rng, prog, 8).to(dev)
+    llog = torch.from_numpy(rng.integers(-50, 50, (8, plan.classes),
+                                         dtype=np.int32)).to(dev)
+    ctrl = plan.delta_ctrl(1.0, 8).to(dev)
+    for lanes in (tuple(range(8)), (1, 2, 4, 6, 7), ()):
+        prev = frames.clone()
+        for i in lanes:
+            prev[i, :2, :2] = (prev[i, :2, :2] + levels // 2) % levels
+        last = thermometer_pack(prev, io.bits, io.in_channels, io.channels)
+        for rb in (0, 2):
+            want = mk.delta_plain(image, frames, last, llog, ctrl,
+                                  spec=plan.spec, rb=rb)
+            assert int(want[3][0]) == len(lanes)
+            for c in autotune.CLUSTERS:
+                got = plan.forward_delta(image, frames, last, llog, ctrl,
+                                         device=dev, rb=rb, cluster=c)
+                for g, w in zip(got[2:], (want[1], want[0]) + want[2:]):
+                    assert torch.equal(g, w), (lanes, rb, c)
+    clusters = []
+    real_geo = mk.cluster_geometry
+    monkeypatch.setattr(mk, "cluster_geometry", lambda spec, c=0: (
+        clusters.append(real_geo(spec, c).cluster) or real_geo(spec, c)))
+    for c in (1, 4):
+        autotune.record("mega", autotune.program_key(prog), 8,
+                        {"cluster": c}, device=dev)
+        clusters.clear()
+        plan.forward_delta(image, frames, last, llog, ctrl, device=dev)
+        assert clusters == [c]
+    autotune.invalidate()
+
+
+@pytest.mark.gpu
+def test_adafactor_lm_step_on_the_card_equals_the_cpu():
+    """One adafactor train step of SmolLM's scaled() config in float32
+    from the same state and batch on the card and on the CPU: the loss
+    within 2e-4 and the parameters within ``step_tolerance``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.device import to_device
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.train import steps
+    cfg = get_config("smollm-360m").scaled().with_(
+        dtype="float32", param_dtype="float32", optimizer="adafactor")
+    sched = opt.cosine_schedule(1e-3, 2, 10)
+    optimizer = opt.make("adafactor", sched)
+    state = steps.create_state(cfg, 4, optimizer, device="cpu")
+    batch = dtok.batch_for_step(cfg, 0, global_batch=4, seq_len=64,
+                                device="cpu")
+    out = {}
+    for where in ("cpu", "cuda"):
+        out[where] = steps.build_train_step(cfg, optimizer)(
+            to_device(state, torch.device(where)),
+            {k: v.to(where) for k, v in batch.items()})
+    assert abs(float(out["cuda"][1]["loss"])
+               - float(out["cpu"][1]["loss"])) <= 2e-4
+    _, grads = opt.value_and_grad(
+        lambda p: steps.make_loss_fn(cfg)(p, batch), state["params"])
+    want = out["cpu"][0]["params"]
+    bounds = opt.step_tolerance(want, grads, float(sched(0)))
+    for w, g, b in zip(opt.tree_leaves(want),
+                       opt.tree_leaves(out["cuda"][0]["params"]),
+                       opt.tree_leaves(bounds)):
+        assert bool((g.cpu() - w).abs().le(b).all())

@@ -323,6 +323,60 @@ def emulate_frame(stages, m, image, frame, geo, words=None):
     return out
 
 
+def emulate_delta(stages, image, frames, last, llog, ctrl, geo, *, bb=8,
+                  rb=0, check_every=1, memo=None):
+    """``csrc/delta.cu``'s three kernels at the recompute's cluster
+    geometry ``geo``: the gate's words (thermometer_pack; the split over
+    the gate's blocks is held by
+    :func:`test_gate_split_pack_and_partials_match_plain`) and deltas, the
+    change scan's queue and counts, then the
+    recompute_kernel cluster by cluster: cluster ``row`` splits the copy of
+    new_last[row] over its ranks (every word written once), and runs
+    :func:`emulate_frame` on the gate's words of frame ``queue[row]`` for
+    rows under K, or of frame 0 at row K under the drain's lane-0 rule.
+    Returns delta_plain's outputs as numpy arrays; ``memo`` caches a
+    frame's emulated logits (the same words give the same logits)."""
+    _, h, w, cin, bits, channels = stages[0]
+    b = frames.shape[0]
+    cur = _u32(thermometer_pack(frames, bits, cin, channels)).reshape(b, -1)
+    lw = _u32(last).reshape(b, -1)
+    thr, n_real = (int(v) for v in ctrl.reshape(2))
+    live = np.arange(b) < n_real
+    deltas = np.where(live, _popc(cur ^ lw).sum(axis=1), 0)
+    changed = live & (deltas >= thr)
+    k = int(changed.sum())
+    queue = np.zeros(b, np.int64)
+    queue[:k] = np.flatnonzero(changed)
+    bpad, rb = mk.cascade_schedule(b, bb, rb)
+    slots = mk.drain_slots(k, bpad, rb, check_every)
+    logits = llog.numpy().astype(np.int64)
+    new_last = np.zeros_like(lw)
+    written = np.zeros(lw.shape, np.int64)
+    threads = mk.CLUSTER_WARPS * 32
+    memo = {} if memo is None else memo
+    for row in range(b):
+        src = cur[row] if changed[row] else lw[row]
+        for rank in range(geo.cluster):
+            for i0 in range(rank * threads, lw.shape[1],
+                            geo.cluster * threads):
+                span = slice(i0, i0 + threads)
+                new_last[row, span] = src[span]
+                written[row, span] += 1
+        if row < k:
+            frame = int(queue[row])
+        elif row == k and min(slots, bpad) > k and queue[0] != 0:
+            frame = 0
+        else:
+            continue
+        if frame not in memo:
+            memo[frame] = emulate_frame(stages, 0, image, None, geo,
+                                        words=cur[frame])
+        logits[frame] = memo[frame]
+    assert (written == 1).all(), "new_last"
+    return (logits, new_last.reshape(_u32(last).shape), queue,
+            np.array([k, slots]), deltas)
+
+
 def _member_case(name, b, seed):
     prog = networks.REGISTRY[name]()
     mega = interpreter.compile_plan(prog).mega

@@ -323,8 +323,14 @@ def test_none_gradients_count_as_zeros_and_adafactor_is_not_ported():
     assert float(gn) == pytest.approx(2 ** 0.5)
     assert all(torch.equal(new[k], zero[k]) for k in p)
     assert float(new["a"][0]) < 1.0                  # decayed, no gradient
-    with pytest.raises(NotImplementedError, match="1.11"):
-        topt.make("adafactor", topt.cosine_schedule(1e-2, 1, 10))
+    # adafactor is ported now (tests/test_torch_train_lm.py holds it
+    # against repro's): a None gradient counts as zeros there too
+    o = topt.make("adafactor", topt.cosine_schedule(1e-2, 1, 10))
+    new, _, _ = o.update({"a": None, "b": torch.ones(2)}, o.init(p), p, 0)
+    zero, _, _ = o.update({"a": torch.zeros(3), "b": torch.ones(2)},
+                          o.init(p), p, 0)
+    assert all(torch.equal(new[k], zero[k]) for k in p)
+    assert torch.equal(new["a"], p["a"])             # no decay, no step
 
 
 # ---------------------------------------------------------------------------
