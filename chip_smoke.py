@@ -12,7 +12,9 @@ owner ``CascadePipeline``, fused and host-side; the delta-gated
 folded and served through ``ChipServer``, and a BitLinear layer at
 SmolLM-360M's MLP width; ``repro_torch.launch.serve`` serving SmolLM-360M
 at full width, prefill through the flash-attention kernel, then greedy
-decode; ``cifar9_s1`` under the continuous policy on Poisson and bursty
+decode, and the same serve of OLMoE-1B-7B (6.92 B parameters, 64 experts
+a layer on the dense MoE path) and RWKV6-3B at full width; ``cifar9_s1``
+under the continuous policy on Poisson and bursty
 traces, and a ``ServeFleet`` of two replicas with a killed host and a
 warm-started replacement), checks the answers against the float
 reference, and times every kernel (a call in a CUDA graph) beside its
@@ -26,8 +28,12 @@ float reference; the fused cascade vs the float references and the host
 rule; SmolLM-360M in float32: prefill logits through the kernel == through
 its plain version, prefill + 4 decode steps == the teacher-forced
 forward; in bf16 the kernel at each probability type == chunked attention
-at the same one), 5 serve (the chip tier; the LM serve, its flash launches
-and bf16 greedy agreement between kernel and plain runs), 5b continuous
+at the same one; OLMoE-1B-7B and RWKV6-3B at full width in float32, the
+same checks where both runs routed every token alike (a token routed
+differently must be a near-tie, and they are counted); Jamba at scaled()
+size, the card == the CPU), 5 serve (the chip tier; the LM serves of
+SmolLM-360M, OLMoE-1B-7B and RWKV6-3B, their flash launches, and bf16
+greedy agreement between kernel and plain runs for SmolLM), 5b continuous
 serving and the fleet (the continuous ladder 1-32 held bit-exact for the
 megakernel, a staged lane and the composite; 400 frames at 200 frames/s
 under the continuous and the static policy; a shared continuous
@@ -47,8 +53,9 @@ BitLinear's packed path against its STE forward), 6b LM training
 (SmolLM-360M with ``quant="binary"`` at full width, 5 adamw steps of 8 x
 256 tokens; the scaled() step on the card against the CPU's; the
 binary-LM example twin end to end, its decode's prefill through the
-flash kernel at head dim 32), 7 times (and the LM
-serve's prefill ms, decode ms per token, tok/s and device idle share).
+flash kernel at head dim 32), 7 times (row 10 also at OLMoE's prefill
+shape; the SmolLM and OLMoE serves' prefill ms, decode ms per token,
+tok/s and device idle share).
 Near the end come ``{"kernels": [...]}`` and the card's name and power
 limit on lines of their own; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -180,6 +187,7 @@ LM_TOL = 2e-4
 # probability types (FLASH_PROBS)
 FLASH_SHAPES = (("SmolLM prefill", 4, 512, 15, 5, 64, True),
                 ("SmolLM prefill", 1, 512, 15, 5, 64, True),
+                ("OLMoE prefill", 4, 512, 16, 16, 128, True),
                 ("MHA", 2, 256, 8, 8, 64, True),
                 ("MQA", 2, 256, 8, 1, 64, True),
                 ("D=128, G=4", 1, 384, 32, 8, 128, True),
@@ -210,6 +218,17 @@ DELTA_TUNED_LANES = (tuple(range(BATCH)), (1, 2, 4, 6, 7), ())
 STAGED_TUNED = ("cifar9_s1", "mnist5")
 # phase 6b: SmolLM-360M's binary training step at full width
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 256, 5
+# the expert and recurrent blocks (phases 4, 5 and 7): OLMoE-1B-7B and
+# RWKV6-3B at full width, Jamba at scaled() size (full width needs more
+# than one card); float32 checks (batch, prompt, decode steps), then
+# serves in the configs' own dtypes.  RWKV6's WKV is a per-token loop of
+# small launches (32 layers x the prompt), so its prompt is 128
+MOE_ARCH, RWKV_ARCH, HYBRID_ARCH = "olmoe-1b-7b", "rwkv6-3b", "jamba-v0.1-52b"
+MOE_CHECK, RWKV_CHECK, HYBRID_CHECK = (2, 512, 4), (2, 128, 4), (2, 24, 4)
+MOE_SERVE = ("--arch", MOE_ARCH, "--requests", "8", "--batch", "4",
+             "--prompt-len", "512", "--gen-len", "32")
+RWKV_SERVE = ("--arch", RWKV_ARCH, "--requests", "8", "--batch", "4",
+              "--prompt-len", "128", "--gen-len", "16")
 
 
 def sh(*cmd: str) -> str:
@@ -217,8 +236,12 @@ def sh(*cmd: str) -> str:
                           text=True).stdout.strip()
 
 
+_START = time.perf_counter()
+
+
 def phase(n, title: str) -> None:
-    print(f"\n=== phase {n}: {title}", flush=True)
+    print(f"\n=== phase {n} (at {time.perf_counter() - _START:.1f} s): "
+          f"{title}", flush=True)
 
 
 class Card:
@@ -330,17 +353,22 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_profile(fn, iters: int):
+def device_profile(fn, iters: int, warmup: bool = True):
     """Host wall time of ``iters`` calls of ``fn`` (ending in a
     synchronize) and the device time of the CUDA kernels they ran, from
     ``torch.profiler``: ``(wall_ms, {kernel name: device ms})``, the dict
-    empty when the profiler records no device activity."""
+    empty when the profiler records no device activity.  One call warms
+    up first unless ``warmup`` is False (``fn`` ran warm before)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: every reading here is a kernel's device time,
+    # and the host ops' events of a whole LM serve took the profiler
+    # minutes to process (PR 23's smoke: 248 s for SmolLM-360M's serve
+    # and breakdown, 212 s for OLMoE-1B-7B's)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -642,6 +670,289 @@ def lm_serve(card):
           f"before the first divergence (reported, not asserted: bf16 rounds "
           f"the two attentions' outputs apart)")
     return report, counts
+
+
+def batch_breakdown(card, dev, cfg, params, batch: int, prompt: int,
+                    gen_len: int, iters: int = 3) -> None:
+    """Where one full batch's time goes in ``launch.serve``'s steps: a
+    prefill of ``batch`` prompts and 8 decode steps, each profiled apart
+    over ``iters`` calls (host wall a call or step, device busy, idle
+    share, the kernels by family: flash, cuBLAS, elementwise)."""
+    from repro_torch.data import tokens as dtok
+    from repro_torch.train import serve
+    toks = torch.cat([dtok.batch_for_step(cfg, i, global_batch=1,
+                                          seq_len=prompt,
+                                          device=dev)["tokens"]
+                      for i in range(batch)])
+    prefill = serve.build_prefill_step(cfg, max_len=prompt + gen_len)
+    decode = serve.build_decode_step(cfg)
+    state = {}
+
+    def prefill_once():
+        state["logits"], state["cache"] = prefill(params, {"tokens": toks})
+
+    def decode_steps():
+        cur = serve.sample(None, state["logits"])
+        cache = state["cache"]
+        for t in range(8):
+            logits, cache = decode(params, cache, cur, prompt + t)
+            cur = serve.sample(None, logits)
+
+    for label, fn, per in (("prefill", prefill_once, 1),
+                           ("decode", decode_steps, 8)):
+        wall_ms, kernels = device_profile(fn, iters)
+        calls = iters * per
+        line = (f"  LM {cfg.name} {label} batch {batch} (prompt {prompt}), "
+                f"profiled: host {wall_ms / calls:.3f} ms a "
+                f"{'step' if per > 1 else 'call'}")
+        if kernels:
+            busy = sum(kernels.values())
+            line += (f", device busy {busy / calls:.3f} ms (idle share "
+                     f"{1 - busy / wall_ms:.4f}), {len(kernels)} kernel "
+                     f"names; " + kernel_split(kernels, calls,
+                                               ("flash_fwd", "nvjet",
+                                                "gemm", "elementwise")))
+        else:
+            line += ", device time not measured (no device activity recorded)"
+        print(line + f" [{card.smi}]")
+
+
+def moe_layers(cfg) -> int:
+    return sum(k.endswith("_moe")
+               for k in cfg.prefix + cfg.pattern * cfg.num_pattern_repeats)
+
+
+def attn_layers(cfg) -> int:
+    from repro_torch.models import transformer
+    return sum(k in transformer.ATTN_KINDS
+               for k in cfg.prefix + cfg.pattern * cfg.num_pattern_repeats)
+
+
+def routed_err(got, want, first, positions, tol: float, what: str) -> float:
+    """Max abs difference of (B, P, ...) ``got`` and ``want`` at the
+    positions both runs' routings allow: before each row's first token
+    routed differently (``moe.route_divergence``, which has already held
+    every such token to a near-tie).  Raises beyond rtol = atol = tol."""
+    keep = torch.tensor([[p < first.get(r, float("inf")) for p in positions]
+                         for r in range(got.shape[0])], device=got.device)
+    if not keep.any():
+        raise AssertionError(f"{what}: no position left to compare")
+    g, w = got[keep].float(), want[keep].float()
+    err = float((g - w).abs().max())
+    if not torch.allclose(g, w, rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: max abs err {err} beyond {tol}")
+    return err
+
+
+def decode_vs_teacher(params, cfg, toks, s: int, k: int, what: str):
+    """Prefill s tokens of ``toks`` (B, s + k) and decode k steps through
+    ``train.serve``'s steps, against the teacher-forced forward (chunked
+    attention) at positions s-1 .. s+k-1, within LM_TOL where both runs
+    routed alike.  Returns (max abs err, tokens routed differently,
+    argmax agreement)."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import serve
+    n = moe_layers(cfg)
+    with moe.record_routes() as rec_t:
+        h, _, _ = transformer.forward(params, cfg, {"tokens": toks},
+                                      mode="train")
+        teacher = transformer.lm_logits(params, cfg, h[:, s - 1:])
+    del h
+    with moe.record_routes() as rec_r:
+        logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(
+            params, {"tokens": toks[:, :s]})
+        outs = [logits]
+        decode = serve.build_decode_step(cfg)
+        for i in range(k):
+            logits, cache = decode(params, cache, toks[:, s + i][:, None],
+                                   s + i)
+            outs.append(logits)
+    got = torch.cat(outs, dim=1)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    first, n_diff = moe.route_divergence(
+        moe.route_table(rec_r, [(0, s)] + [(s + i, 1) for i in range(k)], n),
+        moe.route_table(rec_t, [(0, s + k)], n))
+    err = routed_err(got, teacher, first, range(s - 1, s + k), LM_TOL,
+                     f"{what}: prefill + {k} decode steps vs the "
+                     f"teacher-forced forward")
+    agree = float((got.argmax(-1) == teacher.argmax(-1)).float().mean())
+    return err, n_diff, agree
+
+
+def expert_recurrent_checks(dev) -> None:
+    """Phase 4's part for the expert and recurrent blocks, one parameter
+    set on the card at a time, all in float32 within LM_TOL: OLMoE-1B-7B
+    at full width, prefill logits through the flash kernel (a launch a
+    layer) == through its plain version, and prefill + decode steps ==
+    the teacher-forced forward, each where both runs chose the same
+    experts (every token routed differently must be a near-tie, their
+    count printed); RWKV6-3B at full width, prefill + decode ==
+    teacher-forced (no flash launch); Jamba at scaled() size with two
+    pattern repeats, prefill + decode on the card == on the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import serve
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH).with_(dtype="float32")
+    params = transformer.init_params(cfg, seed=3, device=dev)
+    nparams = sum(p.numel() for p in tree_leaves(params))
+    b, s, k = MOE_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (b, s + k),
+                         generator=torch.Generator().manual_seed(6),
+                         dtype=torch.int32).to(dev)
+    n = moe_layers(cfg)
+    logits, tables = {}, {}
+    for plain in (False, True):
+        ctx = plain_attention() if plain else contextlib.nullcontext()
+        ops.reset_launch_counts()
+        with ctx, moe.record_routes() as rec:
+            h, _, _ = transformer.forward(params, cfg,
+                                          {"tokens": toks[:, :s]},
+                                          mode="prefill")
+            logits[plain] = transformer.lm_logits(params, cfg, h)
+        launched = ops.launch_counts()["flash_attention"]
+        if launched != (0 if plain else attn_layers(cfg)):
+            raise AssertionError(f"{MOE_ARCH} prefill (plain={plain}) "
+                                 f"launched flash attention {launched} "
+                                 f"times")
+        tables[plain] = moe.route_table(rec, [(0, s)], n)
+    del h
+    first, n_diff = moe.route_divergence(tables[False], tables[True])
+    err = routed_err(logits[False], logits[True], first, range(s), LM_TOL,
+                     f"{MOE_ARCH} prefill logits, kernel vs plain")
+    print(f"  {MOE_ARCH} float32 ({nparams / 1e9:.3f} B params, {n} MoE "
+          f"layers of {cfg.moe.num_experts} experts, top-{cfg.moe.top_k}), "
+          f"B={b}, S={s}: prefill logits through the kernel "
+          f"({attn_layers(cfg)} launches) == through its plain version "
+          f"(max abs err {err:.3e}, tolerance {LM_TOL}; logits max "
+          f"{float(logits[True].abs().max()):.3f}); tokens routed "
+          f"differently (near-ties): {n_diff}")
+    del logits
+    err, n_diff, agree = decode_vs_teacher(params, cfg, toks, s, k, MOE_ARCH)
+    print(f"  {MOE_ARCH} float32: prefill {s} + {k} decode steps == the "
+          f"teacher-forced forward (chunked attention) at positions "
+          f"{s - 1}..{s + k - 1} (max abs err {err:.3e}, tolerance "
+          f"{LM_TOL}; argmax agreement {agree:.3f}); tokens routed "
+          f"differently (near-ties): {n_diff}")
+    del params, toks
+    torch.cuda.empty_cache()
+
+    cfg = get_config(RWKV_ARCH).with_(dtype="float32")
+    params = transformer.init_params(cfg, seed=4, device=dev)
+    nparams = sum(p.numel() for p in tree_leaves(params))
+    b, s, k = RWKV_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (b, s + k),
+                         generator=torch.Generator().manual_seed(7),
+                         dtype=torch.int32).to(dev)
+    ops.reset_launch_counts()
+    err, _, agree = decode_vs_teacher(params, cfg, toks, s, k, RWKV_ARCH)
+    if ops.launch_counts()["flash_attention"]:
+        raise AssertionError(f"{RWKV_ARCH} launched flash attention")
+    print(f"  {RWKV_ARCH} float32 ({nparams / 1e9:.3f} B params, "
+          f"{cfg.num_layers} rwkv blocks, per-token WKV), B={b}: prefill "
+          f"{s} + {k} decode steps == the teacher-forced forward (max abs "
+          f"err {err:.3e}, tolerance {LM_TOL}; argmax agreement "
+          f"{agree:.3f}); no flash launch")
+    del params, toks
+    torch.cuda.empty_cache()
+
+    cfg = get_config(HYBRID_ARCH).scaled().with_(dtype="float32",
+                                                 param_dtype="float32")
+    cfg = cfg.with_(num_layers=2 * len(cfg.pattern))
+    cpu_params = transformer.init_params(cfg, seed=5, device="cpu")
+    b, s, k = HYBRID_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (b, s + k),
+                         generator=torch.Generator().manual_seed(8),
+                         dtype=torch.int32)
+    n = moe_layers(cfg)
+    segments = [(0, s)] + [(s + i, 1) for i in range(k)]
+    out = []
+    for where in (torch.device("cpu"), dev):
+        params = to_device(cpu_params, where)
+        t = toks.to(where)
+        ops.reset_launch_counts()
+        with moe.record_routes() as rec:
+            logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(
+                params, {"tokens": t[:, :s]})
+            outs = [logits]
+            decode = serve.build_decode_step(cfg)
+            for i in range(k):
+                logits, cache = decode(params, cache, t[:, s + i][:, None],
+                                       s + i)
+                outs.append(logits)
+        launched = ops.launch_counts()["flash_attention"]
+        if launched != (attn_layers(cfg) if where.type == "cuda" else 0):
+            raise AssertionError(f"{HYBRID_ARCH} on {where} launched flash "
+                                 f"attention {launched} times")
+        out.append((torch.cat(outs, dim=1).cpu(),
+                    moe.route_table(rec, segments, n)))
+    (want, cpu_routes), (got, card_routes) = out
+    first, n_diff = moe.route_divergence(card_routes, cpu_routes)
+    err = routed_err(got, want, first,
+                     range(s - 1, s + k), LM_TOL,
+                     f"{HYBRID_ARCH} scaled(), the card vs the CPU")
+    print(f"  {HYBRID_ARCH} scaled() float32 ({cfg.num_layers} layers: "
+          f"{'/'.join(cfg.pattern)} x 2, head dim {cfg.head_dim}), B={b}: "
+          f"prefill {s} + {k} decode steps on the card (flash "
+          f"{attn_layers(cfg)} launches) == on the CPU (max abs err "
+          f"{err:.3e}, tolerance {LM_TOL}); tokens routed differently "
+          f"(near-ties): {n_diff}")
+    print(f"  expert and recurrent checks took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def expert_recurrent_serve(card):
+    """Phase 5's part: ``repro_torch.launch.serve.main`` on OLMoE-1B-7B at
+    full width (bf16 activations, float32 parameters) and on RWKV6-3B
+    (prompt 128), the flash kernel launched once a layer of each OLMoE
+    prefill and never for RWKV6.  Returns ({arch: report}, the flash
+    launches)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lm
+    reports, flash = {}, 0
+    torch.cuda.empty_cache()
+    for argv in (MOE_SERVE, RWKV_SERVE):
+        opts = dict(zip(argv[::2], argv[1::2]))
+        arch, gen_len = opts["--arch"], int(opts["--gen-len"])
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        with quiet():
+            report = lm.main(list(argv))
+        counts = ops.launch_counts()
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = attn_layers(cfg) * len(report.prefill_ms)
+        if counts != want:
+            raise AssertionError(f"{arch} serve launches {counts}, want "
+                                 f"{want}")
+        if sorted(report.tokens) != list(range(int(opts["--requests"]))) \
+                or any(len(t) != gen_len
+                       or not all(0 <= x < cfg.vocab_size for x in t)
+                       for t in report.tokens.values()):
+            raise AssertionError(f"{arch} serve: missing requests or bad "
+                                 f"token ids")
+        print(f"  LM serve {arch} ({cfg.dtype} activations, "
+              f"{cfg.param_dtype} params; {report.served} requests, slots "
+              f"of {opts['--batch']}, prompt {opts['--prompt-len']}, "
+              f"{gen_len} tokens): {report.tokens_per_s:.2f} tok/s; "
+              f"prefill {[round(x, 3) for x in report.prefill_ms]} ms by "
+              f"batch, decode "
+              f"{[round(x, 3) for x in report.decode_ms_per_token]} "
+              f"ms/token by batch; flash_attention launched "
+              f"{counts['flash_attention']} times = {attn_layers(cfg)} per "
+              f"prefill; took {time.perf_counter() - t0:.1f} s (first "
+              f"serve, parameter init included) [{card.smi}]")
+        reports[arch] = report
+        flash += counts["flash_attention"]
+        torch.cuda.empty_cache()
+    return reports, flash
 
 
 def member_word_ops(stages, batch: int) -> int:
@@ -1960,7 +2271,7 @@ def main() -> None:
                         got, want, fa.flash_attention_plain(
                             q, k, v, causal=causal,
                             probs_bf16=not probs_bf16), what)
-                if dtype == torch.bfloat16 and label == "SmolLM prefill":
+                if dtype == torch.bfloat16 and label.endswith("prefill"):
                     errs["flash_attention"] = max(errs["flash_attention"],
                                                   err)
                 print(f"  {what}: max abs err {err:.3e} (tolerance {tol})"
@@ -2073,6 +2384,7 @@ def main() -> None:
               f"rule, rec[:E] == float reference on the queued frames")
 
     lm_checks(dev)
+    expert_recurrent_checks(dev)
 
     # -- 5. serve ------------------------------------------------------------
     phase(5, f"serve {SERVE_REQUESTS} requests through ChipServer "
@@ -2337,6 +2649,8 @@ def main() -> None:
 
     lm_report, lm_counts = lm_serve(card)
     launches["flash_attention"] = lm_counts["flash_attention"]
+    er_reports, er_flash = expert_recurrent_serve(card)
+    launches["flash_attention"] += er_flash
 
     # -- 5b. continuous serving and the fleet --------------------------------
     phase("5b", f"continuous serving (SLO {CONT_SLO_MS:.0f} ms, batch "
@@ -2398,6 +2712,7 @@ def main() -> None:
     phase(7, f"times (CUDA-graph events, with CUDA events back to back and "
              f"torch.profiler device time beside them, warm L2) "
              f"[{card.smi}]")
+    t7 = time.perf_counter()
     rows = {}
 
     # timed_by names what ms and library_ms measure: "cuda_graph_events",
@@ -2964,6 +3279,63 @@ def main() -> None:
           f"{row_ms * card.sms / tiles * 1e3:.3f} us a 64 x 64 block-tile "
           f"an SM ({tiles} block-tiles)")
 
+    # flash attention at OLMoE-1B-7B's prefill (B=4, S=512, H=KH=16,
+    # D=128, bf16): a second shape of row 10, at probs_bf16=True like for
+    # like with SDPA, the serve's own float32 p (OLMoE's attn_probs_bf16 is
+    # False) beside it; the same bound and library call as above
+    t_flash = time.perf_counter()
+    _, b, sq, h, kh, d, causal = next(x for x in FLASH_SHAPES
+                                      if x[0] == "OLMoE prefill")
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16().to(dev)
+               for shape in ((b, sq, h, d), (b, sq, kh, d), (b, sq, kh, d)))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    nbytes = q.element_size() * 2 * (q.numel() + k.numel())
+    flops = attention_flops(b, sq, h, d, causal)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOP_PER_S[torch.bfloat16] * 1e3
+    bound = (max(t_bytes, t_ops),
+             "bytes" if t_bytes >= t_ops else "operations")
+
+    def lib():
+        return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+    lib_events = time_ms(lib, 200, warmup=20)
+    lib_device = device_ms(lib, 50)
+    lib_ms = graph_ms(lib, GRAPH_CALLS)
+    for probs_bf16 in FLASH_PROBS:
+        kw = dict(causal=causal, probs_bf16=probs_bf16)
+
+        def kernel():
+            return fa.flash_attention(q, k, v, **kw)
+
+        events = time_ms(kernel, 200, warmup=20)
+        ms = graph_ms(kernel, GRAPH_CALLS)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                           5)
+        shape = (f"OLMoE prefill B={b} S={sq} H={h} KH={kh} D={d} bf16 "
+                 f"probs_bf16={probs_bf16}")
+        if probs_bf16:
+            row("flash_attention", ms, plain_ms, nbytes, 0, lib_ms, bound,
+                events=(events, lib_events,
+                        device_ms(kernel, 50, "flash_fwd"), lib_device),
+                shape=shape)
+        else:
+            print(f"  flash_attention {shape}: {ms:.5f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}), "
+                  f"library {lib_ms:.5f} ms (timed by cuda_graph_events) "
+                  f"[{card.smi}]")
+        print(f"    {shape}: {flops / 1e9:.3f} GFLOP causal, "
+              f"{nbytes / 1e6:.2f} MB; kernel {ms:.5f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), SDPA {lib_ms:.5f} ms "
+              f"({flops / lib_ms / 1e9:.2f} TFLOP/s); host path a call (CUDA "
+              f"events back to back): kernel {events:.4f} ms, SDPA "
+              f"{lib_events:.4f} ms")
+    print(f"  row 10 at OLMoE's shape took "
+          f"{time.perf_counter() - t_flash:.1f} s")
+
+    print(f"  phase 7's kernel rows took {time.perf_counter() - t7:.1f} s")
+    t_lm = time.perf_counter()
+
     # the LM serve, warm, then profiled: prefill ms, decode ms a token,
     # tok/s, and the device's idle share over the whole serve (parameter
     # init and the host's prompt generation included)
@@ -2997,46 +3369,62 @@ def main() -> None:
     # where a batch's time goes: one full-batch prefill and decode steps,
     # profiled apart (host wall vs device busy, flash's share of prefill)
     from repro_torch.configs.registry import get_config
-    from repro_torch.data import tokens as dtok
     from repro_torch.models import transformer
-    from repro_torch.train import serve as lm_steps
     cfg = get_config(LM_ARCH)
     params = transformer.init_params(cfg, seed=0, device=dev)
-    toks = torch.cat([dtok.batch_for_step(cfg, i, global_batch=1,
-                                          seq_len=LM_PROMPT,
-                                          device=dev)["tokens"]
-                      for i in range(LM_BATCH)])
-    prefill = lm_steps.build_prefill_step(cfg, max_len=LM_PROMPT + LM_GEN)
-    decode = lm_steps.build_decode_step(cfg)
-    state = {}
+    batch_breakdown(card, dev, cfg, params, LM_BATCH, LM_PROMPT, LM_GEN)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  {LM_ARCH}'s serve profile and batch breakdown took "
+          f"{time.perf_counter() - t_lm:.1f} s")
 
-    def prefill_once():
-        state["logits"], state["cache"] = prefill(params, {"tokens": toks})
+    # the OLMoE-1B-7B serve, warm since phase 5, profiled: prefill ms,
+    # decode ms a token, tok/s, and the device's idle share over the whole
+    # serve (the 6.92 B float32 parameters' init included); then its batch
+    # of 4 and RWKV6-3B's taken apart as SmolLM's above
+    t_moe = time.perf_counter()
+    warm = []
 
-    def decode_steps():
-        cur = lm_steps.sample(None, state["logits"])
-        cache = state["cache"]
-        for t in range(8):
-            logits, cache = decode(params, cache, cur, LM_PROMPT + t)
-            cur = lm_steps.sample(None, logits)
+    def serve_moe():
+        with quiet():
+            warm.append(lm.main(list(MOE_SERVE)))
 
-    for label, fn, per in (("prefill", prefill_once, 1),
-                           ("decode", decode_steps, 8)):
-        wall_ms, kernels = device_profile(fn, 3)
-        calls = 3 * per
-        line = (f"  LM {label} batch {LM_BATCH} (prompt {LM_PROMPT}), "
-                f"profiled: host {wall_ms / calls:.3f} ms a "
-                f"{'step' if per > 1 else 'call'}")
-        if kernels:
-            busy = sum(kernels.values())
-            line += (f", device busy {busy / calls:.3f} ms (idle share "
-                     f"{1 - busy / wall_ms:.4f}), {len(kernels)} kernel "
-                     f"names; " + kernel_split(kernels, calls,
-                                               ("flash_fwd", "nvjet",
-                                                "gemm", "elementwise")))
-        else:
-            line += ", device time not measured (no device activity recorded)"
-        print(line + f" [{card.smi}]")
+    wall_ms, kernels = device_profile(serve_moe, 1, warmup=False)
+    rep = warm[-1]
+    line = (f"  LM serve {MOE_ARCH} (warm): prefill "
+            f"{[round(x, 3) for x in rep.prefill_ms]} ms by batch, decode "
+            f"{[round(x, 3) for x in rep.decode_ms_per_token]} ms/token by "
+            f"batch, {rep.tokens_per_s:.2f} tok/s; profiled serve "
+            f"{wall_ms:.1f} ms")
+    if kernels:
+        busy = sum(kernels.values())
+        line += (f", device busy {busy:.1f} ms (idle share "
+                 f"{1 - busy / wall_ms:.4f}), {len(kernels)} kernel names; "
+                 + kernel_split(kernels, 1, ("flash_fwd", "nvjet", "gemm",
+                                             "elementwise")))
+    else:
+        line += ", device time not measured (no device activity recorded)"
+    print(line + f" [{card.smi}]")
+    # RWKV6-3B's prefill is ~40k small launches: one profiled call each
+    for argv, iters in ((MOE_SERVE, 3), (RWKV_SERVE, 1)):
+        opts = dict(zip(argv[::2], argv[1::2]))
+        cfg = get_config(opts["--arch"])
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        batch_breakdown(card, dev, cfg, params, int(opts["--batch"]),
+                        int(opts["--prompt-len"]), int(opts["--gen-len"]),
+                        iters)
+        del params
+        torch.cuda.empty_cache()
+    print(f"  {MOE_ARCH}'s serve profile and the batch breakdowns of "
+          f"{MOE_ARCH} and {RWKV_ARCH} took "
+          f"{time.perf_counter() - t_moe:.1f} s")
+    first = er_reports[MOE_ARCH]
+    print(f"  LM serve {MOE_ARCH} first run (phase 5): prefill "
+          f"{first.prefill_ms} ms, decode {first.decode_ms_per_token} "
+          f"ms/token, {first.tokens_per_s:.2f} tok/s; {RWKV_ARCH}: prefill "
+          f"{er_reports[RWKV_ARCH].prefill_ms} ms, decode "
+          f"{er_reports[RWKV_ARCH].decode_ms_per_token} ms/token, "
+          f"{er_reports[RWKV_ARCH].tokens_per_s:.2f} tok/s")
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(card.smi)

@@ -51,7 +51,7 @@ def markov_chain(x0: torch.Tensor, noise: torch.Tensor, rand: torch.Tensor,
 def _gen(gen: torch.Generator, cfg, batch: int, seq_len: int):
     if cfg.num_codebooks > 1:
         raise NotImplementedError("multi-codebook token streams are not "
-                                  "ported yet (ROADMAP §1 item 5)")
+                                  "ported yet (ROADMAP §1 item 5.4)")
     v = cfg.vocab_size
     x0 = torch.randint(0, v, (batch,), generator=gen)
     noise = torch.rand((batch, seq_len + 1), generator=gen) < 0.1

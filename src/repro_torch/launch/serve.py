@@ -15,8 +15,16 @@ All timing runs through one injectable monotonic clock (``clock=``,
 unless ``--device cpu``, and eagerly where ``repro`` ``jax.jit``\\ s::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+        --prompt-len 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --device cpu --scaled
+
+Every config but MusicGen's (its codebooks are not ported) serves:
+attention, MoE (the dense path: every expert on every token), Mamba and
+RWKV-6 blocks; Jamba at full width needs more than one card, so only
+``--scaled``.
 
 Beside ``repro``'s per-request and summary lines it prints the prefill
 time of each batch and the decode time per token (host clock around

@@ -1,0 +1,232 @@
+"""RWKV-6 "Finch" block: data-dependent-decay linear attention.
+
+The counterpart of ``repro.models.rwkv6``: the ddlerp token shift
+(LoRA-modulated), a per-channel data-dependent decay w_t =
+exp(-exp(w0 + lora(x))), the bonus-u WKV recurrence with a float32
+(head, hs, hs) state, the per-head norm and the squared-ReLU channel mix.
+The WKV recurrence runs token by token (a Python loop where ``repro``
+runs ``lax.scan``; a decode step is one step), or chunked
+(:func:`_wkv_chunked`) when the config sets ``rwkv.chunk`` and it
+divides the sequence.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import eff_d_ff
+from repro_torch.models import common
+
+_MIX_KEYS = ("w", "k", "v", "r", "g")
+
+
+def init(gen: torch.Generator, cfg, dtype=torch.float32, device=None,
+         lead=()):
+    d = cfg.d_model
+    rc = cfg.rwkv
+    hs = rc.head_size
+    nh = d // hs
+    lead = tuple(lead)
+    kw = dict(dtype=dtype, device=device, lead=lead)
+
+    def normal(shape, scale=0.01):
+        return torch.randn(lead + shape, generator=gen, dtype=dtype,
+                           device=device).mul_(scale)
+
+    def full(value, dt=dtype):
+        return torch.full(lead + (d,), value, dtype=dt, device=device)
+
+    ff = eff_d_ff(cfg)
+    return {
+        # token-shift ddlerp
+        "mu_x": full(0.5),
+        "mu": {k: full(0.5) for k in _MIX_KEYS},
+        "mix_w1": normal((d, 5 * rc.mix_lora)),
+        "mix_w2": normal((5, rc.mix_lora, d)),
+        # data-dependent decay
+        "w0": full(-5.0, torch.float32),
+        "w1": normal((d, rc.decay_lora)),
+        "w2": normal((rc.decay_lora, d)),
+        "u": torch.zeros(lead + (nh, hs), dtype=torch.float32,
+                         device=device),
+        # projections
+        "wr": common.linear_init(gen, d, d, **kw),
+        "wk": common.linear_init(gen, d, d, **kw),
+        "wv": common.linear_init(gen, d, d, **kw),
+        "wg": common.linear_init(gen, d, d, **kw),
+        "wo": common.linear_init(gen, d, d, **kw),
+        "ln_x": common.rmsnorm_init(d, **kw),
+        # channel mix (with its own pre-norm; the block's ln1 covers the
+        # time mix)
+        "ln_x2": common.rmsnorm_init(d, **kw),
+        "cm_mu_k": full(0.5),
+        "cm_mu_r": full(0.5),
+        "cm_wk": common.linear_init(gen, d, ff, **kw),
+        "cm_wv": common.linear_init(gen, ff, d, **kw),
+        "cm_wr": common.linear_init(gen, d, d, **kw),
+    }
+
+
+def _shifted(x, shift_state):
+    """The previous-token stream; shift_state: (B, 1, d), the last token
+    of the prior chunk, or None (zeros)."""
+    if shift_state is None:
+        prev = torch.zeros_like(x[:, :1])
+    else:
+        prev = shift_state.to(x.dtype)
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _wkv_chunked(rh, kh, vh, wh, u, S0, chunk: int, sub_chunk: int = 16):
+    """GLA-style chunked WKV, the same math as the per-token recurrence,
+    ``repro``'s ``_wkv_chunked`` (its docstring derives it): the state
+    is carried once a chunk, pairs inside a sub-chunk take their exact
+    pairwise decay, and pairs across sub-chunks are rebased at the target
+    sub-chunk's entry decay, so no factor exceeds 1.  A ``sub_chunk``
+    that does not divide ``chunk`` falls back to one sub-chunk spanning
+    the chunk.  (B, S, H, hs) inputs, (B, H, hs, hs) state -> (S, y)."""
+    b, s, nh, hs = rh.shape
+    n = s // chunk
+    sub = sub_chunk if (sub_chunk and chunk % sub_chunk == 0) else chunk
+    m = chunk // sub
+    dev = rh.device
+
+    def chunked(t):                             # (n, B, H, C, hs)
+        return t.reshape(b, n, chunk, nh, hs).permute(1, 0, 3, 2, 4)
+
+    rc_, kc, vc, wc = chunked(rh), chunked(kh), chunked(vh), chunked(wh)
+    # wc = exp(-exp(wraw)) in (0, 1); log w <= 0, floored against log(0)
+    logw = torch.log(torch.clamp_min(wc, 1e-30))
+    la = torch.cumsum(logw, dim=3)                          # cumulative decay
+    la_prev = torch.cat([torch.zeros_like(la[..., :1, :]), la[..., :-1, :]],
+                        dim=3)                              # la_{t-1}
+    r_tld = rc_ * torch.exp(la_prev)
+    k_out = kc * torch.exp(la[..., -1:, :] - la)
+    p_last = torch.exp(la[..., -1, :])                      # (n, B, H, hs)
+
+    sub_mask = torch.tril(torch.ones((sub, sub), dtype=torch.bool,
+                                     device=dev), -1)
+    # target sub-chunk i sees sources strictly before its entry
+    cross_mask = (torch.arange(chunk, device=dev)[None, :]
+                  < (torch.arange(m, device=dev) * sub)[:, None]).to(rh.dtype)
+
+    S, ys = S0, []
+    for i in range(n):
+        r_t, v_t, k_o, p_l = r_tld[i], vc[i], k_out[i], p_last[i]
+        r_raw, k_raw, la_c, la_p = rc_[i], kc[i], la[i], la_prev[i]
+        bb, hh = r_raw.shape[:2]
+        y_state = torch.einsum("bhci,bhij->bhcj", r_t, S)
+
+        def subs(t):                                        # (B, H, m, c, hs)
+            return t.reshape(bb, hh, m, sub, hs)
+
+        rr, kr, vr = subs(r_raw), subs(k_raw), subs(v_t)
+        la_r, la_pr = subs(la_c), subs(la_p)
+        # the exact per-pair decay inside each sub-chunk: exponent <= 0
+        diff = la_pr[..., :, None, :] - la_r[..., None, :, :]
+        decay = torch.exp(torch.where(sub_mask[None, None, None, :, :, None],
+                                      diff, float("-inf")))
+        scores_d = torch.einsum("bhmti,bhmtsi,bhmsi->bhmts", rr, decay, kr)
+        y_intra = torch.einsum("bhmts,bhmsj->bhmtj", scores_d, vr)
+        if m > 1:
+            # across sub-chunks, rebased at the target's entry E_i; the
+            # clamp only touches masked-out columns
+            e_i = la_pr[..., :, 0, :]                       # (B, H, m, hs)
+            r_reb = rr * torch.exp(la_pr - e_i[..., :, None, :])
+            k_reb = k_raw[:, :, None, :, :] * torch.exp(torch.clamp_max(
+                e_i[..., :, None, :] - la_c[..., None, :, :], 0.0))
+            scores_x = torch.einsum("bhmti,bhmsi->bhmts", r_reb, k_reb)
+            scores_x = scores_x * cross_mask[None, None, :, None, :]
+            y_intra = y_intra + torch.einsum("bhmts,bhsj->bhmtj", scores_x,
+                                             v_t)
+        y_intra = y_intra.reshape(bb, hh, chunk, hs)
+        y_bonus = torch.einsum("bhci,bhci->bhc", r_raw * u[None, :, None, :],
+                               k_raw)[..., None] * v_t
+        S = p_l[..., :, None] * S + torch.einsum("bhci,bhcj->bhij", k_o, v_t)
+        ys.append(y_state + y_intra + y_bonus)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, s, nh, hs)
+    return S, y
+
+
+def _wkv_scan(rh, kh, vh, wh, u, S):
+    """The per-token WKV recurrence: (B, S, H, hs) inputs -> (S, y)."""
+    ys = []
+    for t in range(rh.shape[1]):
+        kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]   # (B, H, hs, hs)
+        ys.append(torch.einsum("bhi,bhij->bhj", rh[:, t],
+                               S + u[None, :, :, None] * kv))
+        S = wh[:, t, :, :, None] * S + kv
+    return S, torch.stack(ys, dim=1)
+
+
+def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
+    """x: (B, S, d); state = (shift (B, 1, d), wkv (B, H, hs, hs)) or None
+    -> (y, new state)."""
+    b, s, d = x.shape
+    rc = cfg.rwkv
+    hs = rc.head_size
+    nh = d // hs
+    kw = dict(quant=cfg.quant, bf16_grads=cfg.bf16_grads)
+    xs = _shifted(x, state[0] if state is not None else None)
+    dx = xs - x
+    xxx = x + dx * params["mu_x"].to(x.dtype)
+    lora = torch.tanh(torch.matmul(xxx, params["mix_w1"].to(x.dtype)))
+    lora = lora.reshape(b, s, 5, rc.mix_lora)
+    mods = torch.einsum("bsfm,fmd->bsfd", lora, params["mix_w2"].to(x.dtype))
+    feeds = {k: x + dx * (params["mu"][k].to(x.dtype) + mods[:, :, i])
+             for i, k in enumerate(_MIX_KEYS)}
+
+    decay_in = torch.tanh(torch.matmul(feeds["w"],
+                                       params["w1"].to(x.dtype)))
+    wraw = params["w0"] + torch.matmul(decay_in,
+                                       params["w2"].to(x.dtype)).float()
+    w = torch.exp(-torch.exp(wraw))                      # (B, S, d) in (0, 1)
+
+    r = common.linear_apply(params["wr"], feeds["r"], **kw)
+    k = common.linear_apply(params["wk"], feeds["k"], **kw)
+    v = common.linear_apply(params["wv"], feeds["v"], **kw)
+    g = F.silu(common.linear_apply(params["wg"], feeds["g"], **kw))
+
+    rh, kh, vh = (t.reshape(b, s, nh, hs).float() for t in (r, k, v))
+    wh = w.reshape(b, s, nh, hs)
+    u = params["u"]                                      # (H, hs)
+    S0 = (state[1] if state is not None
+          else torch.zeros((b, nh, hs, hs), dtype=torch.float32,
+                           device=x.device))
+    chunk = rc.chunk
+    if chunk and s % chunk == 0 and not (s == 1 and mode == "decode"):
+        S, y = _wkv_chunked(rh, kh, vh, wh, u, S0, chunk,
+                            sub_chunk=getattr(rc, "sub_chunk", 16))
+    else:
+        S, y = _wkv_scan(rh, kh, vh, wh, u, S0)
+    y = y.reshape(b, s, d).to(x.dtype)
+    y = common.rmsnorm_apply(params["ln_x"], y, cfg.norm_eps) * g
+    out = common.linear_apply(params["wo"], y, **kw)
+    return out, (x[:, -1:], S)
+
+
+def channel_mix(params, cfg, x: torch.Tensor, *, state=None):
+    """The squared-ReLU channel mix; state: (B, 1, d) shift or None."""
+    kw = dict(quant=cfg.quant, bf16_grads=cfg.bf16_grads)
+    dx = _shifted(x, state) - x
+    xk = x + dx * params["cm_mu_k"].to(x.dtype)
+    xr = x + dx * params["cm_mu_r"].to(x.dtype)
+    k = torch.square(F.relu(common.linear_apply(params["cm_wk"], xk, **kw)))
+    kv = common.linear_apply(params["cm_wv"], k, **kw)
+    gate = torch.sigmoid(common.linear_apply(params["cm_wr"], xr, **kw))
+    return gate * kv, x[:, -1:]
+
+
+def init_state(cfg, batch: int, dtype=torch.float32, device=None, lead=()):
+    d = cfg.d_model
+    hs = cfg.rwkv.head_size
+    lead = tuple(lead)
+    return {
+        "tm_shift": torch.zeros(lead + (batch, 1, d), dtype=dtype,
+                                device=device),
+        "wkv": torch.zeros(lead + (batch, d // hs, hs, hs),
+                           dtype=torch.float32, device=device),
+        "cm_shift": torch.zeros(lead + (batch, 1, d), dtype=dtype,
+                                device=device),
+    }

@@ -1,4 +1,4 @@
-"""Model assembly: the pattern-based decoder, dense attention blocks.
+"""Model assembly: the pattern-based decoder.
 
 The counterpart of ``repro.models.transformer``.  A config's layer stack
 is ``prefix`` (unscanned leading layers) followed by ``pattern`` repeated
@@ -6,11 +6,13 @@ R times over parameters stacked on a leading R axis, the same parameter
 and cache layout as ``repro``'s; ``repro``'s ``lax.scan`` over the stack
 is a Python loop over ``r`` here.
 
-Block kinds ported: ``attn``, ``local``, ``global`` and ``dense``.
-``attn_moe``, ``mamba``, ``mamba_moe``, ``rwkv`` and ``num_codebooks > 1``
-raise ``NotImplementedError``: they are ROADMAP §1 item 5's remaining
-work.  ``forward`` returns final hidden states; ``lm_logits`` maps them
-to logits for serving.
+Block kinds: ``attn``, ``local``, ``global``, ``dense`` and ``attn_moe``
+(attention), ``mamba`` and ``mamba_moe`` (the selective state-space
+mixer), ``rwkv`` (RWKV-6, which keeps its own norm and channel mix);
+``*_moe`` replaces the MLP by the mixture of experts.  Multi-codebook
+embeddings and heads (``num_codebooks > 1``) raise
+``NotImplementedError``: ROADMAP §1 item 5.4.  ``forward`` returns final
+hidden states; ``lm_logits`` maps them to logits for serving.
 """
 
 from __future__ import annotations
@@ -21,25 +23,17 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs import base as cfgbase
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mamba, mlp, moe, rwkv6
 
-ATTN_KINDS = ("attn", "local", "global", "dense")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP §1 item 5: MoE, "
-            f"mamba and rwkv6 blocks)")
+ATTN_KINDS = ("attn", "local", "global", "dense", "attn_moe")
+MAMBA_KINDS = ("mamba", "mamba_moe")
 
 
 def _check_cfg(cfg) -> None:
-    for kind in cfg.prefix + cfg.pattern:
-        _check_kind(kind)
     if cfg.num_codebooks > 1:
         raise NotImplementedError(
             "multi-codebook (MusicGen) embeddings and heads are not ported "
-            "yet (ROADMAP §1 item 5)")
+            "yet (ROADMAP §1 item 5.4)")
 
 
 def tree_index(tree, r: int):
@@ -51,17 +45,53 @@ def tree_index(tree, r: int):
     return tree[r]
 
 
+def tree_stack(trees):
+    """The nests in ``trees`` (one structure) stacked leaf by leaf on a new
+    leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_stack(list(z)) for z in zip(*trees))
+    return torch.stack(trees)
+
+
+def _copy_into(dst, src) -> None:
+    """Write a block's new cache ``src`` into ``dst``, views of the stacked
+    cache; leaves a block updated in place (attention's KV) are ``dst``'s
+    own tensors and are skipped."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+    elif src is not dst:
+        dst.copy_(src)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def _block_init(gen, cfg, dtype, device, lead=()):
+def _block_init(gen, cfg, kind: str, dtype, device, lead=()):
     d = cfg.d_model
     kw = dict(dtype=dtype, device=device, lead=lead)
     p: Dict[str, Any] = {"ln1": common.rmsnorm_init(d, **kw)}
-    p["attn"] = attention.init(gen, cfg, **kw)
+    if kind in ATTN_KINDS:
+        p["attn"] = attention.init(gen, cfg, **kw)
+    elif kind in MAMBA_KINDS:
+        p["mamba"] = mamba.init(gen, cfg, **kw)
+    elif kind == "rwkv":
+        p["rwkv"] = rwkv6.init(gen, cfg, **kw)
+        return p   # rwkv keeps its own ln2/channel-mix internally
+    else:
+        raise ValueError(kind)
     p["ln2"] = common.rmsnorm_init(d, **kw)
-    p["mlp"] = mlp.init(gen, d, cfgbase.eff_d_ff(cfg), **kw)
+    if kind.endswith("_moe"):
+        p["moe"] = moe.init(gen, cfg, **kw)
+    else:
+        p["mlp"] = mlp.init(gen, d, cfgbase.eff_d_ff(cfg), **kw)
     if cfg.post_block_norm:
         p["ln1_post"] = common.rmsnorm_init(d, **kw)
         p["ln2_post"] = common.rmsnorm_init(d, **kw)
@@ -80,12 +110,12 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
         params["embed"] = common.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                             dtype, dev)
     if cfg.prefix:
-        params["prefix"] = [_block_init(gen, cfg, dtype, dev)
-                            for _ in cfg.prefix]
+        params["prefix"] = [_block_init(gen, cfg, kind, dtype, dev)
+                            for kind in cfg.prefix]
     r = cfg.num_pattern_repeats
-    params["blocks"] = {f"pos{i}": _block_init(gen, cfg, dtype, dev,
+    params["blocks"] = {f"pos{i}": _block_init(gen, cfg, kind, dtype, dev,
                                                lead=(r,))
-                        for i in range(len(cfg.pattern))}
+                        for i, kind in enumerate(cfg.pattern)}
     params["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = common.linear_init(gen, cfg.d_model,
@@ -106,18 +136,44 @@ def _residual(x, y, params, which, cfg):
 
 def block_apply(params, cfg, kind, x, cos, sin, *, mode="train",
                 cache=None, cache_len=None):
-    """Returns (x, new_cache, aux)."""
-    _check_kind(kind)
+    """Returns (x, new_cache, aux).  An attention block's new cache is its
+    (k, v), in decode the given cache written in place; a recurrent
+    block's is its new state."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = common.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
-    y, new_kv = attention.apply(params["attn"], cfg, h, cos, sin, kind=kind,
-                                mode=mode, cache=cache, cache_len=cache_len)
+    if kind == "rwkv":
+        st = cache or {}
+        y, tm_state = rwkv6.time_mix(
+            params["rwkv"], cfg, h,
+            state=(st.get("tm_shift"), st.get("wkv")) if cache else None,
+            mode=mode)
+        x = x + y
+        h2 = common.rmsnorm_apply(params["rwkv"]["ln_x2"], x, cfg.norm_eps)
+        y2, cm_shift = rwkv6.channel_mix(
+            params["rwkv"], cfg, h2, state=st.get("cm_shift") if cache
+            else None)
+        x = x + y2
+        new_cache = {"tm_shift": tm_state[0], "wkv": tm_state[1],
+                     "cm_shift": cm_shift}
+        return x, new_cache, aux
+
+    if kind in ATTN_KINDS:
+        y, new_cache = attention.apply(params["attn"], cfg, h, cos, sin,
+                                       kind=kind, mode=mode, cache=cache,
+                                       cache_len=cache_len)
+    elif kind in MAMBA_KINDS:
+        y, new_cache = mamba.apply(params["mamba"], cfg, h, state=cache)
+    else:
+        raise ValueError(kind)
     x = _residual(x, y, params, "ln1", cfg)
     h = common.rmsnorm_apply(params["ln2"], x, cfg.norm_eps)
-    y = mlp.apply(params["mlp"], h, act=cfg.act, quant=cfg.quant,
-                  bf16_grads=cfg.bf16_grads)
+    if kind.endswith("_moe"):
+        y, aux = moe.apply(params["moe"], cfg, h)
+    else:
+        y = mlp.apply(params["mlp"], h, act=cfg.act, quant=cfg.quant,
+                      bf16_grads=cfg.bf16_grads)
     x = _residual(x, y, params, "ln2", cfg)
-    return x, new_kv, aux
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +191,8 @@ def _embed(params, cfg, batch):
 
 
 def _rope(cfg, batch, x):
+    if not any(k in ATTN_KINDS for k in cfg.prefix + cfg.pattern):
+        return None, None
     b, s = x.shape[:2]
     pos = batch.get("positions")
     if cfg.mrope:
@@ -152,8 +210,11 @@ def forward(params, cfg, batch, *, mode: str = "train",
             cache: Optional[dict] = None, cache_len=None):
     """Returns (hidden (B,S,D), new_cache, aux_loss).
 
-    Prefill returns the cache as (k, v) leaves of (R, B, S, KH, D); decode
-    updates the given cache in place and returns it.
+    Prefill returns the cache with each block's leaves stacked on the
+    leading R axis: (k, v) of (R, B, S, KH, D) for attention, the states
+    for mamba and rwkv.  Decode updates the given cache in place (the
+    attention blocks write their KV into views of the stack, the
+    recurrent blocks' new states are copied into theirs) and returns it.
     """
     _check_cfg(cfg)
     x = _embed(params, cfg, batch).to(common.dtype_of(cfg))
@@ -165,6 +226,9 @@ def forward(params, cfg, batch, *, mode: str = "train",
         c = cache["prefix"][i] if cache is not None else None
         x, nc, aux = block_apply(params["prefix"][i], cfg, kind, x, cos, sin,
                                  mode=mode, cache=c, cache_len=cache_len)
+        if mode == "decode":
+            _copy_into(c, nc)
+            nc = c
         new_prefix_cache.append(nc)
         aux_total = aux_total + aux
 
@@ -178,17 +242,19 @@ def forward(params, cfg, batch, *, mode: str = "train",
             x, nc, aux = block_apply(tree_index(params["blocks"][key], r),
                                      cfg, kind, x, cos, sin, mode=mode,
                                      cache=c, cache_len=cache_len)
-            per_layer[key].append(nc)
+            if mode == "decode":
+                _copy_into(c, nc)
+            else:
+                per_layer[key].append(nc)
             aux_total = aux_total + aux
 
     x = common.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if mode == "train":
         return x, None, aux_total
-    if mode == "decode":       # the layers wrote into views of the stack
+    if mode == "decode":
         new_blk_cache = blk_cache
     else:
-        new_blk_cache = {key: tuple(torch.stack(leaves) for leaves in
-                                    zip(*layers))
+        new_blk_cache = {key: tree_stack(layers)
                          for key, layers in per_layer.items()}
     return x, {"prefix": new_prefix_cache, "blocks": new_blk_cache}, aux_total
 
@@ -210,20 +276,28 @@ def lm_logits(params, cfg, hidden):
 # Cache construction (decode)
 # ---------------------------------------------------------------------------
 
-def _block_cache(cfg, batch: int, max_len: int, dtype, device, lead=()):
-    shape = tuple(lead) + (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+def _block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
+                 lead=()):
+    if kind in ATTN_KINDS:
+        shape = tuple(lead) + (batch, max_len, cfg.num_kv_heads,
+                               cfg.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    if kind in MAMBA_KINDS:
+        return mamba.init_state(cfg, batch, dtype, device, lead)
+    if kind == "rwkv":
+        return rwkv6.init_state(cfg, batch, dtype, device, lead)
+    raise ValueError(kind)
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None):
     _check_cfg(cfg)
     dev = _device.resolve(device)
     dtype = common.dtype_of(cfg)
-    prefix = [_block_cache(cfg, batch, max_len, dtype, dev)
-              for _ in cfg.prefix]
+    prefix = [_block_cache(cfg, kind, batch, max_len, dtype, dev)
+              for kind in cfg.prefix]
     r = cfg.num_pattern_repeats
-    blocks = {f"pos{i}": _block_cache(cfg, batch, max_len, dtype, dev,
+    blocks = {f"pos{i}": _block_cache(cfg, kind, batch, max_len, dtype, dev,
                                       lead=(r,))
-              for i in range(len(cfg.pattern))}
+              for i, kind in enumerate(cfg.pattern)}
     return {"prefix": prefix, "blocks": blocks}

@@ -5,7 +5,8 @@ The counterpart of ``repro.train.serve``:
 * ``prefill_step`` runs the full prompt and returns last-position logits
   and a cache padded to ``max_len``;
 * ``decode_step`` advances every sequence of the batch one token against
-  the cache, which it updates in place;
+  the cache, which it updates in place (the attention blocks' KV, the
+  recurrent blocks' constant-size states);
 * ``sample`` is greedy (``torch.argmax``, the first maximum, as
   ``jnp.argmax``) or temperature sampling by the Gumbel-max trick from a
   ``torch.Generator`` (``repro``'s distribution, not its bits).
@@ -22,10 +23,11 @@ import torch
 from repro_torch.models import transformer
 
 
-def _pad_cache_to(cache, max_len: int):
-    """Pad prefill KV leaves, (B, S, KH, D) or stacked (R, B, S, KH, D), to
-    ``max_len`` along the sequence axis, ndim - 3 (every ported block kind
-    is an attention block)."""
+def _pad_cache_to(cfg, cache, max_len: int):
+    """Pad the prefill KV leaves of the attention blocks, (B, S, KH, D) or
+    stacked (R, B, S, KH, D), to ``max_len`` along the sequence axis,
+    ndim - 3; the recurrent blocks' states have no sequence axis and stay
+    as they are."""
     def pad(leaf):
         s_ax = leaf.ndim - 3
         cur = leaf.shape[s_ax]
@@ -34,9 +36,14 @@ def _pad_cache_to(cache, max_len: int):
         widths = [0, 0] * (leaf.ndim - 1 - s_ax) + [0, max_len - cur]
         return torch.nn.functional.pad(leaf, widths)
 
-    return {"prefix": [tuple(pad(x) for x in kv) for kv in cache["prefix"]],
-            "blocks": {k: tuple(pad(x) for x in kv)
-                       for k, kv in cache["blocks"].items()}}
+    def by_kind(kind, c):
+        return (tuple(pad(x) for x in c) if kind in transformer.ATTN_KINDS
+                else c)
+
+    return {"prefix": [by_kind(kind, c)
+                       for kind, c in zip(cfg.prefix, cache["prefix"])],
+            "blocks": {f"pos{i}": by_kind(kind, cache["blocks"][f"pos{i}"])
+                       for i, kind in enumerate(cfg.pattern)}}
 
 
 def build_prefill_step(cfg, max_len: Optional[int] = None):
@@ -44,7 +51,7 @@ def build_prefill_step(cfg, max_len: Optional[int] = None):
         h, cache, _ = transformer.forward(params, cfg, batch, mode="prefill")
         logits = transformer.lm_logits(params, cfg, h[:, -1:])
         if max_len is not None:
-            cache = _pad_cache_to(cache, max_len)
+            cache = _pad_cache_to(cfg, cache, max_len)
         return logits, cache
     return prefill_step
 

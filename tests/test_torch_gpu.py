@@ -713,3 +713,97 @@ def test_adafactor_lm_step_on_the_card_equals_the_cpu():
                        opt.tree_leaves(out["cuda"][0]["params"]),
                        opt.tree_leaves(bounds)):
         assert bool((g.cpu() - w).abs().le(b).all())
+
+
+def _comparable(first, b, positions):
+    """(B, P) mask of the positions before each row's first token the two
+    runs routed differently (``moe.route_divergence``)."""
+    return torch.tensor([[p < first.get(r, float("inf")) for p in positions]
+                         for r in range(b)])
+
+
+@pytest.mark.gpu
+def test_olmoe_prefill_through_flash_matches_plain_on_the_card(monkeypatch):
+    """OLMoE-1B-7B at full width and two layers, float32: the prefill
+    logits through the flash kernel (a launch a layer, head dim 128) ==
+    through its plain version within 2e-4, where both runs routed alike
+    (every token routed differently must be a near-tie)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    cfg = get_config("olmoe-1b-7b").with_(dtype="float32", num_layers=2)
+    params = transformer.init_params(cfg, seed=2, device="cuda")
+    b, s = 2, 256
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32).cuda()
+    out = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(
+                ops, "flash_attention",
+                lambda q, k, v, *, causal=True, scale=None, probs_bf16=None:
+                fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                         probs_bf16=probs_bf16))
+        ops.reset_launch_counts()
+        with moe.record_routes() as rec:
+            h, _, _ = transformer.forward(params, cfg, {"tokens": toks},
+                                          mode="prefill")
+            logits = transformer.lm_logits(params, cfg, h)
+        assert ops.launch_counts()["flash_attention"] == (0 if plain else 2)
+        out.append((logits.cpu(), moe.route_table(rec, [(0, s)], 2)))
+    monkeypatch.undo()
+    first, _ = moe.route_divergence(out[0][1], out[1][1])
+    keep = _comparable(first, b, range(s))
+    assert keep.any()
+    assert torch.isfinite(out[0][0]).all()
+    assert torch.allclose(out[0][0][keep], out[1][0][keep], rtol=2e-4,
+                          atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_jamba_scaled_prefill_and_decode_on_the_card_equal_the_cpu():
+    """Jamba's scaled() config (Mamba, attention through the flash kernel
+    at head dim 16, MoE) with two pattern repeats in float32: prefill and
+    decode logits on the card == on the CPU within 2e-4 under the
+    near-tie rule, the recurrent states written into the stacked cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import serve
+    cfg = get_config("jamba-v0.1-52b").scaled().with_(dtype="float32",
+                                                      param_dtype="float32")
+    cfg = cfg.with_(num_layers=2 * len(cfg.pattern))
+    params = transformer.init_params(cfg, seed=5, device="cpu")
+    b, s, k = 2, 20, 4
+    toks = torch.randint(0, cfg.vocab_size, (b, s + k),
+                         generator=torch.Generator().manual_seed(9),
+                         dtype=torch.int32)
+    n = sum(kind.endswith("_moe") for kind in cfg.pattern) * 2
+    out = []
+    for where in ("cpu", "cuda"):
+        p, t = to_device(params, torch.device(where)), toks.to(where)
+        ops.reset_launch_counts()
+        with moe.record_routes() as rec:
+            logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(
+                p, {"tokens": t[:, :s]})
+            outs = [logits]
+            for i in range(k):
+                logits, cache = serve.build_decode_step(cfg)(
+                    p, cache, t[:, s + i][:, None], s + i)
+                outs.append(logits)
+        assert ops.launch_counts()["flash_attention"] == (
+            2 if where == "cuda" else 0)
+        out.append((torch.cat(outs, dim=1).cpu(), moe.route_table(
+            rec, [(0, s)] + [(s + i, 1) for i in range(k)], n)))
+    first, _ = moe.route_divergence(out[1][1], out[0][1])
+    keep = _comparable(first, b, range(s - 1, s + k))
+    assert keep.any()
+    assert torch.allclose(out[1][0][keep], out[0][0][keep], rtol=2e-4,
+                          atol=2e-4)
