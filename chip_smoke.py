@@ -13,7 +13,10 @@ folded and served through ``ChipServer``, and a BitLinear layer at
 SmolLM-360M's MLP width; ``repro_torch.launch.serve`` serving SmolLM-360M
 at full width, prefill through the flash-attention kernel, then greedy
 decode, and the same serve of OLMoE-1B-7B (6.92 B parameters, 64 experts
-a layer on the dense MoE path) and RWKV6-3B at full width; ``cifar9_s1``
+a layer on the dense MoE path) and RWKV6-3B at full width, and of
+MusicGen-medium (4 codebooks) at full width; Qwen2-VL-2B at full width
+prefilled from patch embeddings on its M-RoPE grid and decoded through
+``train.serve``'s steps, its launcher refusal; ``cifar9_s1``
 under the continuous policy on Poisson and bursty
 traces, and a ``ServeFleet`` of two replicas with a killed host and a
 warm-started replacement), checks the answers against the float
@@ -31,9 +34,12 @@ forward; in bf16 the kernel at each probability type == chunked attention
 at the same one; OLMoE-1B-7B and RWKV6-3B at full width in float32, the
 same checks where both runs routed every token alike (a token routed
 differently must be a near-tie, and they are counted); Jamba at scaled()
-size, the card == the CPU), 5 serve (the chip tier; the LM serves of
-SmolLM-360M, OLMoE-1B-7B and RWKV6-3B, their flash launches, and bf16
-greedy agreement between kernel and plain runs for SmolLM), 5b continuous
+size, the card == the CPU; MusicGen-medium and Qwen2-VL-2B at full width
+in float32, prefill logits kernel == plain and prefill + decode ==
+teacher-forced), 5 serve (the chip tier; the LM serves of SmolLM-360M,
+OLMoE-1B-7B, RWKV6-3B and MusicGen-medium, Qwen2-VL-2B through the serve
+steps, their flash launches, and bf16 greedy agreement between kernel
+and plain runs for SmolLM), 5b continuous
 serving and the fleet (the continuous ladder 1-32 held bit-exact for the
 megakernel, a staged lane and the composite; 400 frames at 200 frames/s
 under the continuous and the static policy; a shared continuous
@@ -53,9 +59,12 @@ BitLinear's packed path against its STE forward), 6b LM training
 (SmolLM-360M with ``quant="binary"`` at full width, 5 adamw steps of 8 x
 256 tokens; the scaled() step on the card against the CPU's; the
 binary-LM example twin end to end, its decode's prefill through the
-flash kernel at head dim 32), 7 times (row 10 also at OLMoE's prefill
-shape; the SmolLM and OLMoE serves' prefill ms, decode ms per token,
-tok/s and device idle share).
+flash kernel at head dim 32; ``launch.train`` on MusicGen-medium and
+Qwen2-VL-2B at full width, 3 adamw steps of 8 x 256 each, and their
+scaled() steps card == CPU), 7 times (row 10 also at the prefill shapes
+of OLMoE, MusicGen and Qwen2-VL; the SmolLM and OLMoE serves' prefill ms,
+decode ms per token, tok/s and device idle share; MusicGen's batch
+breakdown).
 Near the end come ``{"kernels": [...]}`` and the card's name and power
 limit on lines of their own; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -188,6 +197,8 @@ LM_TOL = 2e-4
 FLASH_SHAPES = (("SmolLM prefill", 4, 512, 15, 5, 64, True),
                 ("SmolLM prefill", 1, 512, 15, 5, 64, True),
                 ("OLMoE prefill", 4, 512, 16, 16, 128, True),
+                ("MusicGen prefill", 4, 512, 24, 24, 64, True),
+                ("Qwen2-VL prefill", 4, 512, 12, 2, 128, True),
                 ("MHA", 2, 256, 8, 8, 64, True),
                 ("MQA", 2, 256, 8, 1, 64, True),
                 ("D=128, G=4", 1, 384, 32, 8, 128, True),
@@ -229,6 +240,19 @@ MOE_SERVE = ("--arch", MOE_ARCH, "--requests", "8", "--batch", "4",
              "--prompt-len", "512", "--gen-len", "32")
 RWKV_SERVE = ("--arch", RWKV_ARCH, "--requests", "8", "--batch", "4",
               "--prompt-len", "128", "--gen-len", "16")
+# MusicGen's codebooks and the VLM batch (phases 4, 5, 6b and 7), both at
+# full width, one parameter set on the card at a time: float32 checks
+# (batch, prompt, decode steps); MusicGen served by launch.serve, the VLM
+# (no input table: the launcher refuses it) through train.serve's steps
+# on a batch of VLM_SERVE[0] embeds prompts of VLM_SERVE[1] positions and
+# VLM_SERVE[2] decode steps fed the batch's next embeds; 3 adamw steps of
+# 8 x 256 each through launch.train
+MUSIC_ARCH, VLM_ARCH = "musicgen-medium", "qwen2-vl-2b"
+MUSIC_CHECK = VLM_CHECK = (2, 512, 4)
+MUSIC_SERVE = ("--arch", MUSIC_ARCH, "--requests", "8", "--batch", "4",
+               "--prompt-len", "512", "--gen-len", "32")
+VLM_SERVE = (4, 512, 32)
+CB_TRAIN = ("--steps", "3", "--global-batch", "8", "--seq-len", "256")
 
 
 def sh(*cmd: str) -> str:
@@ -744,23 +768,35 @@ def routed_err(got, want, first, positions, tol: float, what: str) -> float:
     return err
 
 
-def decode_vs_teacher(params, cfg, toks, s: int, k: int, what: str):
-    """Prefill s tokens of ``toks`` (B, s + k) and decode k steps through
-    ``train.serve``'s steps, against the teacher-forced forward (chunked
-    attention) at positions s-1 .. s+k-1, within LM_TOL where both runs
-    routed alike.  Returns (max abs err, tokens routed differently,
-    argmax agreement)."""
+def decode_vs_teacher(params, cfg, toks, s: int, k: int, what: str,
+                      positions=None):
+    """Prefill s tokens of ``toks`` (B, s + k), (B, s + k, ncb) with
+    codebooks, or embeds (B, s + k, D) for a config without an input
+    table, and decode k steps through ``train.serve``'s steps, against the
+    teacher-forced forward (chunked attention) at positions s-1 ..
+    s+k-1, within LM_TOL where both runs routed alike.  ``positions``
+    (B, s, 3) places an M-RoPE prompt; the decode steps put step i at
+    (s+i, s+i, s+i), and the teacher takes the same positions.  Returns
+    (max abs err, tokens routed differently, argmax agreement)."""
     from repro_torch.models import moe, transformer
     from repro_torch.train import serve
     n = moe_layers(cfg)
+    key = "tokens" if cfg.embed_inputs else "embeds"
+    prompt, teach = {key: toks[:, :s]}, {key: toks}
+    if positions is not None:
+        b = toks.shape[0]
+        steps = torch.arange(s, s + k, dtype=positions.dtype,
+                             device=positions.device)
+        prompt["positions"] = positions
+        teach["positions"] = torch.cat(
+            [positions, steps[None, :, None].expand(b, k, 3)], dim=1)
     with moe.record_routes() as rec_t:
-        h, _, _ = transformer.forward(params, cfg, {"tokens": toks},
-                                      mode="train")
+        h, _, _ = transformer.forward(params, cfg, teach, mode="train")
         teacher = transformer.lm_logits(params, cfg, h[:, s - 1:])
     del h
     with moe.record_routes() as rec_r:
         logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(
-            params, {"tokens": toks[:, :s]})
+            params, prompt)
         outs = [logits]
         decode = serve.build_decode_step(cfg)
         for i in range(k):
@@ -907,18 +943,19 @@ def expert_recurrent_checks(dev) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def expert_recurrent_serve(card):
-    """Phase 5's part: ``repro_torch.launch.serve.main`` on OLMoE-1B-7B at
-    full width (bf16 activations, float32 parameters) and on RWKV6-3B
-    (prompt 128), the flash kernel launched once a layer of each OLMoE
-    prefill and never for RWKV6.  Returns ({arch: report}, the flash
-    launches)."""
+def lm_serves(card):
+    """Phase 5's part: ``repro_torch.launch.serve.main`` at full width
+    (bf16 activations, float32 parameters) on OLMoE-1B-7B, on RWKV6-3B
+    (prompt 128) and on MusicGen-medium (4-codebook prompts, every id a
+    codebook id), the flash kernel launched once an attention layer of
+    each prefill (never for RWKV6) and nothing else.  Returns ({arch:
+    report}, the flash launches)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as lm
     reports, flash = {}, 0
     torch.cuda.empty_cache()
-    for argv in (MOE_SERVE, RWKV_SERVE):
+    for argv in (MOE_SERVE, RWKV_SERVE, MUSIC_SERVE):
         opts = dict(zip(argv[::2], argv[1::2]))
         arch, gen_len = opts["--arch"], int(opts["--gen-len"])
         cfg = get_config(arch)
@@ -953,6 +990,261 @@ def expert_recurrent_serve(card):
         flash += counts["flash_attention"]
         torch.cuda.empty_cache()
     return reports, flash
+
+
+def codebook_vlm_checks(dev) -> None:
+    """Phase 4's part for MusicGen's codebooks and the VLM batch, one
+    parameter set on the card at a time, in float32 within LM_TOL:
+    MusicGen-medium and Qwen2-VL-2B at full width, prefill logits through
+    the flash kernel (a launch a layer) == through its plain version, and
+    prefill + decode steps == the teacher-forced forward (chunked
+    attention).  MusicGen runs on 4-codebook tokens to (B, S, 4) logits;
+    Qwen2-VL on ``vlm_batch_for_step``'s embeds and M-RoPE grid, its
+    decode steps at (s+i, s+i, s+i) and the teacher at the same
+    positions."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t0 = time.perf_counter()
+    for arch, (b, s, k), seed in ((MUSIC_ARCH, MUSIC_CHECK, 3),
+                                  (VLM_ARCH, VLM_CHECK, 4)):
+        torch.cuda.empty_cache()
+        cfg = get_config(arch).with_(dtype="float32")
+        params = transformer.init_params(cfg, seed=seed, device=dev)
+        nparams = sum(p.numel() for p in tree_leaves(params))
+        positions = None
+        if cfg.embed_inputs:
+            lane = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+            inputs = torch.randint(
+                0, cfg.vocab_size, (b, s + k) + lane,
+                generator=torch.Generator().manual_seed(seed + 3),
+                dtype=torch.int32).to(dev)
+            prompt = {"tokens": inputs[:, :s]}
+        else:
+            batch = dtok.vlm_batch_for_step(cfg, 0, global_batch=b,
+                                            seq_len=s + k, device=dev)
+            inputs, positions = batch["embeds"], batch["positions"][:, :s]
+            prompt = {"embeds": inputs[:, :s], "positions": positions}
+        logits = {}
+        for plain in (False, True):
+            ctx = plain_attention() if plain else contextlib.nullcontext()
+            ops.reset_launch_counts()
+            with ctx:
+                h, _, _ = transformer.forward(params, cfg, prompt,
+                                              mode="prefill")
+                logits[plain] = transformer.lm_logits(params, cfg, h)
+            del h
+            launched = ops.launch_counts()["flash_attention"]
+            if launched != (0 if plain else attn_layers(cfg)):
+                raise AssertionError(f"{arch} prefill (plain={plain}) "
+                                     f"launched flash attention {launched} "
+                                     f"times, want {attn_layers(cfg)}")
+        err = close_err(logits[False], logits[True], LM_TOL)
+        what = (f"{cfg.num_codebooks} codebooks of {cfg.vocab_size}"
+                if cfg.num_codebooks > 1 else
+                f"embeds and M-RoPE grid {cfg.mrope_sections}")
+        print(f"  {arch} float32 ({nparams / 1e9:.3f} B params, "
+              f"{cfg.num_layers} layers, H={cfg.num_heads} "
+              f"KH={cfg.num_kv_heads} D={cfg.head_dim}; {what}), B={b}, "
+              f"S={s}: prefill logits {tuple(logits[False].shape)} through "
+              f"the kernel ({attn_layers(cfg)} launches) == through its "
+              f"plain version (max abs err {err:.3e}, tolerance {LM_TOL}; "
+              f"logits max {float(logits[True].abs().max()):.3f})")
+        del logits
+        err, _, agree = decode_vs_teacher(params, cfg, inputs, s, k, arch,
+                                          positions)
+        print(f"  {arch} float32: prefill {s} + {k} decode steps == the "
+              f"teacher-forced forward (chunked attention) at positions "
+              f"{s - 1}..{s + k - 1} (max abs err {err:.3e}, tolerance "
+              f"{LM_TOL}; argmax agreement {agree:.3f})")
+        del params, inputs, prompt
+    torch.cuda.empty_cache()
+    print(f"  codebook and VLM checks took {time.perf_counter() - t0:.1f} s")
+
+
+def vlm_serve(card, dev):
+    """Phase 5's part for Qwen2-VL-2B at full width (bf16 activations,
+    float32 parameters), which has no input table: ``train.serve``'s
+    steps on VLM_SERVE's batch (embeds prompts on the M-RoPE grid, then
+    decode steps fed the batch's next embeds), the flash kernel launched
+    once a layer of the prefill and nothing else; then the launcher
+    refusing it.  The steps run twice, cold then warm.  Returns ({warm
+    "prefill_ms" and "decode_ms", and the cold run's}, the flash
+    launches)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lm
+    from repro_torch.models import transformer
+    from repro_torch.train import serve
+
+    cfg = get_config(VLM_ARCH)
+    b, s, n = VLM_SERVE
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    batch = dtok.vlm_batch_for_step(cfg, 0, global_batch=b, seq_len=s + n,
+                                    device=dev)
+    emb = batch["embeds"]
+    prefill = serve.build_prefill_step(cfg, max_len=s + n)
+    decode = serve.build_decode_step(cfg)
+    ops.reset_launch_counts()
+    runs = []
+    for _ in range(2):          # a cold run (first calls), then a warm one
+        torch.cuda.synchronize(dev)
+        t_pf = time.perf_counter()
+        logits, cache = prefill(
+            params, {"embeds": emb[:, :s],
+                     "positions": batch["positions"][:, :s]})
+        ids = [serve.sample(None, logits)]
+        torch.cuda.synchronize(dev)
+        t_dc = time.perf_counter()
+        for i in range(n):
+            logits, cache = decode(params, cache, emb[:, s + i][:, None],
+                                   s + i)
+            ids.append(serve.sample(None, logits))
+        ids = torch.cat(ids, dim=1).cpu()
+        t_end = time.perf_counter()
+        if tuple(ids.shape) != (b, n + 1) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            raise AssertionError(f"{VLM_ARCH} serve: ids "
+                                 f"{tuple(ids.shape)} outside [0, "
+                                 f"{cfg.vocab_size})")
+        runs.append(((t_dc - t_pf) * 1e3, (t_end - t_dc) * 1e3 / n))
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = attn_layers(cfg) * len(runs)
+    if counts != want:
+        raise AssertionError(f"{VLM_ARCH} serve launches {counts}, want "
+                             f"{want}")
+    (cold_pf, cold_dc), (pf_ms, dc_ms) = runs
+    print(f"  VLM serve {VLM_ARCH} through train.serve's steps ({cfg.dtype} "
+          f"activations, {cfg.param_dtype} params; B={b}, a {s}-position "
+          f"embeds prompt on the M-RoPE grid, {n} decode steps fed the "
+          f"batch's next embeds; a cold run, then a warm one): prefill "
+          f"{cold_pf:.3f} / {pf_ms:.3f} ms, decode {cold_dc:.3f} / "
+          f"{dc_ms:.3f} ms a step ({b * 1e3 / dc_ms:.2f} tok/s decoding, "
+          f"warm); flash_attention launched {counts['flash_attention']} "
+          f"times = {attn_layers(cfg)} per prefill, nothing else; took "
+          f"{time.perf_counter() - t0:.1f} s (parameter init included) "
+          f"[{card.smi}]")
+    out = {"prefill_ms": pf_ms, "decode_ms": dc_ms,
+           "cold_prefill_ms": cold_pf, "cold_decode_ms": cold_dc}
+    flash = counts["flash_attention"]
+    del params, cache, batch, emb, logits
+    torch.cuda.empty_cache()
+    try:
+        with quiet():
+            lm.main(["--arch", VLM_ARCH])
+    except ValueError as e:
+        print(f"  launch.serve --arch {VLM_ARCH} refuses: {e}")
+    else:
+        raise AssertionError(f"launch.serve served {VLM_ARCH}'s stub")
+    return out, flash
+
+
+def codebook_vlm_train(card, dev) -> None:
+    """Phase 6b's part: ``repro_torch.launch.train.main`` on MusicGen-
+    medium and Qwen2-VL-2B at full width in their own dtypes, CB_TRAIN's
+    adamw steps (the VLM on ``vlm_batch_for_step``'s embeds), each step
+    timed by the host clock around a synchronised step, the losses
+    finite; then one adamw step of each at scaled() on the card == the
+    CPU's within ``optimizers.step_tolerance``, with the gradients'
+    rounding level carried through Adam's first step (``adam_eps``:
+    Qwen2-VL's key bias has gradients of a few eps)."""
+    import inspect
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.device import to_device
+    from repro_torch.launch import train as lt
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.train import steps
+
+    real = steps.build_train_step
+    for arch in (MUSIC_ARCH, VLM_ARCH):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+
+        def timed(cfg, optimizer):
+            step = real(cfg, optimizer)
+
+            def run(state, batch):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            return run
+
+        t0 = time.perf_counter()
+        steps.build_train_step = timed
+        try:
+            with quiet():
+                state, losses = lt.main(["--arch", arch, *CB_TRAIN])
+        finally:
+            steps.build_train_step = real
+        nparams = sum(p.numel() for p in opt.tree_leaves(state["params"]))
+        del state
+        torch.cuda.empty_cache()
+        n_steps = int(CB_TRAIN[1])
+        if len(losses) != n_steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"{arch} training losses {losses}")
+        cfg = get_config(arch)
+        print(f"  launch.train {arch} ({nparams / 1e9:.3f} B params, "
+              f"{cfg.dtype} activations, {cfg.param_dtype} params, "
+              f"{'VLM batch' if not cfg.embed_inputs else 'token batch'}), "
+              f"adamw, {' '.join(CB_TRAIN)}: losses "
+              f"{[round(v, 4) for v in losses]}; ms a step (host clock, "
+              f"synchronised) {[round(v, 1) for v in ms]}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; took "
+              f"{time.perf_counter() - t0:.1f} s [{card.smi}]")
+
+    eps = inspect.signature(opt.adamw).parameters["eps"].default
+    for arch in (MUSIC_ARCH, VLM_ARCH):
+        small = get_config(arch).scaled().with_(dtype="float32",
+                                                param_dtype="float32")
+        sched = opt.cosine_schedule(1e-3, 2, 10)
+        small_opt = opt.make("adamw", sched)
+        cpu_state = steps.create_state(small, 3, small_opt, device="cpu")
+        batch_fn = (dtok.batch_for_step if small.embed_inputs
+                    else dtok.vlm_batch_for_step)
+        batch = batch_fn(small, 0, global_batch=4, seq_len=64, device="cpu")
+        out = {}
+        for where in ("cpu", dev):
+            st = to_device(cpu_state, torch.device(where))
+            out[str(where)] = steps.build_train_step(small, small_opt)(
+                st, {k: v.to(where) for k, v in batch.items()})
+        _, grads = opt.value_and_grad(
+            lambda p: steps.make_loss_fn(small)(p, batch),
+            cpu_state["params"])
+        clip = min(1.0, 1.0 / max(float(out["cpu"][1]["grad_norm"]), 1e-9))
+        want = out["cpu"][0]["params"]
+        bounds = opt.step_tolerance(
+            want, opt.tree_map(lambda g: g * clip, grads), float(sched(0)),
+            adam_eps=eps)
+        worst = 0.0
+        for w, g, bd in zip(opt.tree_leaves(want),
+                            opt.tree_leaves(out[str(dev)][0]["params"]),
+                            opt.tree_leaves(bounds)):
+            diff = (g.cpu() - w).abs()
+            if not bool(diff.le(bd).all()):
+                raise AssertionError(f"{arch} scaled() step on the card off "
+                                     f"the CPU's by {float(diff.max())}")
+            worst = max(worst, float((diff / bd).max()))
+        dl = abs(float(out[str(dev)][1]["loss"])
+                 - float(out["cpu"][1]["loss"]))
+        if dl > LM_TOL * (1 + abs(float(out["cpu"][1]["loss"]))):
+            raise AssertionError(f"{arch} scaled() step loss: card - CPU = "
+                                 f"{dl}")
+        print(f"  {arch} scaled() adamw step ({small.num_layers} layers, "
+              f"head dim {small.head_dim}, chunked attention): card == CPU "
+              f"within step_tolerance (adam_eps {eps}; worst {worst:.3f} of "
+              f"the bound), loss |card - CPU| {dl:.2e}")
 
 
 def member_word_ops(stages, batch: int) -> int:
@@ -2385,6 +2677,7 @@ def main() -> None:
 
     lm_checks(dev)
     expert_recurrent_checks(dev)
+    codebook_vlm_checks(dev)
 
     # -- 5. serve ------------------------------------------------------------
     phase(5, f"serve {SERVE_REQUESTS} requests through ChipServer "
@@ -2649,8 +2942,10 @@ def main() -> None:
 
     lm_report, lm_counts = lm_serve(card)
     launches["flash_attention"] = lm_counts["flash_attention"]
-    er_reports, er_flash = expert_recurrent_serve(card)
+    er_reports, er_flash = lm_serves(card)
     launches["flash_attention"] += er_flash
+    vlm_report, vlm_flash = vlm_serve(card, dev)
+    launches["flash_attention"] += vlm_flash
 
     # -- 5b. continuous serving and the fleet --------------------------------
     phase("5b", f"continuous serving (SLO {CONT_SLO_MS:.0f} ms, batch "
@@ -2699,6 +2994,10 @@ def main() -> None:
     t6b = time.perf_counter()
     ops.reset_launch_counts()
     lm_train_phase(card, dev)
+    t_cb = time.perf_counter()
+    codebook_vlm_train(card, dev)
+    print(f"  {MUSIC_ARCH} and {VLM_ARCH} training took "
+          f"{time.perf_counter() - t_cb:.1f} s")
     counts = {k: v for k, v in ops.launch_counts().items() if v}
     # BitLinear trains as a float +/-1 matmul and attention in training is
     # chunked (the flash kernel has no backward): only the example's
@@ -3279,59 +3578,66 @@ def main() -> None:
           f"{row_ms * card.sms / tiles * 1e3:.3f} us a 64 x 64 block-tile "
           f"an SM ({tiles} block-tiles)")
 
-    # flash attention at OLMoE-1B-7B's prefill (B=4, S=512, H=KH=16,
-    # D=128, bf16): a second shape of row 10, at probs_bf16=True like for
-    # like with SDPA, the serve's own float32 p (OLMoE's attn_probs_bf16 is
-    # False) beside it; the same bound and library call as above
-    t_flash = time.perf_counter()
-    _, b, sq, h, kh, d, causal = next(x for x in FLASH_SHAPES
-                                      if x[0] == "OLMoE prefill")
-    q, k, v = (torch.randn(shape, generator=gen).bfloat16().to(dev)
-               for shape in ((b, sq, h, d), (b, sq, kh, d), (b, sq, kh, d)))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    nbytes = q.element_size() * 2 * (q.numel() + k.numel())
-    flops = attention_flops(b, sq, h, d, causal)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FLOP_PER_S[torch.bfloat16] * 1e3
-    bound = (max(t_bytes, t_ops),
-             "bytes" if t_bytes >= t_ops else "operations")
+    # flash attention at the prefill shapes of OLMoE-1B-7B (B=4, S=512,
+    # H=KH=16, D=128), MusicGen-medium (H=KH=24, D=64) and Qwen2-VL-2B
+    # (H=12, KH=2, D=128), bf16: more shapes of row 10, each at
+    # probs_bf16=True like for like with SDPA, the serve's own float32 p
+    # (the three configs' attn_probs_bf16 is False) beside it; the same
+    # bound and library call as above
+    for label in ("OLMoE prefill", "MusicGen prefill", "Qwen2-VL prefill"):
+        t_flash = time.perf_counter()
+        _, b, sq, h, kh, d, causal = next(x for x in FLASH_SHAPES
+                                          if x[0] == label)
+        q, k, v = (torch.randn(shape, generator=gen).bfloat16().to(dev)
+                   for shape in ((b, sq, h, d), (b, sq, kh, d),
+                                 (b, sq, kh, d)))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes = q.element_size() * 2 * (q.numel() + k.numel())
+        flops = attention_flops(b, sq, h, d, causal)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FLOP_PER_S[torch.bfloat16] * 1e3
+        bound = (max(t_bytes, t_ops),
+                 "bytes" if t_bytes >= t_ops else "operations")
 
-    def lib():
-        return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
-    lib_events = time_ms(lib, 200, warmup=20)
-    lib_device = device_ms(lib, 50)
-    lib_ms = graph_ms(lib, GRAPH_CALLS)
-    for probs_bf16 in FLASH_PROBS:
-        kw = dict(causal=causal, probs_bf16=probs_bf16)
+        lib_events = time_ms(lib, 200, warmup=20)
+        lib_device = device_ms(lib, 50)
+        lib_ms = graph_ms(lib, GRAPH_CALLS)
+        for probs_bf16 in FLASH_PROBS:
+            kw = dict(causal=causal, probs_bf16=probs_bf16)
 
-        def kernel():
-            return fa.flash_attention(q, k, v, **kw)
+            def kernel():
+                return fa.flash_attention(q, k, v, **kw)
 
-        events = time_ms(kernel, 200, warmup=20)
-        ms = graph_ms(kernel, GRAPH_CALLS)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
-                           5)
-        shape = (f"OLMoE prefill B={b} S={sq} H={h} KH={kh} D={d} bf16 "
-                 f"probs_bf16={probs_bf16}")
-        if probs_bf16:
-            row("flash_attention", ms, plain_ms, nbytes, 0, lib_ms, bound,
-                events=(events, lib_events,
-                        device_ms(kernel, 50, "flash_fwd"), lib_device),
-                shape=shape)
-        else:
-            print(f"  flash_attention {shape}: {ms:.5f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}), "
-                  f"library {lib_ms:.5f} ms (timed by cuda_graph_events) "
-                  f"[{card.smi}]")
-        print(f"    {shape}: {flops / 1e9:.3f} GFLOP causal, "
-              f"{nbytes / 1e6:.2f} MB; kernel {ms:.5f} ms "
-              f"({flops / ms / 1e9:.2f} TFLOP/s), SDPA {lib_ms:.5f} ms "
-              f"({flops / lib_ms / 1e9:.2f} TFLOP/s); host path a call (CUDA "
-              f"events back to back): kernel {events:.4f} ms, SDPA "
-              f"{lib_events:.4f} ms")
-    print(f"  row 10 at OLMoE's shape took "
-          f"{time.perf_counter() - t_flash:.1f} s")
+            events = time_ms(kernel, 200, warmup=20)
+            ms = graph_ms(kernel, GRAPH_CALLS)
+            plain_ms = time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, **kw), 5)
+            shape = (f"{label} B={b} S={sq} H={h} KH={kh} D={d} bf16 "
+                     f"probs_bf16={probs_bf16}")
+            if probs_bf16:
+                row("flash_attention", ms, plain_ms, nbytes, 0, lib_ms,
+                    bound, events=(events, lib_events,
+                                   device_ms(kernel, 50, "flash_fwd"),
+                                   lib_device),
+                    shape=shape)
+            else:
+                print(f"  flash_attention {shape}: {ms:.5f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms "
+                      f"({bound[1]}), library {lib_ms:.5f} ms (timed by "
+                      f"cuda_graph_events) [{card.smi}]")
+            print(f"    {shape}: {flops / 1e9:.3f} GFLOP causal, "
+                  f"{nbytes / 1e6:.2f} MB; kernel {ms:.5f} ms "
+                  f"({flops / ms / 1e9:.2f} TFLOP/s), SDPA {lib_ms:.5f} ms "
+                  f"({flops / lib_ms / 1e9:.2f} TFLOP/s), kernel / SDPA "
+                  f"{ms / lib_ms:.3f}; bound {bound[0]:.5f} ms ({bound[1]}: "
+                  f"bytes {t_bytes:.5f}, operations {t_ops:.5f}); host path "
+                  f"a call (CUDA events back to back): kernel {events:.4f} "
+                  f"ms, SDPA {lib_events:.4f} ms")
+        print(f"  row 10 at {label}'s shape took "
+              f"{time.perf_counter() - t_flash:.1f} s")
 
     print(f"  phase 7's kernel rows took {time.perf_counter() - t7:.1f} s")
     t_lm = time.perf_counter()
@@ -3418,6 +3724,24 @@ def main() -> None:
     print(f"  {MOE_ARCH}'s serve profile and the batch breakdowns of "
           f"{MOE_ARCH} and {RWKV_ARCH} took "
           f"{time.perf_counter() - t_moe:.1f} s")
+    # MusicGen-medium's batch of 4 taken apart the same way: the device's
+    # idle share over its decode steps (and its prefill)
+    t_cb = time.perf_counter()
+    opts = dict(zip(MUSIC_SERVE[::2], MUSIC_SERVE[1::2]))
+    cfg = get_config(MUSIC_ARCH)
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    batch_breakdown(card, dev, cfg, params, int(opts["--batch"]),
+                    int(opts["--prompt-len"]), int(opts["--gen-len"]), 3)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  {MUSIC_ARCH}'s batch breakdown took "
+          f"{time.perf_counter() - t_cb:.1f} s")
+    first = er_reports[MUSIC_ARCH]
+    print(f"  LM serve {MUSIC_ARCH} first run (phase 5): prefill "
+          f"{first.prefill_ms} ms, decode {first.decode_ms_per_token} "
+          f"ms/token, {first.tokens_per_s:.2f} tok/s; {VLM_ARCH} (train.serve "
+          f"steps, warm): prefill {vlm_report['prefill_ms']:.3f} ms, decode "
+          f"{vlm_report['decode_ms']:.3f} ms a step")
     first = er_reports[MOE_ARCH]
     print(f"  LM serve {MOE_ARCH} first run (phase 5): prefill "
           f"{first.prefill_ms} ms, decode {first.decode_ms_per_token} "

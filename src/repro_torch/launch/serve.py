@@ -18,13 +18,19 @@ unless ``--device cpu``, and eagerly where ``repro`` ``jax.jit``\\ s::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
         --prompt-len 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --device cpu --scaled
 
-Every config but MusicGen's (its codebooks are not ported) serves:
-attention, MoE (the dense path: every expert on every token), Mamba and
-RWKV-6 blocks; Jamba at full width needs more than one card, so only
-``--scaled``.
+Every config with an input table serves: attention, MoE (the dense
+path: every expert on every token), Mamba and RWKV-6 blocks, and
+MusicGen's codebooks (prompts (1, S, ncb), decode fed (B, 1, ncb), each
+request's ids the first ``--gen-len`` of its flattened (gen_len, ncb)
+output, as ``repro``'s); Jamba at full width needs more than one card,
+so only ``--scaled``.  The VLM stub (``embed_inputs=False``) is refused:
+this driver's prompts are token ids, which it cannot embed (``repro``'s
+launcher fails on them with ``KeyError: 'embeds'``); its embeds serve
+through ``train.serve``'s prefill and decode steps.
 
 Beside ``repro``'s per-request and summary lines it prints the prefill
 time of each batch and the decode time per token (host clock around
@@ -86,13 +92,21 @@ def main(argv=None, *, clock=time.perf_counter, sleep=time.sleep
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain versions of the kernels)")
     args = ap.parse_args(argv)
-    dev = _device.resolve(args.device)
 
     cfg = get_config(args.arch)
     if args.scaled:
         cfg = cfg.scaled().with_(dtype="float32", param_dtype="float32")
-    if not cfg.embed_inputs or cfg.num_codebooks > 1:
+    if not cfg.embed_inputs:
+        raise ValueError(
+            f"{args.arch} has no input embedding table (embed_inputs=False: "
+            f"its vision frontend is a stub fed precomputed patch "
+            f"embeddings), and this driver serves token-id prompts; repro's "
+            f"launcher feeds it the same and fails with KeyError: 'embeds'. "
+            f"Serve its embeds through repro_torch.train.serve's prefill "
+            f"and decode steps")
+    if cfg.num_codebooks > 1:
         print(f"note: {args.arch} uses a modality stub; serving token IDs")
+    dev = _device.resolve(args.device)
 
     max_len = args.prompt_len + args.gen_len
     params = transformer.init_params(cfg, seed=0, device=dev)

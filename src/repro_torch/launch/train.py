@@ -6,6 +6,12 @@ relaunch, on one device (the card unless ``--device cpu``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --scaled --quant binary --steps 40 --ckpt-dir "$(mktemp -d)"
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-2b \\
+        --steps 3
+
+A config without an input table (the VLM stub) trains on
+``data.tokens.vlm_batch_for_step``'s patch embeddings and M-RoPE grid,
+as ``repro``'s driver does.
 
 ``--scaled`` takes the reduced same-family config in float32 (CPU-sized);
 without it the arch's full config runs in its own dtypes.  Checkpoints
@@ -90,13 +96,14 @@ def main(argv=None):
     previous = signal.signal(signal.SIGTERM,
                              lambda *a: stop.update(now=True))
     train_step = steps.build_train_step(cfg, optimizer)
+    batch_fn = (dtok.vlm_batch_for_step if not cfg.embed_inputs
+                else dtok.batch_for_step)
     losses = []
     t0 = time.time()
     try:
         for i in range(start, args.steps):
-            batch = dtok.batch_for_step(cfg, i,
-                                        global_batch=args.global_batch,
-                                        seq_len=args.seq_len, device=dev)
+            batch = batch_fn(cfg, i, global_batch=args.global_batch,
+                             seq_len=args.seq_len, device=dev)
             state, metrics = train_step(state, batch)
             losses.append(float(metrics["loss"]))
             if i % args.log_every == 0 or i == args.steps - 1:

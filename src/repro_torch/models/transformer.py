@@ -9,17 +9,21 @@ is a Python loop over ``r`` here.
 Block kinds: ``attn``, ``local``, ``global``, ``dense`` and ``attn_moe``
 (attention), ``mamba`` and ``mamba_moe`` (the selective state-space
 mixer), ``rwkv`` (RWKV-6, which keeps its own norm and channel mix);
-``*_moe`` replaces the MLP by the mixture of experts.  Multi-codebook
-embeddings and heads (``num_codebooks > 1``) raise
-``NotImplementedError``: ROADMAP §1 item 5.4.  ``forward`` returns final
-hidden states; ``lm_logits`` maps them to logits for serving.
+``*_moe`` replaces the MLP by the mixture of experts.  A multi-codebook
+config (MusicGen, ``num_codebooks > 1``) sums one embedding table a
+codebook and predicts with one head a codebook; a config without an
+input table (``embed_inputs=False``, the VLM stub) takes ``embeds``.
+``forward`` returns final hidden states; ``lm_logits`` maps them to
+logits for serving.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import device as _device
 from repro_torch.configs import base as cfgbase
@@ -27,13 +31,6 @@ from repro_torch.models import attention, common, mamba, mlp, moe, rwkv6
 
 ATTN_KINDS = ("attn", "local", "global", "dense", "attn_moe")
 MAMBA_KINDS = ("mamba", "mamba_moe")
-
-
-def _check_cfg(cfg) -> None:
-    if cfg.num_codebooks > 1:
-        raise NotImplementedError(
-            "multi-codebook (MusicGen) embeddings and heads are not ported "
-            "yet (ROADMAP §1 item 5.4)")
 
 
 def tree_index(tree, r: int):
@@ -101,14 +98,17 @@ def _block_init(gen, cfg, kind: str, dtype, device, lead=()):
 def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random parameters in ``repro``'s layout, drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed`` (not ``repro``'s values)."""
-    _check_cfg(cfg)
     dev = _device.resolve(device)
     dtype = common.torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: Dict[str, Any] = {}
+    ncb, v, d = cfg.num_codebooks, cfg.vocab_size, cfg.d_model
     if cfg.embed_inputs:
-        params["embed"] = common.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                            dtype, dev)
+        if ncb > 1:
+            params["embed"] = {"table": torch.randn(
+                (ncb, v, d), generator=gen, dtype=dtype, device=dev) * 0.02}
+        else:
+            params["embed"] = common.embed_init(gen, v, d, dtype, dev)
     if cfg.prefix:
         params["prefix"] = [_block_init(gen, cfg, kind, dtype, dev)
                             for kind in cfg.prefix]
@@ -118,9 +118,13 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
                         for i, kind in enumerate(cfg.pattern)}
     params["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
-        params["lm_head"] = common.linear_init(gen, cfg.d_model,
-                                               cfg.vocab_size, dtype=dtype,
-                                               device=dev)
+        if ncb > 1:
+            params["lm_head"] = {"w": torch.randn(
+                (ncb, d, v), generator=gen, dtype=dtype, device=dev)
+                / math.sqrt(d)}
+        else:
+            params["lm_head"] = common.linear_init(gen, d, v, dtype=dtype,
+                                                   device=dev)
     return params
 
 
@@ -183,6 +187,11 @@ def block_apply(params, cfg, kind, x, cos, sin, *, mode="train",
 def _embed(params, cfg, batch):
     if not cfg.embed_inputs:
         x = batch["embeds"]
+    elif cfg.num_codebooks > 1:
+        # tokens (B, S, ncb), tables (ncb, V, D): summed in codebook order
+        tbl, toks = params["embed"]["table"], batch["tokens"]
+        x = sum(F.embedding(toks[..., c], tbl[c])
+                for c in range(cfg.num_codebooks))
     else:
         x = common.embed_apply(params["embed"], batch["tokens"])
     if getattr(cfg, "embed_scale", False):
@@ -216,7 +225,6 @@ def forward(params, cfg, batch, *, mode: str = "train",
     attention blocks write their KV into views of the stack, the
     recurrent blocks' new states are copied into theirs) and returns it.
     """
-    _check_cfg(cfg)
     x = _embed(params, cfg, batch).to(common.dtype_of(cfg))
     cos, sin = _rope(cfg, batch, x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -260,9 +268,11 @@ def forward(params, cfg, batch, *, mode: str = "train",
 
 
 def lm_logits(params, cfg, hidden):
-    """hidden (B,S,D) -> logits (B,S,V)."""
-    _check_cfg(cfg)
-    if cfg.tie_embeddings:
+    """hidden (B,S,D) -> logits (B,S,V), or (B,S,ncb,V) with codebooks."""
+    if cfg.num_codebooks > 1:
+        w = params["lm_head"]["w"]                       # (ncb, D, V)
+        logits = torch.einsum("bsd,cdv->bscv", hidden, w.to(hidden.dtype))
+    elif cfg.tie_embeddings:
         logits = torch.matmul(hidden,
                               params["embed"]["table"].to(hidden.dtype).t())
     else:
@@ -291,7 +301,6 @@ def _block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None):
-    _check_cfg(cfg)
     dev = _device.resolve(device)
     dtype = common.dtype_of(cfg)
     prefix = [_block_cache(cfg, kind, batch, max_len, dtype, dev)

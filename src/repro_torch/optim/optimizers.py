@@ -240,7 +240,7 @@ def sgdm(lr_fn, momentum=0.9, clip_norm: float = 0.0) -> Optimizer:
 # ---------------------------------------------------------------------------
 
 def step_tolerance(want, grads, lr: float, rel: float = 1e-4,
-                   floor: float = 1e-7):
+                   floor: float = 1e-7, adam_eps: float | None = None):
     """How far two float32 runs of one adamw step from the same params and
     state (the CPU and the GPU, or this package and ``repro``) may land
     apart, per element: ``max(rel x the leaf's max abs, floor)``, widened
@@ -251,12 +251,28 @@ def step_tolerance(want, grads, lr: float, rel: float = 1e-4,
     can step either way.  ``want`` and ``grads`` are trees of tensors or
     numpy arrays; returns the tree of bounds.  The BN running statistics
     have zero gradient, so their bound is loose: hold them to a relative
-    tolerance instead."""
+    tolerance instead.
+
+    With ``adam_eps`` (Adam's epsilon; ``grads`` then the clipped
+    gradients the first step saw), an element whose gradient is above
+    that rounding level d is widened by what d moves the first step,
+    ``lr x (u(g + d) - u(g - d))`` with ``u(x) = x / (|x| + eps)``: at
+    ``|g|`` a few eps a gradient agreeing to d still steps apart by a
+    share of lr (attention's bias elements whose rotary pair barely turns
+    over the positions, a cancellation with a small gradient).  The rule
+    is ``2 lr``'s own, carried above rounding level: it never exceeds
+    ``2 lr``, and it holds the first step only."""
     def leaf_tol(x) -> float:
         return max(rel * float(abs(x).max()), floor)
 
     def bound(p, g):
-        return leaf_tol(p) + (abs(g) <= leaf_tol(g)) * (2 * lr)
+        d = leaf_tol(g)
+        flat = abs(g) <= d
+        out = leaf_tol(p) + flat * (2 * lr)
+        if adam_eps is None:
+            return out
+        u = lambda x: x / (abs(x) + adam_eps)
+        return out + (~flat) * (lr * (u(g + d) - u(g - d)))
 
     return tree_map(bound, want, grads)
 

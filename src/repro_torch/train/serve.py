@@ -58,8 +58,9 @@ def build_prefill_step(cfg, max_len: Optional[int] = None):
 
 def build_decode_step(cfg):
     def decode_step(params, cache, tokens_or_embeds, cache_len: int):
-        """tokens: (B, 1) (or embeds (B, 1, D)); cache_len: the position of
-        the new token."""
+        """tokens: (B, 1), (B, 1, ncb) with codebooks, or embeds (B, 1, D)
+        without an input table; cache_len: the position of the new token
+        (all three M-RoPE axes take it, as in ``repro``)."""
         if cfg.embed_inputs:
             batch = {"tokens": tokens_or_embeds}
         else:
@@ -77,7 +78,8 @@ def build_decode_step(cfg):
 
 def sample(gen: Optional[torch.Generator], logits: torch.Tensor,
            temperature: float = 0.0) -> torch.Tensor:
-    """logits (B, 1, V) -> int32 token ids (B, 1)."""
+    """logits (B, 1, V) -> int32 token ids (B, 1); (B, 1, ncb, V) ->
+    (B, 1, ncb) with codebooks, each codebook drawn on its own."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     # Gumbel-max: argmax(logits / T + G), G = -log(E), E ~ Exp(1)

@@ -29,7 +29,9 @@ from repro_torch.optim import optimizers as opt
 # ---------------------------------------------------------------------------
 
 def _ce_chunk(params, cfg, h_chunk, labels_chunk):
-    """Summed CE of one chunk: (B, c, D) hidden and (B, c) labels."""
+    """Summed CE of one chunk: (B, c, D) hidden and (B, c) labels, or
+    (B, c, ncb) with codebooks (logits (B, c, ncb, V): the softmax and the
+    gather run over the last axis either way)."""
     logits = transformer.lm_logits(params, cfg, h_chunk).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
@@ -38,9 +40,10 @@ def _ce_chunk(params, cfg, h_chunk, labels_chunk):
 
 
 def chunked_ce(params, cfg, h, labels):
-    """h: (B, S, D); labels: (B, S).  Mean CE over all tokens, a chunk of
-    ``cfg.loss_chunk`` positions at a time (one chunk when it does not
-    divide S)."""
+    """h: (B, S, D); labels: (B, S), or (B, S, ncb) with codebooks.  Mean
+    CE over every label (B·S·ncb of them, as ``repro`` divides by
+    ``labels.size``), a chunk of ``cfg.loss_chunk`` positions at a time
+    (one chunk when it does not divide S)."""
     b, s, _ = h.shape
     c = min(cfg.loss_chunk, s)
     if s % c:

@@ -807,3 +807,88 @@ def test_jamba_scaled_prefill_and_decode_on_the_card_equal_the_cpu():
     assert keep.any()
     assert torch.allclose(out[1][0][keep], out[0][0][keep], rtol=2e-4,
                           atol=2e-4)
+
+
+def _two_layer_run(arch, where, params, b, s, k):
+    """Prefill s positions and decode k steps of ``arch`` at full width
+    and two layers on ``where``: MusicGen on 4-codebook tokens, Qwen2-VL
+    on the VLM batch's embeds and M-RoPE grid (decode steps at (s+i,
+    s+i, s+i)).  Returns (prefill + decode logits on the CPU, the flash
+    launches)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.device import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.train import serve
+    cfg = get_config(arch).with_(dtype="float32", num_layers=2)
+    p = to_device(params, torch.device(where))
+    if cfg.embed_inputs:
+        toks = torch.randint(0, cfg.vocab_size, (b, s + k, cfg.num_codebooks),
+                             generator=torch.Generator().manual_seed(4),
+                             dtype=torch.int32).to(where)
+        prompt = {"tokens": toks[:, :s]}
+    else:
+        batch = dtok.vlm_batch_for_step(cfg, 0, global_batch=b,
+                                        seq_len=s + k, device=where)
+        toks = batch["embeds"]
+        prompt = {"embeds": toks[:, :s],
+                  "positions": batch["positions"][:, :s]}
+    ops.reset_launch_counts()
+    logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(p, prompt)
+    outs = [logits]
+    for i in range(k):
+        logits, cache = serve.build_decode_step(cfg)(
+            p, cache, toks[:, s + i][:, None], s + i)
+        outs.append(logits)
+    return (torch.cat(outs, dim=1).cpu(),
+            ops.launch_counts()["flash_attention"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-2b"])
+def test_codebook_and_vlm_prefill_and_decode_on_the_card(arch, monkeypatch):
+    """MusicGen-medium and Qwen2-VL-2B at full width and two layers in
+    float32: the prefill logits through the flash kernel (a launch a
+    layer) == through its plain version, and prefill + decode on the card
+    == on the CPU, within 2e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.device import to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    cfg = get_config(arch).with_(dtype="float32", num_layers=2)
+    params = transformer.init_params(cfg, seed=2, device="cpu")
+    b, s, k = 2, 128, 3
+    p = to_device(params, torch.device("cuda"))
+    if cfg.embed_inputs:
+        prompt = {"tokens": torch.randint(
+            0, cfg.vocab_size, (b, s, cfg.num_codebooks),
+            generator=torch.Generator().manual_seed(3),
+            dtype=torch.int32).cuda()}
+    else:
+        batch = dtok.vlm_batch_for_step(cfg, 1, global_batch=b, seq_len=s,
+                                        device="cuda")
+        prompt = {"embeds": batch["embeds"], "positions": batch["positions"]}
+    out = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(
+                ops, "flash_attention",
+                lambda q, k, v, *, causal=True, scale=None, probs_bf16=None:
+                fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                         probs_bf16=probs_bf16))
+        ops.reset_launch_counts()
+        h, _, _ = transformer.forward(p, cfg, prompt, mode="prefill")
+        out.append(transformer.lm_logits(p, cfg, h).cpu())
+        assert ops.launch_counts()["flash_attention"] == (0 if plain else 2)
+    monkeypatch.undo()
+    assert torch.isfinite(out[0]).all()
+    assert torch.allclose(out[0], out[1], rtol=2e-4, atol=2e-4)
+    del p
+    card, flash = _two_layer_run(arch, "cuda", params, b, s, k)
+    cpu, none = _two_layer_run(arch, "cpu", params, b, s, k)
+    assert flash == 2 and none == 0
+    assert torch.allclose(card, cpu, rtol=2e-4, atol=2e-4)

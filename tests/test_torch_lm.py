@@ -361,13 +361,26 @@ def test_prefill_and_decode_match_repro(arch):
     assert not (differ & ~near).any(), (int(differ.sum()), int(near.sum()))
 
 
-def test_unported_kinds_raise_naming_the_roadmap():
-    """Every block kind is ported; MusicGen's codebooks are not."""
-    cfg = treg.get_config("musicgen-medium").scaled().with_(dtype="float32")
-    with pytest.raises(NotImplementedError, match="§1 item 5.4"):
-        ttf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="§1 item 5.4"):
-        ttf.init_cache(cfg, 1, 4, device="cpu")
+@pytest.mark.parametrize("arch", list(jreg.ARCH_IDS))
+def test_init_params_has_repros_leaf_paths_and_shapes(arch):
+    """Every config initialises in the port: at scaled() size its
+    parameters have repro's leaf paths, shapes and dtypes (repro's read
+    with ``jax.eval_shape``, no allocation)."""
+    jcfg, tcfg = (r.get_config(arch).scaled().with_(dtype="float32",
+                                                    param_dtype="float32")
+                  for r in (jreg, treg))
+    want = jax.eval_shape(lambda k: jtf.init_params(k, jcfg),
+                          jax.random.PRNGKey(0))
+    got = ttf.init_params(tcfg, seed=0, device="cpu")
+    flat_w, _ = jax.tree_util.tree_flatten_with_path(want)
+    flat_g, _ = jax.tree_util.tree_flatten_with_path(got)
+    assert ([jax.tree_util.keystr(k) for k, _ in flat_g]
+            == [jax.tree_util.keystr(k) for k, _ in flat_w])
+    for (path, g), (_, w) in zip(flat_g, flat_w):
+        assert tuple(g.shape) == w.shape, jax.tree_util.keystr(path)
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
+    cache = ttf.init_cache(tcfg, 1, 4, device="cpu")
+    assert len(cache["prefix"]) == len(tcfg.prefix)
 
 
 def test_sample_greedy_ties_and_gumbel_distribution():
