@@ -64,7 +64,12 @@ Qwen2-VL-2B at full width, 3 adamw steps of 8 x 256 each, and their
 scaled() steps card == CPU), 7 times (row 10 also at the prefill shapes
 of OLMoE, MusicGen and Qwen2-VL; the SmolLM and OLMoE serves' prefill ms,
 decode ms per token, tok/s and device idle share; MusicGen's batch
-breakdown).
+breakdown), 8 the cost model (``launch.dryrun`` of SmolLM-360M's four
+cells on meta tensors; SmolLM-360M's prefill, decode and training step
+and OLMoE-1B-7B's prefill at full width counted by ``launch.op_cost`` on
+the card == on meta, the prefills through the flash kernel inside the
+count, each timed in a CUDA graph against its roofline: bound share at
+most 1.05, MFU, peak live bytes beside ``max_memory_allocated``).
 Near the end come ``{"kernels": [...]}`` and the card's name and power
 limit on lines of their own; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -253,6 +258,17 @@ MUSIC_SERVE = ("--arch", MUSIC_ARCH, "--requests", "8", "--batch", "4",
                "--prompt-len", "512", "--gen-len", "32")
 VLM_SERVE = (4, 512, 32)
 CB_TRAIN = ("--steps", "3", "--global-batch", "8", "--seq-len", "256")
+# phase 8: the cost model.  SmolLM-360M's four dry-run cells on meta, then
+# whole steps at full width in the configs' own dtypes, each counted on
+# the card and on meta at the same shape: (arch, step, seq_len, batch),
+# the decode step's cache the prefill's, padded by LM_GEN
+COST_STEPS = ((LM_ARCH, "prefill", LM_PROMPT, LM_BATCH),
+              (LM_ARCH, "decode", LM_PROMPT + LM_GEN, LM_BATCH),
+              (LM_ARCH, "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH),
+              (MOE_ARCH, "prefill", 512, 4))
+STEP_GRAPH_CALLS = 5            # steps a CUDA graph of phase 8 replays
+STEP_EVENT_ITERS = 5            # steps CUDA events time where capture fails
+BOUND_SHARE_MAX = 1.05          # no step runs faster than its bound
 
 
 def sh(*cmd: str) -> str:
@@ -1245,6 +1261,124 @@ def codebook_vlm_train(card, dev) -> None:
               f"head dim {small.head_dim}, chunked attention): card == CPU "
               f"within step_tolerance (adam_eps {eps}; worst {worst:.3f} of "
               f"the bound), loss |card - CPU| {dl:.2e}")
+
+
+def cost_phase(card, dev) -> int:
+    """Phase 8: the cost model on the card.  The dry run of SmolLM-360M's
+    four cells (meta tensors, ``launch.dryrun``); then each of COST_STEPS
+    with real parameters on the card: counted by ``launch.op_cost`` (FLOPs
+    and bytes must equal the meta count at the same shape, and the
+    prefills must launch the flash kernel once a layer), timed without the
+    counter (a step in a CUDA graph where capture works, else CUDA events
+    back to back), its roofline terms, bound share and MFU (the bound
+    share must not pass BOUND_SHARE_MAX: no step runs faster than its
+    bound), and the counter's peak live bytes beside
+    ``max_memory_allocated``.  Returns the flash launches of the counted
+    steps."""
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.base import active_param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, op_cost, roofline
+    from repro_torch.launch.timing import events_ms, graph_ms
+    from repro_torch.models import transformer
+    from repro_torch.train import serve
+
+    for name in shp.SHAPES:
+        rec = dryrun.lower_cell(LM_ARCH, name)
+        if rec["status"] != "OK":
+            print(f"  dry run {LM_ARCH} {name}: {rec['status']} "
+                  f"({rec['reason'][:60]}...)")
+            continue
+        print(f"  dry run {LM_ARCH} {name} (meta, traced in "
+              f"{rec['trace_s']} s): {rec['hlo_flops']:.4e} FLOPs, "
+              f"{rec['hlo_bytes']:.4e} bytes, t_compute "
+              f"{rec['t_compute'] * 1e3:.3f} ms, t_memory "
+              f"{rec['t_memory'] * 1e3:.3f} ms, {rec['bottleneck']}-bound, "
+              f"roofline_fraction {rec['roofline_fraction']:.4f}, "
+              f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}, peak "
+              f"{(rec['bytes_per_chip']['argument'] + rec['bytes_per_chip']['temp']) / 1e9:.2f} GB")
+
+    flash, params = 0, {}
+    for arch, step, seq, batch in COST_STEPS:
+        cfg = get_config(arch)
+        shape = shp.ShapeSpec(f"{step} {batch}x{seq}", seq, batch, step)
+        fn, meta_args = dryrun.step_and_args(cfg, shape)
+        meta = op_cost.count(fn, *meta_args)
+        del meta_args
+        if arch not in params:
+            params.clear()
+            torch.cuda.empty_cache()
+            params[arch] = transformer.init_params(cfg, seed=0, device=dev)
+        p = params[arch]
+        if step == "train":
+            optimizer = dryrun.build_optimizer(cfg)
+            args = ({"params": p, "opt_state": optimizer.init(p),
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)},
+                    dtok.batch_for_step(cfg, 0, global_batch=batch,
+                                        seq_len=seq, device=dev))
+        else:
+            prompt = seq if step == "prefill" else LM_PROMPT
+            toks = dtok.batch_for_step(cfg, 0, global_batch=batch,
+                                       seq_len=prompt, device=dev)["tokens"]
+            args = (p, {"tokens": toks})
+            if step == "decode":
+                logits, cache = serve.build_prefill_step(cfg, max_len=seq)(
+                    *args)
+                args = (p, cache, serve.sample(None, logits), prompt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cost = op_cost.count(fn, *args)
+        torch.cuda.synchronize()
+        max_alloc = torch.cuda.max_memory_allocated()
+        n_flash = ops.launch_counts()["flash_attention"]
+        flash += n_flash
+        what = f"{arch} {shape.name}"
+        if (cost.flops, cost.bytes) != (meta.flops, meta.bytes):
+            raise AssertionError(
+                f"{what}: the card counts {cost.flops:.6e} FLOPs, "
+                f"{cost.bytes:.6e} bytes; meta {meta.flops:.6e}, "
+                f"{meta.bytes:.6e}")
+        want_flash = attn_layers(cfg) if step == "prefill" else 0
+        if n_flash != want_flash:
+            raise AssertionError(f"{what}: {n_flash} flash launches, want "
+                                 f"{want_flash}")
+
+        def run():
+            fn(*args)
+        try:
+            ms, timed_by = graph_ms(run, STEP_GRAPH_CALLS), "cuda_graph_events"
+        except Exception as e:   # a step that cannot be captured
+            ms = events_ms(run, STEP_EVENT_ITERS)
+            timed_by = f"cuda_events (capture failed: {type(e).__name__})"
+        rl = roofline.analyze(
+            cost, arch=arch, shape=shape.name, mesh_name=dryrun.MESH,
+            chips=1, dtype=cfg.dtype,
+            model_flops=roofline.model_flops_for(cfg, shape,
+                                                 active_param_count(cfg)))
+        bound_ms = max(rl.t_compute, rl.t_memory) * 1e3
+        share = bound_ms / ms
+        mfu = rl.model_flops / (rl.peak_flops * ms / 1e3)
+        print(f"  {what} ({cfg.dtype}, peak {rl.peak_flops / 1e12:.0f} "
+              f"TFLOP/s): {cost.flops:.6e} FLOPs, {cost.bytes:.6e} bytes == "
+              f"meta; flash launches {n_flash}; t_compute "
+              f"{rl.t_compute * 1e3:.4f} ms, t_memory "
+              f"{rl.t_memory * 1e3:.4f} ms, {rl.bottleneck}-bound; measured "
+              f"{ms:.4f} ms ({timed_by}); bound_share {share:.4f}, mfu "
+              f"{mfu:.4f}, useful_flops_ratio {rl.useful_flops_ratio:.4f}; "
+              f"peak_bytes {cost.peak_bytes / 1e9:.3f} GB, "
+              f"max_memory_allocated {max_alloc / 1e9:.3f} GB "
+              f"[{card.smi}]")
+        if share > BOUND_SHARE_MAX:
+            raise AssertionError(
+                f"{what}: bound share {share:.4f} > {BOUND_SHARE_MAX}: the "
+                f"counter over-counts (no step runs faster than its bound)")
+        del args
+    params.clear()
+    torch.cuda.empty_cache()
+    return flash
 
 
 def member_word_ops(stages, batch: int) -> int:
@@ -3578,6 +3712,45 @@ def main() -> None:
           f"{row_ms * card.sms / tiles * 1e3:.3f} us a 64 x 64 block-tile "
           f"an SM ({tiles} block-tiles)")
 
+    # the dispatcher op the main path calls (ops.flash_attention, through
+    # torch.ops.repro_torch.flash_attention) beside the launcher it wraps
+    # (fa.flash_attention), at SmolLM's prefill shape in bf16 with the
+    # serve's own float32 p: the host's time to issue a call (200 calls
+    # between two clock reads, the card left to run behind them; median
+    # of 5 alternating readings) and a call's time in a CUDA graph
+    _, b, sq, h, kh, d, causal = FLASH_SHAPES[0]
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16().to(dev)
+               for shape in ((b, sq, h, d), (b, sq, kh, d), (b, sq, kh, d)))
+    kw = dict(causal=causal, probs_bf16=False)
+    paths = {"op": lambda: ops.flash_attention(q, k, v, **kw),
+             "launcher": lambda: fa.flash_attention(q, k, v, **kw)}
+    if not torch.equal(paths["op"](), paths["launcher"]()):
+        raise SystemExit("FAIL: the flash op and its launcher disagree")
+
+    def issue_us(fn, calls: int = 200) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
+
+    for fn in paths.values():
+        issue_us(fn, 20)
+    host = {name: [] for name in paths}
+    for _ in range(5):
+        for name, fn in paths.items():
+            host[name].append(issue_us(fn))
+    host = {name: float(np.median(x)) for name, x in host.items()}
+    graph = {name: graph_ms(fn, GRAPH_CALLS) for name, fn in paths.items()}
+    print(f"    flash op vs launcher, SmolLM prefill B={b} S={sq} H={h} "
+          f"KH={kh} D={d} bf16 probs_bf16=False: host issue a call "
+          f"{host['op']:.2f} us (op) vs {host['launcher']:.2f} us "
+          f"(launcher), +{host['op'] - host['launcher']:.2f} us; a call in "
+          f"a CUDA graph {graph['op']:.5f} ms (op) vs "
+          f"{graph['launcher']:.5f} ms (launcher) [{card.smi}]")
+
     # flash attention at the prefill shapes of OLMoE-1B-7B (B=4, S=512,
     # H=KH=16, D=128), MusicGen-medium (H=KH=24, D=64) and Qwen2-VL-2B
     # (H=12, KH=2, D=128), bf16: more shapes of row 10, each at
@@ -3749,6 +3922,16 @@ def main() -> None:
           f"{er_reports[RWKV_ARCH].prefill_ms} ms, decode "
           f"{er_reports[RWKV_ARCH].decode_ms_per_token} ms/token, "
           f"{er_reports[RWKV_ARCH].tokens_per_s:.2f} tok/s")
+
+    # -- 8. the cost model ----------------------------------------------------
+    phase(8, f"the cost model: {LM_ARCH}'s dry run on meta, then whole steps "
+             f"counted on the card == on meta, timed, against the roofline "
+             f"[{card.smi}]")
+    t8 = time.perf_counter()
+    n8 = cost_phase(card, dev)
+    by_phase["flash_attention"]["8"] = n8
+    rows["flash_attention"]["launches"] += n8
+    print(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(card.smi)

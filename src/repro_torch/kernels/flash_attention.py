@@ -14,6 +14,14 @@ on CUDA cores); :func:`flash_attention_plain` is the Pallas body written
 out in PyTorch (the key-tile loop with its online softmax), which the CPU
 path and the tests use.  Unlike ``repro``'s wrapper, both take any
 S >= 1: the ragged last key tile is masked.
+
+:func:`flash_attention_op` is the dispatcher op
+``repro_torch::flash_attention`` over the two: CUDA tensors launch the
+kernel, CPU tensors run the plain version, meta tensors get the output's
+shape and type (``register_fake``) and any other device raises.  Its
+FLOPs are registered with ``torch.utils.flop_counter``
+(:func:`attention_flops`), so a counter over a step sees one op with a
+known cost where the kernel runs.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -145,3 +154,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def attention_flops(b: int, s: int, h: int, d: int, causal: bool) -> int:
+    """FLOPs of the two products (q.k and p.v), 2 a MAC: 4 B H D S^2, or
+    over the causal triangle with its diagonal, 4 B H D S (S + 1) / 2."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * h * d * pairs
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True, scale: Optional[float] = None,
+                       probs_bf16: Optional[bool] = None) -> torch.Tensor:
+    """The kernel on CUDA tensors (no fallback: it launches or raises), the
+    plain version on CPU tensors; any other device raises."""
+    kw = dict(causal=causal, scale=scale, probs_bf16=probs_bf16)
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, **kw)
+    if q.device.type == "cpu":
+        check_args(q, k, v)
+        # contiguous, as the kernel's output and the fake's
+        return flash_attention_plain(q, k, v, **kw).contiguous()
+    raise ValueError(f"no kernel or plain version for device {q.device}")
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal=True, scale=None, probs_bf16=None):
+    check_args(q, k, v)
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flop(q_shape, k_shape, v_shape, causal=True, *args,
+                          **kwargs) -> int:
+    b, s, h, d = q_shape
+    return attention_flops(b, s, h, d, causal)

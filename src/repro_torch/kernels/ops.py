@@ -181,12 +181,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA attention forward with an online softmax: q (B, S, H, D), k and
     v (B, S, KH, D) -> (B, S, H, D) in q's type, float32 or bfloat16.
     ``probs_bf16`` is ``chunked_attention``'s (bf16 or float32 p . v);
-    ``None`` rounds p to v's type."""
-    kw = dict(causal=causal, scale=scale, probs_bf16=probs_bf16)
-    if _on_cuda(q):
-        return _fa.flash_attention(q, k, v, **kw)
-    _fa.check_args(q, k, v)
-    return _fa.flash_attention_plain(q, k, v, **kw)
+    ``None`` rounds p to v's type.  It runs the dispatcher op
+    ``repro_torch::flash_attention``: the kernel on CUDA tensors, the plain
+    version on CPU ones, the output's shape and type on meta ones."""
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, scale,
+                                                 probs_bf16)
 
 
 member_groups = _mk.member_groups

@@ -116,8 +116,8 @@ def linear_apply(params, x: torch.Tensor, *, quant: str = "none",
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
@@ -140,9 +140,10 @@ def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                          f"{head_dim} // 2")
     freqs = rope_freqs(head_dim, theta, positions.device)        # (hd/2,)
     ang_3 = positions[..., None, :].float() * freqs[None, None, :, None]
-    owner = torch.repeat_interleave(
-        torch.arange(3, device=positions.device),
-        torch.tensor(tuple(sections), device=positions.device))
+    # the section of each slot, built on the device (no host sync)
+    owner = torch.cat([torch.full((n,), i, dtype=torch.int64,
+                                  device=positions.device)
+                       for i, n in enumerate(sections)])
     idx = owner[None, None, :, None].expand(ang_3.shape[:-1] + (1,))
     ang = torch.gather(ang_3, -1, idx)[..., 0]
     return torch.cos(ang), torch.sin(ang)

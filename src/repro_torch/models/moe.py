@@ -22,7 +22,6 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import eff_d_expert
 from repro_torch.models import common
@@ -66,8 +65,12 @@ def _route(x2d: torch.Tensor, router_w: torch.Tensor, m):
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     # Switch-style load-balance loss + router z-loss
     me = probs.mean(dim=0)
-    onehot = F.one_hot(sel, m.num_experts).float().sum(dim=1)
-    ce = onehot.mean(dim=0) / m.top_k
+    # the experts each token chose, as 0/1 (the top-k are distinct):
+    # F.one_hot(sel).sum(1), built the same on every device (one_hot
+    # checks its input on the host off CUDA, and decomposes on meta)
+    chosen = torch.zeros((sel.shape[0], m.num_experts), dtype=torch.float32,
+                         device=sel.device).scatter_(1, sel, 1.0)
+    ce = chosen.mean(dim=0) / m.top_k
     lb = m.num_experts * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return gates, sel, m.router_aux_weight * lb + 1e-4 * z

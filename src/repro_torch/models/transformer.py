@@ -97,10 +97,13 @@ def _block_init(gen, cfg, kind: str, dtype, device, lead=()):
 
 def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random parameters in ``repro``'s layout, drawn on ``device`` from a
-    ``torch.Generator`` seeded with ``seed`` (not ``repro``'s values)."""
+    ``torch.Generator`` seeded with ``seed`` (not ``repro``'s values).
+    On ``"meta"`` (shapes and types only, ``jax.eval_shape``'s
+    counterpart) the draws take a CPU generator, which meta accepts."""
     dev = _device.resolve(device)
     dtype = common.torch_dtype(cfg.param_dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
     params: Dict[str, Any] = {}
     ncb, v, d = cfg.num_codebooks, cfg.vocab_size, cfg.d_model
     if cfg.embed_inputs:

@@ -84,8 +84,10 @@ def _zeros_if_none(g, p):
     return torch.zeros_like(p, dtype=torch.float32) if g is None else g
 
 
-def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+def _step_t(step, like: torch.Tensor) -> torch.Tensor:
+    """``t = step + 1`` in float32 on ``like``'s device, with no host
+    sync (exact below 2**24 steps, so equal to the float64 sum rounded)."""
+    return torch.as_tensor(step, device=like.device).to(torch.float32) + 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +129,7 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     def update(grads, state, params, step):
         grads, gn = clip_by_global_norm(_fill(grads, params), clip_norm)
         lr = lr_fn(step).to(gn.device)
-        t = _f32(float(step) + 1.0, gn)
+        t = _step_t(step, gn)
         bc1 = 1.0 - b1 ** t
         bc2 = 1.0 - b2 ** t
 
@@ -175,7 +177,7 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
     def update(grads, state, params, step):
         grads, gn = clip_by_global_norm(_fill(grads, params), clip_norm)
         lr = lr_fn(step).to(gn.device)
-        t = _f32(float(step) + 1.0, gn)
+        t = _step_t(step, gn)
         beta = 1.0 - t ** (-decay)
 
         def upd(p, g, s):

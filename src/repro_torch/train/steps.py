@@ -9,9 +9,10 @@ same gradients.  A step is eager: ``repro`` ``jax.jit``\\ s it.
 
 The train state is ``{"params", "opt_state", "step"}`` as ``repro``'s, so
 ``checkpoint.ckpt`` saves and restores it in either package's format;
-``step`` is an int32 scalar tensor.  ``state_shape`` and ``state_specs``
-are sharding, which waits for the training half of the distributed
-layer (ROADMAP §1 item 5.5).
+``step`` is an int32 scalar tensor.  :func:`state_shape` is the state on
+meta tensors (shapes and types, nothing allocated); ``state_specs`` is
+sharding, which waits for the training half of the distributed layer
+(ROADMAP §1 item 5.5).
 """
 
 from __future__ import annotations
@@ -50,8 +51,10 @@ def chunked_ce(params, cfg, h, labels):
         c = s                               # fallback: a single chunk
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, c):
+        # no draws in a chunk: no RNG state to stash and restore
         tot = tot + checkpoint(_ce_chunk, params, cfg, h[:, i:i + c],
-                               labels[:, i:i + c], use_reentrant=False)
+                               labels[:, i:i + c], use_reentrant=False,
+                               preserve_rng_state=False)
     return tot / max(labels.numel(), 1)
 
 
@@ -109,3 +112,10 @@ def create_state(cfg, seed: int, optimizer: opt.Optimizer, device=None):
     params = transformer.init_params(cfg, seed=seed, device=dev)
     return {"params": params, "opt_state": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def state_shape(cfg, optimizer: opt.Optimizer):
+    """The train state's shapes and types without allocating anything:
+    :func:`create_state` on meta tensors (``repro``'s ``jax.eval_shape``
+    of it)."""
+    return create_state(cfg, 0, optimizer, device="meta")

@@ -892,3 +892,49 @@ def test_codebook_and_vlm_prefill_and_decode_on_the_card(arch, monkeypatch):
     cpu, none = _two_layer_run(arch, "cpu", params, b, s, k)
     assert flash == 2 and none == 0
     assert torch.allclose(card, cpu, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_smollm_prefill_counts_on_the_card_equal_meta_and_flash_op():
+    """``launch.op_cost`` counts SmolLM-360M's full-width prefill (B=4,
+    S=512, bf16) on the card exactly as on meta tensors at the same shape
+    (the counter reads shapes, strides and types only), the step
+    launching the flash kernel once a layer inside the count; and the
+    dispatcher op ``repro_torch::flash_attention`` on CUDA tensors equals
+    its plain version (it launches the kernel: no fallback)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.models import transformer
+    cfg = get_config("smollm-360m")
+    fn, meta_args = dryrun.step_and_args(
+        cfg, shp.ShapeSpec("prefill", 512, 4, "prefill"))
+    meta = op_cost.count(fn, *meta_args)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    toks = dtok.batch_for_step(cfg, 0, global_batch=4, seq_len=512,
+                               device="cuda")["tokens"]
+    ops.reset_launch_counts()
+    card = op_cost.count(fn, params, {"tokens": toks})
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    assert (card.flops, card.bytes) == (meta.flops, meta.bytes)
+    assert card.argument_bytes == meta.argument_bytes
+    gen = torch.Generator().manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=gen).to(dtype).cuda()
+                   for shape in ((2, 100, 6, 64), (2, 100, 2, 64),
+                                 (2, 100, 2, 64)))
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        for causal in (True, False):
+            ops.reset_launch_counts()
+            got = torch.ops.repro_torch.flash_attention(q, k, v, causal,
+                                                        None, None)
+            assert ops.launch_counts()["flash_attention"] == 1
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            assert got.dtype == dtype and got.is_contiguous()
+            assert torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol), (dtype, causal)

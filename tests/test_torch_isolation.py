@@ -39,6 +39,9 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.chip.interpreter" in loaded
+    # the cost model: the counter, the roofline and the dry run
+    assert {"repro_torch.launch.op_cost", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
