@@ -25,7 +25,9 @@ bound, its plain version and a PyTorch library yardstick.  Needs one
 CUDA device and no arguments; exits non-zero on any failure, and without a CUDA
 device or outside a checkout of the repository.
 
-Phases: 1 environment, 2 build, 3 kernels vs plain versions, 4 end to end
+Phases: 1 environment, 2 build, 3 kernels vs plain versions (flash
+attention also at head dims 8 and 20, which run on the next instantiation
+up; the packed xnor_matmul at the three shapes phase 7 times), 4 end to end
 (staged == megakernel == composite member == delta gate at threshold 0 ==
 float reference; the fused cascade vs the float references and the host
 rule; SmolLM-360M in float32: prefill logits through the kernel == through
@@ -34,7 +36,9 @@ forward; in bf16 the kernel at each probability type == chunked attention
 at the same one; OLMoE-1B-7B and RWKV6-3B at full width in float32, the
 same checks where both runs routed every token alike (a token routed
 differently must be a near-tie, and they are counted); Jamba at scaled()
-size, the card == the CPU; MusicGen-medium and Qwen2-VL-2B at full width
+size, the card == the CPU, and so the scaled() configs of kimi-k2,
+qwen1.5-110b (head dim 8) and musicgen-medium (20), their prefills
+through the flash kernel; MusicGen-medium and Qwen2-VL-2B at full width
 in float32, prefill logits kernel == plain and prefill + decode ==
 teacher-forced), 5 serve (the chip tier; the LM serves of SmolLM-360M,
 OLMoE-1B-7B, RWKV6-3B and MusicGen-medium, Qwen2-VL-2B through the serve
@@ -61,15 +65,21 @@ BitLinear's packed path against its STE forward), 6b LM training
 binary-LM example twin end to end, its decode's prefill through the
 flash kernel at head dim 32; ``launch.train`` on MusicGen-medium and
 Qwen2-VL-2B at full width, 3 adamw steps of 8 x 256 each, and their
-scaled() steps card == CPU), 7 times (row 10 also at the prefill shapes
-of OLMoE, MusicGen and Qwen2-VL; the SmolLM and OLMoE serves' prefill ms,
+scaled() steps card == CPU), 7 times (row 3 at mnist5's hidden layer,
+at the serve batch and at BitLinear's shape; row 10 also at the prefill
+shapes of OLMoE, MusicGen and Qwen2-VL and at head dims 8 and 20; the
+SmolLM and OLMoE serves' prefill ms,
 decode ms per token, tok/s and device idle share; MusicGen's batch
 breakdown), 8 the cost model (``launch.dryrun`` of SmolLM-360M's four
 cells on meta tensors; SmolLM-360M's prefill, decode and training step
 and OLMoE-1B-7B's prefill at full width counted by ``launch.op_cost`` on
 the card == on meta, the prefills through the flash kernel inside the
 count, each timed in a CUDA graph against its roofline: bound share at
-most 1.05, MFU, peak live bytes beside ``max_memory_allocated``).
+most 1.05, MFU, peak live bytes beside ``max_memory_allocated``), 9 the
+training meshes at world size 1 (the host mesh over the card on a
+one-rank process group, every train-state leaf's shard its full shape,
+a full-width SmolLM-360M step under the mesh == the step without it, bit
+for bit).
 Near the end come ``{"kernels": [...]}`` and the card's name and power
 limit on lines of their own; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -173,6 +183,7 @@ PACK_SHAPES = ((256, 960), (300, 100), (8 * 31 * 31, 256))
 # tiles), N (inside one n8 tile, odd, past a block), K (one bit, one word,
 # 4 words, 50 words (8-byte copies), 128 words (16 chunks))
 XNOR_RAGGED = ((1, 15, 17, 300), (1, 10, 33), (1, 31, 100, 1600, 4096))
+XNOR_PACK_N = (32, 96, 2560)           # the packed variant's ragged N
 # phase 5b: continuous serving of cifar9_s1 through the megakernel at
 # repro's driver defaults (200 frames/s offered, SLO 50 ms); the window
 # target ceil(200 x 0.05 x 0.5) = 5 sits below the batch, so the ladder runs
@@ -197,8 +208,11 @@ LM_CHECK = (2, 512, 4)                 # batch, prompt, decode steps (fp32)
 LM_TOL = 2e-4
 # flash attention vs its plain version: (label, B, S, H, KH, D, causal),
 # the serve's prefill at its pull sizes 4 and 1 first, the scaled()
-# configs' head dims 32 and 16 last; each in float32 and in bf16 at both
-# probability types (FLASH_PROBS)
+# configs' head dims 32 and 16, then the head dims the kernel runs on the
+# next instantiation up: 8 (kimi-k2's and qwen1.5-110b's scaled(), G = 8)
+# and 20 (musicgen-medium's scaled(), MHA) at the serve's prefill size,
+# and each not causal at G = 1 and G = 3; each in float32 and in bf16 at
+# both probability types (FLASH_PROBS)
 FLASH_SHAPES = (("SmolLM prefill", 4, 512, 15, 5, 64, True),
                 ("SmolLM prefill", 1, 512, 15, 5, 64, True),
                 ("OLMoE prefill", 4, 512, 16, 16, 128, True),
@@ -211,7 +225,11 @@ FLASH_SHAPES = (("SmolLM prefill", 4, 512, 15, 5, 64, True),
                 ("non-causal", 2, 200, 6, 2, 64, False),
                 ("scaled() D=32", 2, 100, 6, 2, 32, True),
                 ("scaled() D=16", 2, 77, 4, 4, 16, True),
-                ("D=16 non-causal", 1, 90, 4, 1, 16, False))
+                ("D=16 non-causal", 1, 90, 4, 1, 16, False),
+                ("D=8 G=8 prefill", 4, 512, 8, 1, 8, True),
+                ("D=20 MHA prefill", 4, 512, 3, 3, 20, True),
+                ("D=8 non-causal", 1, 90, 4, 4, 8, False),
+                ("D=20 G=3 non-causal", 2, 77, 6, 2, 20, False))
 # repro's tolerances (tests/test_kernels_flash.py): float32 sums in other
 # orders; in bf16 the output rounds to bf16 (and p too, with probs_bf16)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -241,6 +259,13 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 256, 5
 # small launches (32 layers x the prompt), so its prompt is 128
 MOE_ARCH, RWKV_ARCH, HYBRID_ARCH = "olmoe-1b-7b", "rwkv6-3b", "jamba-v0.1-52b"
 MOE_CHECK, RWKV_CHECK, HYBRID_CHECK = (2, 512, 4), (2, 128, 4), (2, 24, 4)
+# phase 4: the scaled() configs whose head dims the flash kernel pads (8:
+# kimi-k2 and qwen1.5-110b, G = 8; 20: musicgen-medium), prefill + decode
+# in float32 on the card == on the CPU, (arch, seed) and (batch, prompt,
+# decode steps)
+PADDED_ARCHS = (("kimi-k2-1t-a32b", 9), ("qwen1.5-110b", 10),
+                ("musicgen-medium", 11))
+PADDED_CHECK = (2, 100, 4)
 MOE_SERVE = ("--arch", MOE_ARCH, "--requests", "8", "--batch", "4",
              "--prompt-len", "512", "--gen-len", "32")
 RWKV_SERVE = ("--arch", RWKV_ARCH, "--requests", "8", "--batch", "4",
@@ -266,6 +291,13 @@ COST_STEPS = ((LM_ARCH, "prefill", LM_PROMPT, LM_BATCH),
               (LM_ARCH, "decode", LM_PROMPT + LM_GEN, LM_BATCH),
               (LM_ARCH, "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH),
               (MOE_ARCH, "prefill", 512, 4))
+# phase 9: the training meshes at world size 1, one full-width step of
+# SmolLM-360M (batch, sequence) under the host mesh and outside it
+MESH_STEP = (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+# row 10 at SmolLM's prefill (bf16, probs_bf16=True), a call in a CUDA
+# graph before the padded head dims (PERF.md's kernel table): the D = 64
+# path they leave as it was
+FLASH_EARLIER_MS = 0.01719
 STEP_GRAPH_CALLS = 5            # steps a CUDA graph of phase 8 replays
 STEP_EVENT_ITERS = 5            # steps CUDA events time where capture fails
 BOUND_SHARE_MAX = 1.05          # no step runs faster than its bound
@@ -832,6 +864,87 @@ def decode_vs_teacher(params, cfg, toks, s: int, k: int, what: str,
     return err, n_diff, agree
 
 
+def scaled_card_vs_cpu(dev, arch: str, seed: int, check, repeats=None,
+                       what: str = "") -> int:
+    """``arch``'s scaled() config in float32 (``repeats`` pattern repeats
+    where given): prefill + decode steps (``check``: batch, prompt, decode
+    steps) on the card == on the CPU within LM_TOL where both runs routed
+    alike (a token routed differently must be a near-tie), the card's
+    prefill through the flash kernel, a launch an attention layer.
+    Returns the card's flash launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import serve
+
+    cfg = get_config(arch).scaled().with_(dtype="float32",
+                                          param_dtype="float32")
+    if repeats is not None:
+        cfg = cfg.with_(num_layers=repeats * len(cfg.pattern))
+    cpu_params = transformer.init_params(cfg, seed=seed, device="cpu")
+    b, s, k = check
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    toks = torch.randint(0, cfg.vocab_size, (b, s + k) + cb,
+                         generator=torch.Generator().manual_seed(seed + 3),
+                         dtype=torch.int32)
+    n = moe_layers(cfg)
+    segments = [(0, s)] + [(s + i, 1) for i in range(k)]
+    out = []
+    for where in (torch.device("cpu"), dev):
+        params = to_device(cpu_params, where)
+        t = toks.to(where)
+        ops.reset_launch_counts()
+        with moe.record_routes() as rec:
+            logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(
+                params, {"tokens": t[:, :s]})
+            outs = [logits]
+            decode = serve.build_decode_step(cfg)
+            for i in range(k):
+                logits, cache = decode(params, cache, t[:, s + i][:, None],
+                                       s + i)
+                outs.append(logits)
+        launched = ops.launch_counts()["flash_attention"]
+        if launched != (attn_layers(cfg) if where.type == "cuda" else 0):
+            raise AssertionError(f"{arch} on {where} launched flash "
+                                 f"attention {launched} times")
+        out.append((torch.cat(outs, dim=1).cpu(),
+                    moe.route_table(rec, segments, n)))
+    (want, cpu_routes), (got, card_routes) = out
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{arch} scaled(): non-finite logits")
+    first, n_diff = moe.route_divergence(card_routes, cpu_routes)
+    err = routed_err(got, want, first,
+                     range(s - 1, s + k), LM_TOL,
+                     f"{arch} scaled(), the card vs the CPU")
+    kinds = "/".join(cfg.prefix + cfg.pattern)
+    print(f"  {arch} scaled() float32 ({cfg.num_layers} layers: {kinds}"
+          + (f" x {repeats}" if repeats else "")
+          + f", {cfg.num_heads} heads of dim {cfg.head_dim} over "
+          f"{cfg.num_kv_heads} KV heads{what}), B={b}: prefill {s} + {k} "
+          f"decode steps on the card (flash {attn_layers(cfg)} launches) == "
+          f"on the CPU (max abs err {err:.3e}, tolerance {LM_TOL}); tokens "
+          f"routed differently (near-ties): {n_diff}")
+    return attn_layers(cfg)
+
+
+def padded_head_dim_checks(dev) -> int:
+    """Phase 4's part for the head dims the flash kernel runs on the next
+    instantiation up (fault 3.5): PADDED_ARCHS' scaled() configs, the card
+    == the CPU.  Returns their flash launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    launched = 0
+    for arch, seed in PADDED_ARCHS:
+        d = get_config(arch).scaled().head_dim
+        launched += scaled_card_vs_cpu(
+            dev, arch, seed, PADDED_CHECK,
+            what=f"; the kernel's D={fa.kernel_dim(d)} instantiation")
+    print(f"  padded head-dim checks took {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def expert_recurrent_checks(dev) -> None:
     """Phase 4's part for the expert and recurrent blocks, one parameter
     set on the card at a time, all in float32 within LM_TOL: OLMoE-1B-7B
@@ -843,11 +956,9 @@ def expert_recurrent_checks(dev) -> None:
     teacher-forced (no flash launch); Jamba at scaled() size with two
     pattern repeats, prefill + decode on the card == on the CPU."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.device import to_device
     from repro_torch.kernels import ops
     from repro_torch.models import moe, transformer
     from repro_torch.optim.optimizers import tree_leaves
-    from repro_torch.train import serve
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -914,47 +1025,7 @@ def expert_recurrent_checks(dev) -> None:
     del params, toks
     torch.cuda.empty_cache()
 
-    cfg = get_config(HYBRID_ARCH).scaled().with_(dtype="float32",
-                                                 param_dtype="float32")
-    cfg = cfg.with_(num_layers=2 * len(cfg.pattern))
-    cpu_params = transformer.init_params(cfg, seed=5, device="cpu")
-    b, s, k = HYBRID_CHECK
-    toks = torch.randint(0, cfg.vocab_size, (b, s + k),
-                         generator=torch.Generator().manual_seed(8),
-                         dtype=torch.int32)
-    n = moe_layers(cfg)
-    segments = [(0, s)] + [(s + i, 1) for i in range(k)]
-    out = []
-    for where in (torch.device("cpu"), dev):
-        params = to_device(cpu_params, where)
-        t = toks.to(where)
-        ops.reset_launch_counts()
-        with moe.record_routes() as rec:
-            logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(
-                params, {"tokens": t[:, :s]})
-            outs = [logits]
-            decode = serve.build_decode_step(cfg)
-            for i in range(k):
-                logits, cache = decode(params, cache, t[:, s + i][:, None],
-                                       s + i)
-                outs.append(logits)
-        launched = ops.launch_counts()["flash_attention"]
-        if launched != (attn_layers(cfg) if where.type == "cuda" else 0):
-            raise AssertionError(f"{HYBRID_ARCH} on {where} launched flash "
-                                 f"attention {launched} times")
-        out.append((torch.cat(outs, dim=1).cpu(),
-                    moe.route_table(rec, segments, n)))
-    (want, cpu_routes), (got, card_routes) = out
-    first, n_diff = moe.route_divergence(card_routes, cpu_routes)
-    err = routed_err(got, want, first,
-                     range(s - 1, s + k), LM_TOL,
-                     f"{HYBRID_ARCH} scaled(), the card vs the CPU")
-    print(f"  {HYBRID_ARCH} scaled() float32 ({cfg.num_layers} layers: "
-          f"{'/'.join(cfg.pattern)} x 2, head dim {cfg.head_dim}), B={b}: "
-          f"prefill {s} + {k} decode steps on the card (flash "
-          f"{attn_layers(cfg)} launches) == on the CPU (max abs err "
-          f"{err:.3e}, tolerance {LM_TOL}); tokens routed differently "
-          f"(near-ties): {n_diff}")
+    scaled_card_vs_cpu(dev, HYBRID_ARCH, 5, HYBRID_CHECK, repeats=2)
     print(f"  expert and recurrent checks took "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -1261,6 +1332,69 @@ def codebook_vlm_train(card, dev) -> None:
               f"head dim {small.head_dim}, chunked attention): card == CPU "
               f"within step_tolerance (adam_eps {eps}; worst {worst:.3f} of "
               f"the bound), loss |card - CPU| {dl:.2e}")
+
+
+def mesh_phase(dev) -> None:
+    """Phase 9: the training meshes at world size 1.  The host mesh over
+    the one card on a one-rank process group (gloo, a localhost
+    rendezvous); every leaf of SmolLM-360M's train state (adamw) shards to
+    its full shape; one full-width training step (MESH_STEP, bf16
+    activations) under ``mesh_context(make_host_mesh())`` equals, bit for
+    bit, the same step outside it (every leaf of the new state and the
+    loss)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.train import steps
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    optimizer = opt.make("adamw", opt.cosine_schedule(3e-4, warmup=100,
+                                                      total=10000))
+    b, sq = MESH_STEP
+    batch = tokens.batch_for_step(cfg, 0, global_batch=b, seq_len=sq,
+                                  device=dev)
+    step = steps.build_train_step(cfg, optimizer)
+    mesh = mesh_lib.make_host_mesh()
+    if dict(mesh.shape) != {"data": 1, "model": torch.cuda.device_count()}:
+        raise AssertionError(f"host mesh {dict(mesh.shape)}")
+
+    def run():
+        new, metrics = step(steps.create_state(cfg, 0, optimizer,
+                                               device=dev), batch)
+        torch.cuda.synchronize()
+        return new, metrics["loss"]
+
+    with dctx.local_process_group():
+        dmesh = shd.device_mesh(mesh)
+        named = dict(shd.leaves_with_path(shd.to_named(
+            mesh, steps.state_specs(cfg, mesh, optimizer), dmesh)))
+        leaves = shd.leaves_with_path(steps.state_shape(cfg, optimizer))
+        for path, leaf in leaves:
+            got = named[path].shard_shape(leaf.shape, leaf.dtype)
+            if got != tuple(leaf.shape):
+                raise AssertionError(f"{path}: shard {got} of "
+                                     f"{tuple(leaf.shape)} at world size 1")
+        with dctx.mesh_context(mesh):
+            inside, loss_in = run()
+    inside = {p: x.detach().cpu() for p, x in shd.leaves_with_path(inside)}
+    outside, loss_out = run()
+    differ = [p for p, x in shd.leaves_with_path(outside)
+              if not torch.equal(x.detach().cpu(), inside[p])]
+    if differ or not torch.equal(loss_in, loss_out):
+        raise AssertionError(f"the step under the host mesh differs from "
+                             f"the step without: {differ[:4]}, loss "
+                             f"{float(loss_in)} vs {float(loss_out)}")
+    del inside, outside
+    torch.cuda.empty_cache()
+    print(f"  host mesh {dict(mesh.shape)} over {dmesh.device_type}, one "
+          f"rank: {len(leaves)} state leaves shard to their full shapes; "
+          f"{LM_ARCH} adamw step {b} x {sq} under the mesh == without it, "
+          f"bit for bit (loss {float(loss_in):.6f}); phase 9 took "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def cost_phase(card, dev) -> int:
@@ -2458,13 +2592,18 @@ def main() -> None:
                  ("mnist5 hidden", BATCH, 64, 256, True),
                  ("mnist5 final", BATCH, 10, 64, False),
                  ("BitLinear", BITLINEAR[2], BITLINEAR[1], BITLINEAR[0],
-                  False)]
+                  False),
+                 ("mnist5 hidden", SERVE_BATCH, 64, 256, True),
+                 ("BitLinear packed", BITLINEAR[2], BITLINEAR[1],
+                  BITLINEAR[0], True)]
     # random words (bits set past k too); the ragged grid and BitLinear's
     # shape with both operands 4 bytes off a 16-byte boundary (1-word
     # cp.async) go through the int32 variant's tiles, masks and chunking
     ragged = [("ragged", m, n, k, False) for m in XNOR_RAGGED[0]
               for n in XNOR_RAGGED[1] for k in XNOR_RAGGED[2]]
-    offset = [("offset",) + fc_shapes[3][1:]]
+    ragged += [("ragged", m, n, k, True) for m in XNOR_RAGGED[0]
+               for n in XNOR_PACK_N for k in XNOR_RAGGED[2]]
+    offset = [("offset",) + fc_shapes[i][1:] for i in (3, 5)]
     for label, m, n, k, pack in fc_shapes + ragged + offset:
         kw = -(-k // 32)
         a, wt = words(gen, m, kw).to(dev), words(gen, n, kw).to(dev)
@@ -2477,14 +2616,14 @@ def main() -> None:
         key = "xnor_matmul_pack" if pack else "xnor_matmul"
         errs[key] = max(errs[key], max_abs_err(got, want))
         if label != "ragged":
-            t = "" if pack else xm.xnor_tiles(m, n, kw, card.sms)
-            print(f"  {key} {label} M={m} K={k} N={n}: equal"
-                  + (f" (tiles {t.bm} x {t.bn}, grid {t.grid}, copies of "
-                     f"{xm.copy_words(kw, a.data_ptr(), wt.data_ptr())} "
-                     f"words)" if t else ""))
+            t = xm.xnor_tiles(m, n, kw, card.sms, pack)
+            print(f"  {key} {label} M={m} K={k} N={n}: equal (tiles "
+                  f"{t.bm} x {t.bn}, m16 x n{8 * t.tn} a warp, grid "
+                  f"{t.grid}, copies of "
+                  f"{xm.copy_words(kw, a.data_ptr(), wt.data_ptr())} words)")
     print(f"  xnor_matmul ragged M in {XNOR_RAGGED[0]} x N in "
-          f"{XNOR_RAGGED[1]} x K in {XNOR_RAGGED[2]} ({len(ragged)} "
-          f"shapes): equal")
+          f"{XNOR_RAGGED[1]} (packed: {XNOR_PACK_N}) x K in "
+          f"{XNOR_RAGGED[2]} ({len(ragged)} shapes): equal")
     images = {n: random_image(interpreter, p, gen) for n, p in programs.items()}
     for name, prog in programs.items():
         plan = interpreter.compile_plan(prog)
@@ -2812,6 +2951,7 @@ def main() -> None:
     lm_checks(dev)
     expert_recurrent_checks(dev)
     codebook_vlm_checks(dev)
+    flash4 = padded_head_dim_checks(dev)
 
     # -- 5. serve ------------------------------------------------------------
     phase(5, f"serve {SERVE_REQUESTS} requests through ChipServer "
@@ -3085,6 +3225,10 @@ def main() -> None:
     phase("5b", f"continuous serving (SLO {CONT_SLO_MS:.0f} ms, batch "
                 f"{CONT_BATCH}) and a fleet of 2 replicas with a kill")
     by_phase = {k: {"5": v} for k, v in launches.items()}
+    # the padded head dims' prefills of phase 4 (fault 3.5's path)
+    by_phase["flash_attention"] = {"4": flash4,
+                                   **by_phase["flash_attention"]}
+    launches["flash_attention"] += flash4
     for k, v in serving_phase(card, dev, programs, artifacts, offline,
                               cifar_params, quad, packed, lane_frames,
                               served[True], errs).items():
@@ -3286,11 +3430,15 @@ def main() -> None:
 
     # xnor_matmul at BitLinear's SmolLM-360M up-projection (phase 6: the
     # row) and at cifar9_s1's last FC layer (phase 5); xnor_matmul_pack at
-    # mnist5's hidden layer; the library call is a bf16 matmul of the same
+    # mnist5's hidden layer (the row), at the serve batch and at
+    # BitLinear's shape, where the work and not the launch sets the time
+    # (no path packs there); the library call is a bf16 matmul of the same
     # +/-1 values (sums up to K are exact in float32 accumulation)
     for key, (label, m, n, k, pack) in (("xnor_matmul", fc_shapes[3]),
                                         ("xnor_matmul", fc_shapes[0]),
-                                        ("xnor_matmul_pack", fc_shapes[1])):
+                                        ("xnor_matmul_pack", fc_shapes[1]),
+                                        ("xnor_matmul_pack", fc_shapes[4]),
+                                        ("xnor_matmul_pack", fc_shapes[5])):
         kw = -(-k // 32)
         a, wt = words(gen, m, kw).to(dev), words(gen, n, kw).to(dev)
         ab = unpack_signs(a, k).to(torch.bfloat16)        # same bits, +/-1
@@ -3298,19 +3446,17 @@ def main() -> None:
         out_words = m * (n // 32 if pack else n)
         ms, lib_ms, timed_by, events = timings(
             lambda: xm.xnor_matmul(a, wt, k, pack_out=pack),
-            "xnor_matmul_pack_kernel" if pack else "xnor_mma_kernel",
-            lambda: torch.matmul(ab, wb), 200)
+            "xnor_mma_kernel", lambda: torch.matmul(ab, wb), 200)
         row(key, ms,
             time_ms(lambda: xm.xnor_matmul_plain(a, wt, k, pack_out=pack),
                     20),
             4 * (a.numel() + wt.numel() + out_words), m * n * kw,
             lib_ms, timed_by=timed_by, events=events, macs=m * n * k,
             shape=f"{label} M={m} K={k} N={n}")
-        if not pack:
-            t = xm.xnor_tiles(m, n, kw, card.sms)
-            print(f"    tiles {t.bm} x {t.bn} ({t.wm} x {t.wn} warps of "
-                  f"m16 x n{8 * t.tn}), grid {t.grid}, {t.nchunks} chunks "
-                  f"of {t.kchunk} K steps, {t.smem} B shared memory")
+        t = xm.xnor_tiles(m, n, kw, card.sms, pack)
+        print(f"    tiles {t.bm} x {t.bn} ({t.wm} x {t.wn} warps of "
+              f"m16 x n{8 * t.tn}), grid {t.grid}, {t.nchunks} chunks "
+              f"of {t.kchunk} K steps, {t.smem} B shared memory")
 
     plan = interpreter.compile_plan(cifar)
     image = interpreter.ensure_image(artifacts["cifar9_s1"], cifar)
@@ -3684,6 +3830,10 @@ def main() -> None:
                     events=(events, lib_events,
                             device_ms(kernel, 50, "flash_fwd"), lib_device))
                 row_ms = ms
+                print(f"    {label}: {ms / FLASH_EARLIER_MS:.3f} x the "
+                      f"{FLASH_EARLIER_MS} ms before the padded head dims "
+                      f"(the D = 64 path; graph readings drift 7% across "
+                      f"calls)")
             else:
                 print(f"  flash_attention {label}: {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms "
@@ -3753,11 +3903,13 @@ def main() -> None:
 
     # flash attention at the prefill shapes of OLMoE-1B-7B (B=4, S=512,
     # H=KH=16, D=128), MusicGen-medium (H=KH=24, D=64) and Qwen2-VL-2B
-    # (H=12, KH=2, D=128), bf16: more shapes of row 10, each at
-    # probs_bf16=True like for like with SDPA, the serve's own float32 p
-    # (the three configs' attn_probs_bf16 is False) beside it; the same
-    # bound and library call as above
-    for label in ("OLMoE prefill", "MusicGen prefill", "Qwen2-VL prefill"):
+    # (H=12, KH=2, D=128), and at the padded head dims 8 (H=8, KH=1, on
+    # the D=16 instantiation) and 20 (H=KH=3, on D=32), bf16: more shapes
+    # of row 10, each at probs_bf16=True like for like with SDPA, the
+    # serve's own float32 p (the configs' attn_probs_bf16 is False) beside
+    # it; the same bound (of the true D) and library call as above
+    for label in ("OLMoE prefill", "MusicGen prefill", "Qwen2-VL prefill",
+                  "D=8 G=8 prefill", "D=20 MHA prefill"):
         t_flash = time.perf_counter()
         _, b, sq, h, kh, d, causal = next(x for x in FLASH_SHAPES
                                           if x[0] == label)
@@ -3932,6 +4084,11 @@ def main() -> None:
     by_phase["flash_attention"]["8"] = n8
     rows["flash_attention"]["launches"] += n8
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+
+    # -- 9. the training meshes --------------------------------------------
+    phase(9, "the training meshes at world size 1: the host mesh, shard "
+             "shapes, a step under the mesh == the step without")
+    mesh_phase(dev)
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(card.smi)

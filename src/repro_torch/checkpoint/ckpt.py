@@ -19,7 +19,10 @@ dtype ``bfloat16`` in the manifest.
 Checkpoints are topology-free (full arrays): :func:`restore` places
 every leaf on one device, and a restart rebuilds its device layout on
 whatever survived with :func:`make_mesh`, which refuses a layout larger
-than the surviving devices.
+than the surviving devices.  :class:`Mesh` is the port's one mesh type:
+the restart's layout, the training meshes of ``launch/mesh.py`` and, in
+its abstract form (sizes, no devices), the 256- and 512-chip meshes a dry
+run shards over on a machine that cannot hold them.
 
 ``AsyncCheckpointer`` snapshots to host memory synchronously (cheap) and
 writes to disk on a background thread, overlapping I/O with the next
@@ -28,8 +31,10 @@ steps; ``wait()`` joins before the process exits.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import math
 import os
 import threading
 from typing import Any, List, Optional, Tuple
@@ -111,13 +116,42 @@ def save(path: str, state: Any, step: Optional[int] = None) -> None:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A device layout: ``devices`` is an object array of
-    ``torch.device`` shaped ``axis_shapes``, one name an axis."""
-    devices: np.ndarray
+    ``torch.device`` shaped ``axis_sizes``, one name an axis; an abstract
+    mesh (:meth:`abstract`) has the sizes and no devices."""
+    devices: Optional[np.ndarray]
     axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if self.devices is not None:
+            object.__setattr__(self, "axis_sizes", tuple(self.devices.shape))
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"sizes {self.axis_sizes} do not name one axis "
+                             f"each of {self.axis_names}")
+
+    @classmethod
+    def abstract(cls, axis_sizes, axis_names) -> "Mesh":
+        """A mesh of ``axis_sizes`` with no devices: shapes and specs
+        only (``jax.sharding.AbstractMesh``'s twin)."""
+        return cls(None, tuple(axis_names), tuple(int(s) for s in axis_sizes))
+
+    @property
+    def is_abstract(self) -> bool:
+        return self.devices is None
+
+    @property
+    def shape(self) -> "collections.OrderedDict[str, int]":
+        """Axis name -> size, in axis order (``jax.sharding.Mesh.shape``)."""
+        return collections.OrderedDict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
 
 
 def make_mesh(axis_shapes, axis_names, *, devices=None) -> Mesh:
-    """The device layout of the restore-after-fault path.
+    """The device layout of the restore-after-fault path and of the
+    training meshes.
 
     A job restarted after a fault rebuilds its layout on whatever devices
     survived (default: every CUDA device) and restores the latest
@@ -126,9 +160,7 @@ def make_mesh(axis_shapes, axis_names, *, devices=None) -> Mesh:
     """
     devices = (_device.local_devices() if devices is None
                else [torch.device(d) for d in devices])
-    n = 1
-    for s in axis_shapes:
-        n *= int(s)
+    n = math.prod(int(s) for s in axis_shapes)
     if n > len(devices):
         raise ValueError(
             f"mesh {tuple(axis_shapes)} needs {n} devices, "

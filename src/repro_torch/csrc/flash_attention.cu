@@ -57,10 +57,19 @@
 // there when bf16_probs asks), the row's max and sum are shuffles among
 // the four, and each keeps D / 4 output accumulators in registers.
 //
-// Both are instantiated at D = 16, 32, 64 and 128: the full configs' 64
-// and 128 and the scaled() configs' 16 and 32.  The wrapper refuses any
-// other D on the card (qwen1.5-110b's scaled() 8 is below one k16 step of
-// the MMA), so a prefill never leaves this kernel silently.
+// Both are instantiated at D = 16, 32, 64 and 128, and take any head dim
+// d from 1 to 128 on the next instantiation up (d = 8 on 16, 20 on 32: the
+// scaled() configs of kimi-k2 and qwen1.5-110b, and of musicgen-medium).
+// The global rows are d apart; a block stages their d columns and keeps
+// zeros in the rest of its shared rows, which add nothing to q . k, and
+// stores only d columns of the output (the zero columns of p . v are
+// dropped).  The scale is the caller's, 1/sqrt(d) of the true d.  In bf16
+// at d == D with 16-byte aligned rows the copies stay the 16-byte cp.async
+// of the full path (kPad false); any other d or alignment takes kPad, whose
+// copies are as wide as d and the pointers allow (16, 8, 4 bytes by
+// cp.async, 2 by a plain load, the wrapper's copy_bytes).  float32 loads
+// and stores single elements either way.  The wrapper refuses d > 128,
+// which no config reaches through this kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,7 +109,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int s,
-              int h, int kh, float scale, int causal, int bf16_probs) {
+              int h, int kh, int dt, float scale, int causal,
+              int bf16_probs) {
   constexpr int kStride = D + 1;
   constexpr int kDpt = D / kTpr;           // output dims per thread
   extern __shared__ float smem[];
@@ -121,16 +131,17 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const bool row_ok = row < rows;
   const int qpos = row_ok ? static_cast<int>(row / g) : s - 1;
 
-  // this block's q rows: row (pos, gg) is q[b, pos, head * G + gg, :]
+  // this block's q rows: row (pos, gg) is q[b, pos, head * G + gg, :dt],
+  // zeros past dt
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int rr = i / D;
     const int d = i - rr * D;
     const long ri = r0 + rr;
     float x = 0.0f;
-    if (ri < rows) {
+    if (ri < rows && d < dt) {
       const long pos = ri / g;
       const long gg = ri - pos * g;
-      x = q[((static_cast<long>(b) * s + pos) * h + head * g + gg) * D + d];
+      x = q[((static_cast<long>(b) * s + pos) * h + head * g + gg) * dt + d];
     }
     q_s[rr * kStride + d] = x;
   }
@@ -153,8 +164,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int key = k0 + j;
       float kx = 0.0f;
       float vx = 0.0f;
-      if (key < s) {
-        const long off = ((static_cast<long>(b) * s + key) * kh + head) * D + d;
+      if (key < s && d < dt) {
+        const long off = ((static_cast<long>(b) * s + key) * kh + head) * dt
+                         + d;
         kx = k[off];
         vx = bf16_probs ? bf16_round(v[off]) : v[off];
       }
@@ -214,10 +226,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (row_ok) {
     const long pos = row / g;
     const long gg = row - pos * g;
-    float* out = o + ((static_cast<long>(b) * s + pos) * h + head * g + gg) * D;
+    float* out = o + ((static_cast<long>(b) * s + pos) * h + head * g + gg)
+                     * dt;
     const float denom = fmaxf(l, 1e-37f);
 #pragma unroll
-    for (int i = 0; i < kDpt; ++i) out[t + kTpr * i] = acc[i] / denom;
+    for (int i = 0; i < kDpt; ++i)
+      if (t + kTpr * i < dt) out[t + kTpr * i] = acc[i] / denom;
   }
 }
 
@@ -227,11 +241,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kWarps = 4;                  // 16 rows each
 constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kPad = 8;                    // bf16 padding a shared row (16 B)
+constexpr int kRowPad = 8;                 // bf16 padding a shared row (16 B)
 
 template <int D>
 constexpr int mma_smem_bytes() {           // q (the output later), 2 K, 2 V
-  return (kRows + 4 * kKeys) * (D + kPad) * static_cast<int>(sizeof(bf16));
+  return (kRows + 4 * kKeys) * (D + kRowPad) * static_cast<int>(sizeof(bf16));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -243,6 +257,39 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+// kPad's copies: cw bytes (16, 8 or 4 by cp.async, zeros when !ok; 2 by a
+// plain load, whose stage is free when it is issued)
+__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src,
+                                           bool ok, int cw) {
+  const unsigned d = smem_addr(dst);
+  if (cw == 16) {
+    cp_async16(d, src, ok);
+  } else if (cw == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(ok ? 8 : 0) : "memory");
+  } else if (cw == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
+  } else {
+    *dst = ok ? *src : __float2bfloat16(0.0f);
+  }
+}
+
+// cw bytes shared -> global
+__device__ __forceinline__ void store_chunk(bf16* dst, const bf16* src,
+                                            int cw) {
+  if (cw == 16) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else if (cw == 8) {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+  } else if (cw == 4) {
+    *reinterpret_cast<unsigned*>(dst) =
+        *reinterpret_cast<const unsigned*>(src);
+  } else {
+    *dst = *src;
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -303,13 +350,16 @@ __device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi,
                                   x1 - __high2float(h2)));
 }
 
-template <int D, bool kSplit>
+template <int D, bool kSplit, bool kPad>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o, int s, int h,
-              int kh, float scale_log2, int causal) {
-  constexpr int kStride = D + kPad;        // a shared row, in bf16
-  constexpr int kChunks = D / 8;           // 16-byte chunks a row
+              int kh, int dt, int cw, float scale_log2, int causal) {
+  constexpr int kStride = D + kRowPad;     // a shared row, in bf16
+  // a row's nc copies of ce bf16 each: D / 8 of 16 bytes on the full path
+  const int nc = kPad ? dt * 2 / cw : D / 8;
+  const int ce = kPad ? cw / 2 : 8;
+  if (!kPad) dt = D;
   constexpr int kTile = kKeys * kStride;
   constexpr int kDTiles = D / 8;           // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -330,15 +380,29 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto q_off = [&](long row) {             // q / o offset of a folded row
     const long pos = row / g;
     return ((static_cast<long>(b) * s + pos) * h + head * g + (row - pos * g))
-           * D;
+           * dt;
+  };
+  auto copy = [&](bf16* dst, const bf16* src, bool ok) {
+    if (kPad) {
+      copy_chunk(dst, src, ok, cw);
+    } else {
+      cp_async16(smem_addr(dst), src, ok);
+    }
   };
 
-  for (int i = tid; i < kRows * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
+  if (kPad) {                              // columns dt.. D of every row: 0
+    const int pad = D - dt;
+    for (int i = tid; i < (kRows + 4 * kKeys) * pad; i += kMmaThreads) {
+      const int r = i / pad;
+      q_s[r * kStride + dt + (i - r * pad)] = __float2bfloat16(0.0f);
+    }
+  }
+  for (int i = tid; i < kRows * nc; i += kMmaThreads) {
+    const int r = i / nc;
+    const int c = i - r * nc;
     const bool ok = r0 + r < rows;
-    cp_async16(smem_addr(q_s + r * kStride + c * 8),
-               q + (ok ? q_off(r0 + r) : 0) + c * 8, ok);
+    copy(q_s + r * kStride + c * ce, q + (ok ? q_off(r0 + r) : 0) + c * ce,
+         ok);
   }
 
   // keys this block can see: up to the diagonal of its last row
@@ -351,14 +415,14 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = t * kKeys;
     bf16* ks = k_s + (t & 1) * kTile;
     bf16* vs = v_s + (t & 1) * kTile;
-    for (int i = tid; i < kKeys * kChunks; i += kMmaThreads) {
-      const int j = i / kChunks;
-      const int c = i - j * kChunks;
+    for (int i = tid; i < kKeys * nc; i += kMmaThreads) {
+      const int j = i / nc;
+      const int c = i - j * nc;
       const bool ok = k0 + j < s;
       const long off = ok ? ((static_cast<long>(b) * s + k0 + j) * kh + head)
-                            * D + c * 8 : 0;
-      cp_async16(smem_addr(ks + j * kStride + c * 8), k + off, ok);
-      cp_async16(smem_addr(vs + j * kStride + c * 8), v + off, ok);
+                            * dt + c * ce : 0;
+      copy(ks + j * kStride + c * ce, k + off, ok);
+      copy(vs + j * kStride + c * ce, v + off, ok);
     }
   };
 
@@ -529,12 +593,18 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 acc[n][2 * i + 1] / denom[i]);
     }
   __syncwarp();
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = warp * 16 + i / kChunks;
-    const int c = i % kChunks;
-    if (r0 + r < rows)
-      *reinterpret_cast<uint4*>(o + q_off(r0 + r) + c * 8) =
-          *reinterpret_cast<const uint4*>(q_s + r * kStride + c * 8);
+  for (int i = lane; i < 16 * nc; i += 32) {
+    const int r = warp * 16 + i / nc;
+    const int c = i % nc;
+    if (r0 + r < rows) {
+      if (kPad) {
+        store_chunk(o + q_off(r0 + r) + c * ce, q_s + r * kStride + c * ce,
+                    cw);
+      } else {
+        *reinterpret_cast<uint4*>(o + q_off(r0 + r) + c * 8) =
+            *reinterpret_cast<const uint4*>(q_s + r * kStride + c * 8);
+      }
+    }
   }
 }
 
@@ -548,8 +618,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
-               int s, int h, int kh, float scale, int causal, int bf16_probs,
-               cudaStream_t stream) {
+               int s, int h, int kh, int dt, float scale, int causal,
+               int bf16_probs, cudaStream_t stream) {
   const int bytes = f32_smem_bytes<D>();
   const cudaError_t err = allow_smem(flash_fwd_f32<D>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -558,77 +628,96 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                   static_cast<unsigned>(b * kh));
   flash_fwd_f32<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), s, h, kh, scale,
-      causal, bf16_probs);
+      static_cast<const float*>(v), static_cast<float*>(o), s, h, kh, dt,
+      scale, causal, bf16_probs);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kSplit>
+template <int D, bool kSplit, bool kPad>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
-               int s, int h, int kh, float scale, int causal,
+               int s, int h, int kh, int dt, int cw, float scale, int causal,
                cudaStream_t stream) {
   const int bytes = mma_smem_bytes<D>();
-  const cudaError_t err = allow_smem(flash_fwd_mma<D, kSplit>, bytes);
+  const cudaError_t err = allow_smem(flash_fwd_mma<D, kSplit, kPad>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long rows = static_cast<long>(s) * (h / kh);
   // (batch x KV head, row tile): the slow axis runs the tiles in reverse
   const dim3 grid(static_cast<unsigned>(b * kh),
                   static_cast<unsigned>((rows + kRows - 1) / kRows));
-  flash_fwd_mma<D, kSplit><<<grid, kMmaThreads, bytes, stream>>>(
+  flash_fwd_mma<D, kSplit, kPad><<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), s, h, kh,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), s, h, kh, dt, cw,
       scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool kPad>
+int launch_split(const void* q, const void* k, const void* v, void* o, int b,
+                 int s, int h, int kh, int dt, int cw, float scale,
+                 int causal, int bf16_probs, cudaStream_t stream) {
+  if (bf16_probs)
+    return launch_mma<D, false, kPad>(q, k, v, o, b, s, h, kh, dt, cw, scale,
+                                      causal, stream);
+  return launch_mma<D, true, kPad>(q, k, v, o, b, s, h, kh, dt, cw, scale,
+                                   causal, stream);
+}
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
-                int s, int h, int kh, float scale, int causal, int bf16_probs,
-                cudaStream_t stream) {
-  if (bf16_probs)
-    return launch_mma<D, false>(q, k, v, o, b, s, h, kh, scale, causal,
-                                stream);
-  return launch_mma<D, true>(q, k, v, o, b, s, h, kh, scale, causal, stream);
+                int s, int h, int kh, int dt, int cw, float scale, int causal,
+                int bf16_probs, cudaStream_t stream) {
+  if (dt == D && cw == 16)
+    return launch_split<D, false>(q, k, v, o, b, s, h, kh, dt, cw, scale,
+                                  causal, bf16_probs, stream);
+  return launch_split<D, true>(q, k, v, o, b, s, h, kh, dt, cw, scale,
+                               causal, bf16_probs, stream);
 }
 
 }  // namespace
 
-// q (B, S, H, D), k and v (B, S, KH, D), o (B, S, H, D), all contiguous
-// and of one type (float32, or bfloat16 when bf16 != 0, then 16-byte
-// aligned), H % KH == 0, D in {16, 32, 64, 128} (checked by the Python
-// wrapper).
-// bf16_probs != 0 rounds p and v to bf16 before p . v.  Returns
-// cudaGetLastError() after the launch.
+// q (B, S, H, d), k and v (B, S, KH, d), o (B, S, H, d), all contiguous
+// and of one type (float32, or bfloat16 when bf16 != 0), H % KH == 0,
+// 1 <= d <= 128, run on the instantiation D = 16, 32, 64 or 128 next up
+// (checked by the Python wrapper, kernel_dim).  copy_bytes (bf16 only): the
+// width of a row's copies, 16, 8, 4 or 2, dividing 2 d and every pointer
+// (the wrapper's copy_bytes).  bf16_probs != 0 rounds p and v to bf16
+// before p . v.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int s,
                                       int h, int kh, int d, int bf16,
                                       float scale, int causal,
-                                      int bf16_probs, void* stream) {
+                                      int bf16_probs, int copy_bytes,
+                                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bf16 ? d : -d) {
+  const int cw = copy_bytes;
+  if (d < 1 || (bf16 && (cw < 2 || cw > 16 || (2 * d) % cw)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dk = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128
+                                                                    : 0;
+  switch (bf16 ? dk : -dk) {
     case 16:
-      return launch_bf16<16>(q, k, v, o, b, s, h, kh, scale, causal,
+      return launch_bf16<16>(q, k, v, o, b, s, h, kh, d, cw, scale, causal,
                              bf16_probs, st);
     case 32:
-      return launch_bf16<32>(q, k, v, o, b, s, h, kh, scale, causal,
+      return launch_bf16<32>(q, k, v, o, b, s, h, kh, d, cw, scale, causal,
                              bf16_probs, st);
     case 64:
-      return launch_bf16<64>(q, k, v, o, b, s, h, kh, scale, causal,
+      return launch_bf16<64>(q, k, v, o, b, s, h, kh, d, cw, scale, causal,
                              bf16_probs, st);
     case 128:
-      return launch_bf16<128>(q, k, v, o, b, s, h, kh, scale, causal,
+      return launch_bf16<128>(q, k, v, o, b, s, h, kh, d, cw, scale, causal,
                               bf16_probs, st);
     case -16:
-      return launch_f32<16>(q, k, v, o, b, s, h, kh, scale, causal,
+      return launch_f32<16>(q, k, v, o, b, s, h, kh, d, scale, causal,
                             bf16_probs, st);
     case -32:
-      return launch_f32<32>(q, k, v, o, b, s, h, kh, scale, causal,
+      return launch_f32<32>(q, k, v, o, b, s, h, kh, d, scale, causal,
                             bf16_probs, st);
     case -64:
-      return launch_f32<64>(q, k, v, o, b, s, h, kh, scale, causal,
+      return launch_f32<64>(q, k, v, o, b, s, h, kh, d, scale, causal,
                             bf16_probs, st);
     case -128:
-      return launch_f32<128>(q, k, v, o, b, s, h, kh, scale, causal,
+      return launch_f32<128>(q, k, v, o, b, s, h, kh, d, scale, causal,
                              bf16_probs, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

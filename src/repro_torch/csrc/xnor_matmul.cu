@@ -3,10 +3,10 @@
 // Replaces: repro/kernels/xnor_matmul.py:_xnor_matmul_kernel (int32 sums
 // K - 2*popcount(a ^ w)) and :_xnor_matmul_pack_kernel (the same sums,
 // signed and packed 32 per word along N).  Both stay behind
-// xnor_matmul_launch.
-//
-// The int32 variant is a binary GEMM on the tensor cores.  Rows are M
-// (activations), columns N (neurons), and K runs over the Kw packed words,
+// xnor_matmul_launch as one binary GEMM on the tensor cores
+// (xnor_mma_kernel): the int32 variant stores the sums, the packed variant
+// (kPack) their signs.  Rows are M (activations), columns N (neurons), and
+// K runs over the Kw packed words,
 // padded with zero words to whole 256-bit steps.  mma.sync.m16n8k256 .b1
 // .and.popc counts popc(a & w); the XNOR count follows from
 // popc(a ^ w) = pa + pw - 2 popc(a & w) (conv_mma.cuh), so
@@ -33,10 +33,18 @@
 // tiles a warp, chunking, strides, the copy width, grid and shared memory)
 // is the Python wrapper's alone (kernels/xnor_matmul.py, xnor_tiles).
 //
-// The pack variant (row 3) runs one warp per (m, 32 consecutive n), lane j
-// on n = 32*nw + j, and the ballot of the lanes' sign bits (s < 0) is the
-// output word, lane 0 on bit 0.  Tail words of K are zero on both operands
-// (pack_signs pads with +1), so they add nothing and need no mask.
+// The packed variant's epilogue signs the same sums (bit 1 iff s < 0,
+// bit 0 = column 0) and packs them 32 columns a word.  Its tiles (xnor_tiles
+// with pack) give a warp a strip of whole words, kTn = 4 or 8 n8 tiles from
+// a multiple of 32 columns, so n8 tiles 4w .. 4w + 3 make the strip's word
+// w.  Lane 4g + t holds 8 of a word's 32 bits for rows g and g + 8: bits
+// 8j + 2t and 8j + 2t + 1 of its tile j.  Two __shfl_xor_sync ORs across
+// the quad complete the word, and lane t = 0 stores it (4 bytes where the
+// int32 variant stores 128): rows past M store nothing, and N % 32 == 0
+// (the wrapper checks it) leaves no partial word.  What bounds it: at
+// mnist5's hidden layer (M=8, K=256, N=64) the launch, as for the int32
+// variant at small M; at M=256, K=960, N=2560 the operand bytes, the
+// output a 32nd of the int32 variant's.
 
 #include <cuda_runtime.h>
 
@@ -115,11 +123,12 @@ __device__ __forceinline__ void store_pair(int32_t* __restrict__ out, int m,
   }
 }
 
-template <int kTn>
+template <int kTn, bool kPack>
 __global__ void __launch_bounds__(kThreads)
 xnor_mma_kernel(const uint32_t* __restrict__ a,
                 const uint32_t* __restrict__ w, int32_t* __restrict__ out,
                 int m, int n, int kw, int k, Tiles t) {
+  static_assert(!kPack || kTn % 4 == 0, "a packed strip holds whole words");
   extern __shared__ __align__(16) uint32_t smem[];
   const int bm = 16 * t.wm, bn = 8 * kTn * t.wn;
   const int m0 = blockIdx.y * bm, n0 = blockIdx.x * bn;
@@ -169,64 +178,63 @@ xnor_mma_kernel(const uint32_t* __restrict__ a,
   pa0 = quad_sum(pa0);
   pa1 = quad_sum(pa1);
   const int r0 = m0 + wrow + g;
+  constexpr int kWords = kPack ? kTn / 4 : 1;    // words a row a strip
+  uint32_t bits[kWords][2] = {};                 // rows g, g + 8
 #pragma unroll
   for (int j = 0; j < kTn; ++j) {
     const int pwq = quad_sum(pw[j]);
     const int pw0 = __shfl_sync(kFullMask, pwq, 8 * tq);
     const int pw1 = __shfl_sync(kFullMask, pwq, 8 * tq + 4);
-    const int col = n0 + wcol + 8 * j + 2 * tq;
-    store_pair(out, m, n, r0, col,
-               make_int2(k - 2 * (pa0 + pw0 - 2 * acc[j][0]),
-                         k - 2 * (pa0 + pw1 - 2 * acc[j][1])));
-    store_pair(out, m, n, r0 + 8, col,
-               make_int2(k - 2 * (pa1 + pw0 - 2 * acc[j][2]),
-                         k - 2 * (pa1 + pw1 - 2 * acc[j][3])));
+    const int2 s0 = make_int2(k - 2 * (pa0 + pw0 - 2 * acc[j][0]),
+                              k - 2 * (pa0 + pw1 - 2 * acc[j][1]));
+    const int2 s1 = make_int2(k - 2 * (pa1 + pw0 - 2 * acc[j][2]),
+                              k - 2 * (pa1 + pw1 - 2 * acc[j][3]));
+    if (kPack) {                   // columns 8j + 2t, + 1 of word j / 4
+      const int bit = 8 * (j % 4) + 2 * tq;
+      bits[j / 4][0] |= (static_cast<uint32_t>(s0.x < 0) << bit)
+                        | (static_cast<uint32_t>(s0.y < 0) << (bit + 1));
+      bits[j / 4][1] |= (static_cast<uint32_t>(s1.x < 0) << bit)
+                        | (static_cast<uint32_t>(s1.y < 0) << (bit + 1));
+    } else {
+      const int col = n0 + wcol + 8 * j + 2 * tq;
+      store_pair(out, m, n, r0, col, s0);
+      store_pair(out, m, n, r0 + 8, col, s1);
+    }
+  }
+  if (kPack) {                     // the quad's 4 x 8 bits make each word
+    auto* words = reinterpret_cast<uint32_t*>(out);
+#pragma unroll
+    for (int wd = 0; wd < kWords; ++wd)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint32_t b = bits[wd][i];
+        b |= __shfl_xor_sync(kFullMask, b, 1);
+        b |= __shfl_xor_sync(kFullMask, b, 2);
+        const int r = r0 + 8 * i;
+        const int col = n0 + wcol + 32 * wd;
+        if (tq == 0 && r < m && col < n)
+          words[static_cast<size_t>(r) * (n / 32) + col / 32] = b;
+      }
   }
 }
 
-__device__ __forceinline__ int xnor_sum(const uint32_t* __restrict__ a,
-                                        const uint32_t* __restrict__ w,
-                                        int kw, int k) {
-  int acc = 0;
-  for (int i = 0; i < kw; ++i) acc += __popc(a[i] ^ w[i]);
-  return k - 2 * acc;
-}
-
-// blockDim.x = 32 lanes x blockDim.y warps; one warp per output word
-__global__ void xnor_matmul_pack_kernel(const uint32_t* __restrict__ a,
-                                        const uint32_t* __restrict__ w,
-                                        uint32_t* __restrict__ out, int m,
-                                        int n, int kw, int k) {
-  const int lane = threadIdx.x;
-  const int nwords = n / 32;
-  const long word = static_cast<long>(blockIdx.x) * blockDim.y + threadIdx.y;
-  if (word >= static_cast<long>(m) * nwords) return;   // warp-uniform
-  const int mi = static_cast<int>(word / nwords);
-  const int nw = static_cast<int>(word - static_cast<long>(mi) * nwords);
-  const int ni = nw * 32 + lane;
-  const int s = xnor_sum(a + static_cast<size_t>(mi) * kw,
-                         w + static_cast<size_t>(ni) * kw, kw, k);
-  const uint32_t bits = __ballot_sync(kFullMask, s < 0);
-  if (lane == 0) out[word] = bits;
-}
-
-template <int kTn>
+template <int kTn, bool kPack>
 void launch_mma(const uint32_t* a, const uint32_t* w, int32_t* out, int m,
                 int n, int kw, int k, const Tiles& t, dim3 grid, int smem,
                 cudaStream_t s) {
-  xnor_mma_kernel<kTn><<<grid, kThreads, smem, s>>>(a, w, out, m, n, kw, k,
-                                                    t);
+  xnor_mma_kernel<kTn, kPack><<<grid, kThreads, smem, s>>>(a, w, out, m, n,
+                                                           kw, k, t);
 }
 
 }  // namespace
 
-// a (M, Kw), w (N, Kw) words.  pack_out = 0: out (M, N) int32 sums on the
-// tensor cores at the wrapper's geometry (xnor_tiles: tn n8 tiles a warp,
-// wm x wn warps, kchunk steps a chunk, nchunks, kstride, cpw, the grid
-// (N tiles, M tiles) and smem bytes; tn one of 1, 2, 4, 5, 8); pack_out =
-// 1: out (M, N/32) words (N % 32 == 0, checked by the Python wrapper), the
-// geometry unread.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a tn without a kernel.
+// a (M, Kw), w (N, Kw) words.  Out: (M, N) int32 sums (pack_out = 0), or
+// (M, N/32) sign words (pack_out = 1; N % 32 == 0, checked by the Python
+// wrapper), on the tensor cores at the wrapper's geometry (xnor_tiles: tn
+// n8 tiles a warp, wm x wn warps, kchunk steps a chunk, nchunks, kstride,
+// cpw, the grid (N tiles, M tiles) and smem bytes; tn one of 1, 2, 4, 5, 8,
+// and 4 or 8 with pack_out).  Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a tn without a kernel.
 extern "C" int xnor_matmul_launch(const void* a, const void* w, void* out,
                                   int m, int n, int kw, int k, int pack_out,
                                   int tn, int wm, int wn, int kchunk,
@@ -236,24 +244,30 @@ extern "C" int xnor_matmul_launch(const void* a, const void* w, void* out,
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* ap = static_cast<const uint32_t*>(a);
   const auto* wp = static_cast<const uint32_t*>(w);
-  if (pack_out) {
-    constexpr int kPackWarps = 4;
-    const long words = static_cast<long>(m) * (n / 32);
-    const long blocks = (words + kPackWarps - 1) / kPackWarps;
-    xnor_matmul_pack_kernel<<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
-                              dim3(32, kPackWarps), 0, s>>>(
-        ap, wp, static_cast<uint32_t*>(out), m, n, kw, k);
-    return static_cast<int>(cudaGetLastError());
-  }
   const Tiles t{wm, wn, kchunk, nchunks, kstride, cpw};
   const dim3 grid(grid_n, grid_m);
   auto* o = static_cast<int32_t*>(out);
+  if (pack_out) {
+    switch (tn) {
+      case 4: launch_mma<4, true>(ap, wp, o, m, n, kw, k, t, grid, smem, s);
+        break;
+      case 8: launch_mma<8, true>(ap, wp, o, m, n, kw, k, t, grid, smem, s);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (tn) {
-    case 1: launch_mma<1>(ap, wp, o, m, n, kw, k, t, grid, smem, s); break;
-    case 2: launch_mma<2>(ap, wp, o, m, n, kw, k, t, grid, smem, s); break;
-    case 4: launch_mma<4>(ap, wp, o, m, n, kw, k, t, grid, smem, s); break;
-    case 5: launch_mma<5>(ap, wp, o, m, n, kw, k, t, grid, smem, s); break;
-    case 8: launch_mma<8>(ap, wp, o, m, n, kw, k, t, grid, smem, s); break;
+    case 1: launch_mma<1, false>(ap, wp, o, m, n, kw, k, t, grid, smem, s);
+      break;
+    case 2: launch_mma<2, false>(ap, wp, o, m, n, kw, k, t, grid, smem, s);
+      break;
+    case 4: launch_mma<4, false>(ap, wp, o, m, n, kw, k, t, grid, smem, s);
+      break;
+    case 5: launch_mma<5, false>(ap, wp, o, m, n, kw, k, t, grid, smem, s);
+      break;
+    case 8: launch_mma<8, false>(ap, wp, o, m, n, kw, k, t, grid, smem, s);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,26 +1,328 @@
-"""Chip-tier serving layout: replicas of the artifact, frames scattered.
+"""Logical-axis sharding rules (params, batch, cache -> partition specs)
+and the chip-tier serving layout.
 
-The counterpart of the serving half of ``repro.distributed.sharding``
-(``SERVE_AXIS`` through ``scatter_frames``; the training-side partition
-specs are not ported).  The serving data-parallel layout mirrors the
+The counterpart of ``repro.distributed.sharding``.  The training half
+maps logical axes to mesh axes:
+
+  tp    -> mesh "model"          (tensor parallel: heads / ffn hidden / vocab)
+  fsdp  -> ("pod", "data")       (ZeRO-3 weight sharding, only if cfg.fsdp)
+  dp    -> ("pod", "data")       (batch)
+  sp    -> mesh "model"          (sequence, in MoE blocks and decode KV)
+  ep    -> mesh "model"          (experts)
+
+Rules are matched on the parameter path string (first match wins);
+stacked leaves under ``blocks/`` get a leading ``None``.  A spec is a
+:class:`P`, a tuple with one entry a tensor dim: a mesh axis name, a
+tuple of them (the dim split over their product, the first outermost) or
+None (replicated), ``jax.sharding.PartitionSpec``'s twin.  An axis is used
+only where it divides the dim, so every shard has the same shape.
+:func:`to_named` places a spec tree on a mesh as DTensor placements over
+a ``torch.distributed`` ``DeviceMesh`` (:class:`NamedSharding`), and
+:func:`constrain` is the in-model constraint: the identity without a mesh
+or on a mesh of one device, else a DTensor redistributed to the spec.
+
+The serving half (``SERVE_AXIS`` through ``gather_frames``) mirrors the
 chip's LD-once/CONV-many schedule, lifted one level: every device of a
 serving group holds a full replica of the deployment artifact (the SRAM
 contents), and each dispatch's frame batch is scattered on the batch
 axis, the results gathered back in order.  Weights move to a device once;
-frames stream through.
-
-A serving mesh here is a plain tuple of ``torch.device``\\ s.  A device
-may appear more than once (replicas and groups then share it, as on a
-one-card machine); its artifact replica is then one copy.
+frames stream through.  A serving mesh there is a plain tuple of
+``torch.device``\\ s.  A device may appear more than once (replicas and
+groups then share it, as on a one-card machine); its artifact replica is
+then one copy.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import dataclasses
+import re
+from typing import Any, List, Sequence, Tuple
 
 import torch
 
 from repro_torch import device as _device
+from repro_torch.distributed import context as dctx
+
+
+# ---------------------------------------------------------------------------
+# Partition specs
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A partition spec: one entry a tensor dim (see the module
+    docstring); equal to the plain tuple of its entries.  As
+    ``PartitionSpec`` does, a tuple of one axis becomes the axis and an
+    empty tuple None."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                return None if not e else e[0] if len(e) == 1 else tuple(e)
+            return e
+        return super().__new__(cls, (norm(e) for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+def _axes(mesh, cfg):
+    dp = dctx.data_axes(mesh)
+    tp = "model" if "model" in mesh.axis_names else None
+    fsdp = dp if cfg.fsdp else None
+    return dp, tp, fsdp
+
+
+def _divisible(dim: int, axes, mesh) -> bool:
+    if axes is None:
+        return False
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return dim % n == 0
+
+
+def _maybe(dim, axes, mesh):
+    """``axes`` for this dim only if they divide it evenly, else None."""
+    return axes if _divisible(dim, axes, mesh) else None
+
+
+def param_rules(cfg, mesh):
+    """Ordered (regex, fn(shape) -> P) rules."""
+    dp, tp, fsdp = _axes(mesh, cfg)
+
+    def embed(shape):
+        lead = (None,) * (len(shape) - 2)
+        return P(*lead, _maybe(shape[-2], tp, mesh),
+                 _maybe(shape[-1], fsdp, mesh))
+
+    def head(shape):
+        lead = (None,) * (len(shape) - 2)
+        return P(*lead, _maybe(shape[-2], fsdp, mesh),
+                 _maybe(shape[-1], tp, mesh))
+
+    def col(shape):   # (in, out) -> out on tp  (wq/wk/wv/wi/wg/in_proj...)
+        return P(_maybe(shape[0], fsdp, mesh), _maybe(shape[1], tp, mesh))
+
+    def row(shape):   # (in, out) -> in on tp   (wo/out_proj/cm_wv...)
+        return P(_maybe(shape[0], tp, mesh), _maybe(shape[1], fsdp, mesh))
+
+    def bias_tp(shape):
+        return P(_maybe(shape[0], tp, mesh))
+
+    def expert_col(shape):  # (E, D, F)
+        return P(_maybe(shape[0], tp, mesh), _maybe(shape[1], fsdp, mesh),
+                 None)
+
+    def expert_row(shape):  # (E, F, D)
+        return P(_maybe(shape[0], tp, mesh), None,
+                 _maybe(shape[2], fsdp, mesh))
+
+    def repl(shape):
+        return P()
+
+    return [
+        (r"embed/table$", embed),
+        (r"lm_head/w$", head),
+        (r"(attn/(wq|wk|wv)|mlp/(wi|wg)|shared/(wi|wg)|rwkv/(wr|wk|wv|wg|"
+         r"cm_wk|cm_wr)|mamba/in_proj)/w$", col),
+        (r"(attn/wo|mlp/wo|shared/wo|rwkv/(wo|cm_wv)|mamba/out_proj)/w$", row),
+        (r"(attn/(wq|wk|wv)|mlp/(wi|wg)|mamba/in_proj)/b$", bias_tp),
+        (r"moe/(wi|wg)$", expert_col),
+        (r"moe/wo$", expert_row),
+        (r"moe/router$", repl),
+        (r"mamba/conv_w$", lambda s: P(None, _maybe(s[1], tp, mesh))),
+        (r"mamba/conv_b$", bias_tp),
+        (r"mamba/x_proj/w$", lambda s: P(_maybe(s[0], tp, mesh), None)),
+        (r"mamba/dt_proj/w$", lambda s: P(None, _maybe(s[1], tp, mesh))),
+        (r"mamba/dt_proj/b$", bias_tp),
+        (r"mamba/A_log$", lambda s: P(_maybe(s[0], tp, mesh), None)),
+        (r"mamba/D$", bias_tp),
+        (r"rwkv/mix_w1$", lambda s: P(_maybe(s[0], fsdp, mesh), None)),
+        (r".*", repl),
+    ]
+
+
+def tree_map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over a nest of dicts, lists and tuples, the path
+    the keys and indices as strings; specs (:class:`P`) are leaves."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def path_str(path) -> str:
+    return "/".join(path)
+
+
+def leaves_with_path(tree) -> List[Tuple[str, Any]]:
+    """(path string, leaf) of every leaf of ``tree``, in its order."""
+    out = []
+    tree_map_with_path(lambda path, leaf: out.append((path_str(path), leaf)),
+                       tree)
+    return out
+
+
+def param_specs(cfg, mesh, params_shape):
+    """The spec tree of a params (shape) tree."""
+    rules = param_rules(cfg, mesh)
+
+    def one(path, leaf):
+        ps = path_str(path)
+        shape = tuple(leaf.shape)
+        stacked = ps.startswith("blocks/")
+        eff_shape = shape[1:] if stacked else shape
+        for pat, fn in rules:
+            if re.search(pat, ps):
+                spec = fn(eff_shape)
+                break
+        return P(None, *spec) if stacked else spec
+
+    return tree_map_with_path(one, params_shape)
+
+
+def batch_specs(cfg, mesh, batch_shape):
+    """The batch dim over the data axes where they divide it."""
+    dp, _, _ = _axes(mesh, cfg)
+
+    def one(path, leaf):
+        return P(_maybe(leaf.shape[0], dp, mesh),
+                 *([None] * (len(leaf.shape) - 1)))
+
+    return tree_map_with_path(one, batch_shape)
+
+
+def cache_specs(cfg, mesh, cache_shape):
+    """Decode caches: KV sequence over 'model' (split-K decode), states
+    over tp."""
+    dp, tp, _ = _axes(mesh, cfg)
+
+    def one(path, leaf):
+        ps = path_str(path)
+        shape = tuple(leaf.shape)
+        stacked = ps.startswith("blocks/")
+        s = shape[1:] if stacked else shape
+        if "wkv" in ps:                       # (B, H, hs, hs)
+            spec = P(_maybe(s[0], dp, mesh), _maybe(s[1], tp, mesh), None,
+                     None)
+        elif "shift" in ps:                   # (B, 1, d)
+            spec = P(_maybe(s[0], dp, mesh), None, None)
+        elif len(s) == 4:                     # attn kv (B, L, KH, dh)
+            spec = P(_maybe(s[0], dp, mesh), _maybe(s[1], tp, mesh), None,
+                     None)
+        elif len(s) == 3:                     # mamba states
+            if s[2] <= 64:                    # (B, di, ds) ssm state
+                spec = P(_maybe(s[0], dp, mesh), _maybe(s[1], tp, mesh),
+                         None)
+            else:                             # (B, dc-1, di) conv state
+                spec = P(_maybe(s[0], dp, mesh), None,
+                         _maybe(s[2], tp, mesh))
+        else:
+            spec = P(*([None] * len(s)))
+        return P(None, *spec) if stacked else spec
+
+    return tree_map_with_path(one, cache_shape)
+
+
+# ---------------------------------------------------------------------------
+# Specs on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def placements(spec: P, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``, one a mesh axis:
+    ``Shard(d)`` where tensor dim d's entry names the axis, else
+    ``Replicate()``.  A dim split over several axes takes them in mesh
+    order (DTensor's order), which is the order the rules write them."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims = {}
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        order = [mesh.axis_names.index(a) for a in axes]
+        if order != sorted(order) or any(a in dims for a in axes):
+            raise ValueError(f"spec {spec} splits a dim over axes out of "
+                             f"mesh order {mesh.axis_names}, or one axis "
+                             f"twice")
+        dims.update({a: d for a in axes})
+    return tuple(Shard(dims[a]) if a in dims else Replicate()
+                 for a in mesh.axis_names)
+
+
+def device_mesh(mesh):
+    """The ``torch.distributed`` ``DeviceMesh`` of ``mesh``, over the
+    default process group, which must have the mesh's size (an abstract
+    mesh's is a ``context.fake_process_group``, of CPU type)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized() or dist.get_world_size() != mesh.size:
+        raise RuntimeError(
+            f"a DeviceMesh of {mesh.size} devices needs a default process "
+            f"group of that size (context.fake_process_group for an "
+            f"abstract mesh, context.local_process_group for one device)")
+    kind = "cpu" if mesh.is_abstract else mesh.devices.flat[0].type
+    return init_device_mesh(kind, tuple(mesh.axis_sizes),
+                            mesh_dim_names=tuple(mesh.axis_names))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec placed on a ``DeviceMesh`` (``jax.sharding.NamedSharding``'s
+    twin)."""
+    mesh: Any                    # torch.distributed DeviceMesh
+    spec: P
+    placements: tuple
+
+    def distribute(self, tensor: torch.Tensor):
+        """``tensor`` as a DTensor of this sharding (a meta tensor gives
+        the shard's shape and moves nothing)."""
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(tensor, self.mesh, list(self.placements))
+
+    def shard_shape(self, shape, dtype=torch.float32) -> tuple:
+        """This process's shard of a tensor of ``shape`` (every device's:
+        the rules split dims evenly)."""
+        t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        return tuple(self.distribute(t).to_local().shape)
+
+
+def to_named(mesh, spec_tree, dmesh=None):
+    """A :class:`NamedSharding` a spec of ``spec_tree``, on ``mesh``'s
+    ``DeviceMesh`` (``dmesh``, or one made by :func:`device_mesh`)."""
+    dmesh = dmesh if dmesh is not None else device_mesh(mesh)
+    return tree_map_with_path(
+        lambda _, s: NamedSharding(dmesh, s, placements(s, mesh)), spec_tree)
+
+
+def constrain(x: torch.Tensor, logical: tuple):
+    """The in-model sharding constraint; ``logical`` entries 'dp', 'tp',
+    'sp' or None, one a dim of ``x``.  The identity without a mesh, on a
+    mesh of one device and where the ranks differ (as in ``repro``);
+    else ``x``, a DTensor, redistributed to the spec (a plain tensor on a
+    mesh of several devices raises: distribute it first)."""
+    mesh = dctx.current_mesh()
+    if mesh is None or mesh.size == 1 or x.ndim != len(logical):
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        raise TypeError(f"constrain on a mesh of {mesh.size} devices needs "
+                        f"a DTensor, got a {type(x).__name__}")
+    table = {"dp": dctx.data_axes(mesh), "tp": "model", "sp": "model",
+             None: None}
+    spec = P(*(table[lg] if _divisible(dim, table[lg], mesh) else None
+               for dim, lg in zip(x.shape, logical)))
+    return x.redistribute(x.device_mesh, list(placements(spec, mesh)))
+
+
+# ---------------------------------------------------------------------------
+# Chip-tier serving: replicas of the artifact, frames scattered
+# ---------------------------------------------------------------------------
 
 SERVE_AXIS = "frames"
 

@@ -13,7 +13,10 @@ kernel's ``p.astype(v.dtype)``.  The kernel is ``csrc/flash_attention.cu``
 on CUDA cores); :func:`flash_attention_plain` is the Pallas body written
 out in PyTorch (the key-tile loop with its online softmax), which the CPU
 path and the tests use.  Unlike ``repro``'s wrapper, both take any
-S >= 1: the ragged last key tile is masked.
+S >= 1 (the ragged last key tile is masked) and the kernel any head dim d
+from 1 to ``MAX_HEAD_DIM``: it runs on the next of its instantiations
+``HEAD_DIMS`` up (:func:`kernel_dim`), with zeros in the columns past d,
+and stores d columns; the scale stays ``1/sqrt(d)`` of the true d.
 
 :func:`flash_attention_op` is the dispatcher op
 ``repro_torch::flash_attention`` over the two: CUDA tensors launch the
@@ -39,6 +42,7 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 BLOCK_K = 64                 # keys per tile (the kernel's kKeys)
 HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 # kernel launches since the last reset
 LAUNCHES = {"flash_attention": 0}
@@ -113,12 +117,32 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
 
 
+def kernel_dim(d: int) -> int:
+    """The instantiation a head dim ``d`` runs on: the least of
+    ``HEAD_DIMS`` at or above it (the columns past d are zeros)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the flash kernel takes 1 to "
+                         f"{MAX_HEAD_DIM}")
+    return next(x for x in HEAD_DIMS if x >= d)
+
+
+def copy_bytes(d: int, *ptrs: int) -> int:
+    """Bytes a bf16 row copy moves (16, 8, 4 or 2): the widest that
+    divides a row's 2 d bytes and keeps every pointer aligned to it."""
+    return next(w for w in (16, 8, 4, 2)
+                if 2 * d % w == 0 and all(p % w == 0 for p in ptrs))
+
+
+# flash_attention_launch: q, k, v, o; b, s, h, kh, d, bf16; scale; causal,
+# bf16_probs, copy_bytes; the stream
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -127,28 +151,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     probs_bf16: Optional[bool] = None) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on any other device,
-    on non-contiguous or, in bf16, not 16-byte aligned inputs and on D
-    outside ``HEAD_DIMS``)."""
+    on non-contiguous inputs and on a head dim past ``MAX_HEAD_DIM``)."""
     check_args(q, k, v)
     if not (q.device.type == "cuda" and q.device == k.device == v.device):
         raise ValueError(f"the CUDA kernel needs CUDA tensors on one device, "
                          f"got {q.device}, {k.device}, {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
-                                         for x in (q, k, v)):
-        raise ValueError("bf16 q, k and v must be 16-byte aligned (the "
-                         "kernel copies 16-byte chunks)")
     b, s, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    kernel_dim(d)                                  # raises past the limit
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    cw = copy_bytes(d, *(x.data_ptr() for x in (q, k, v, out)))
     with torch.cuda.device(q.device):
         err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), b, s, h, k.shape[2], d,
                           int(q.dtype == torch.bfloat16), scale, int(causal),
-                          int(bf16_probs_of(v.dtype, probs_bf16)),
+                          int(bf16_probs_of(v.dtype, probs_bf16)), cw,
                           torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

@@ -4,10 +4,11 @@ The counterpart of ``repro.kernels.xnor_matmul``:
 ``out[m, n] = K - 2 * popcount(a[m] ^ w[n])`` over 32-bit words, and the
 ``pack_out`` variant that signs the sums and packs them along N.  The
 kernel is ``csrc/xnor_matmul.cu``; :func:`xnor_matmul_plain` is the same
-function in PyTorch, which the CPU path and the tests use.  The int32
-variant is a binary GEMM on the tensor cores (``mma.sync.m16n8k256 .b1``)
-whose launch geometry is :func:`xnor_tiles`; the packed variant runs one
-warp a word and takes no geometry.
+function in PyTorch, which the CPU path and the tests use.  Both
+variants are one binary GEMM on the tensor cores (``mma.sync.m16n8k256
+.b1``) whose launch geometry is :func:`xnor_tiles`; the packed variant's
+epilogue signs the sums and packs them a word of 32 columns at a time, so
+its warps take strips of whole words (``PACK_WARP_TILES``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ STEP_WORDS = 8               # 256 K bits a mma.sync m16n8k256 step
 KCHUNK = 4                   # K steps a staged chunk, the most (a power
                              # of 2; launch/time_packed.py --sweep)
 WARP_TILES = (1, 2, 4, 5, 8)  # n8 tiles a warp: the kernel's instantiations
+PACK_WARP_TILES = (4, 8)     # the packed variant's: strips of whole words
 SMEM_DEFAULT = 48 * 1024     # shared memory a block has without the opt-in
 GRID_M_LIMIT = 65535         # gridDim.y
 SMS = 132                    # H100 SXM
@@ -41,7 +43,7 @@ ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 
 @dataclasses.dataclass(frozen=True)
 class XnorTiles:
-    """Launch geometry of the tensor-core int32 variant (see xnor_tiles);
+    """Launch geometry of the tensor-core kernel (see xnor_tiles);
     the kernel takes it as it is (csrc/xnor_matmul.cu Tiles) and computes
     none of it."""
     tn: int              # n8 tiles a warp (a warp: one m16 x 8 tn strip)
@@ -88,8 +90,12 @@ def make_tiles(m: int, n: int, kw: int, wm: int, tn: int,
 
 
 @functools.lru_cache(maxsize=None)
-def xnor_tiles(m: int, n: int, kw: int, sms: int = SMS) -> XnorTiles:
-    """Block tile, K chunking and shared memory of one int32 launch.
+def xnor_tiles(m: int, n: int, kw: int, sms: int = SMS,
+               pack: bool = False) -> XnorTiles:
+    """Block tile, K chunking and shared memory of one launch; ``pack``
+    (the packed variant) takes only ``PACK_WARP_TILES``, so every warp's
+    strip, and every block's, starts at a multiple of 32 columns and holds
+    whole words.
 
     A block of ``WARPS`` warps, ``wm`` along M and ``wn`` along N, computes
     a (16 wm) x (8 tn wn) tile; a warp row wholly past M is never taken
@@ -97,24 +103,38 @@ def xnor_tiles(m: int, n: int, kw: int, sms: int = SMS) -> XnorTiles:
     fit the default 48 KB, the one with the least work on the busiest SM
     wins (waves over ``sms`` SMs x the tile's outputs), then the fewest
     blocks, then the fewest staged rows: at BitLinear's 256 x 2560, 64 x 80
-    tiles, 128 blocks in one wave.  K is staged ``KCHUNK`` steps at a time:
-    its four steps at BitLinear in one chunk.
+    tiles, 128 blocks in one wave.  The packed variant breaks a tie on work
+    by the least work over all blocks (its strips of whole words overhang a
+    small N), then toward more blocks: at 256 x 2560 (K=960) 160 blocks of
+    64 x 64, two on some SMs, each hiding the other's latency, took 0.00437
+    ms against 0.00477 for 80 of 64 x 128 (``launch/time_packed.py
+    --sweep`` on an H100).  K is staged ``KCHUNK`` steps at a time
+    (its four steps at BitLinear in one chunk), or, where no tile's
+    double-buffered chunks fit at that (the packed variant's wide strips
+    at a small M and a long K), half as many, down to one.
     """
-    best = None
-    for wm in (1, 2, 4, 8):
-        if 16 * (wm - 1) >= m:
-            break
-        for tn in WARP_TILES:
-            t = make_tiles(m, n, kw, wm, tn)
-            if t.smem > SMEM_DEFAULT or t.grid[1] > GRID_M_LIMIT:
-                continue
-            blocks = t.grid[0] * t.grid[1]
-            key = (-(-blocks // sms) * t.bm * t.bn, blocks, t.bm + t.bn)
-            if best is None or key < best[0]:
-                best = (key, t)
-    if best is None:
-        raise ValueError(f"no tile fits M={m}, N={n}")
-    return best[1]
+    kchunk = KCHUNK
+    while True:
+        best = None
+        for wm in (1, 2, 4, 8):
+            if 16 * (wm - 1) >= m:
+                break
+            for tn in PACK_WARP_TILES if pack else WARP_TILES:
+                t = make_tiles(m, n, kw, wm, tn, kchunk)
+                if t.smem > SMEM_DEFAULT or t.grid[1] > GRID_M_LIMIT:
+                    continue
+                blocks = t.grid[0] * t.grid[1]
+                work = t.bm * t.bn
+                key = ((-(-blocks // sms) * work, blocks * work, -blocks,
+                        t.bm + t.bn) if pack else
+                       (-(-blocks // sms) * work, blocks, t.bm + t.bn))
+                if best is None or key < best[0]:
+                    best = (key, t)
+        if best is not None:
+            return best[1]
+        if kchunk == 1:
+            raise ValueError(f"no tile fits M={m}, N={n}")
+        kchunk //= 2
 
 
 def copy_words(kw: int, *ptrs: int) -> int:
@@ -172,7 +192,8 @@ def xnor_matmul(a_words: torch.Tensor, w_words: torch.Tensor, k: int, *,
     a_words: (M, Kw) int32 words; w_words: (N, Kw) int32 words; k: the
     true channel count.  Returns (M, N) int32, or (M, N // 32) int32 words
     when ``pack_out``.  ``tiles`` overrides :func:`xnor_tiles` (a
-    :func:`make_tiles` geometry, for tile sweeps).
+    :func:`make_tiles` geometry, for tile sweeps; with ``pack_out`` its tn
+    must be one of ``PACK_WARP_TILES``).
     """
     check_args(a_words, w_words, k, pack_out)
     if a_words.device.type != "cuda":
@@ -183,12 +204,9 @@ def xnor_matmul(a_words: torch.Tensor, w_words: torch.Tensor, k: int, *,
     (m, kw), n = a.shape, w.shape[0]
     out = torch.empty((m, n // PACK_WIDTH if pack_out else n),
                       dtype=torch.int32, device=a.device)
-    if pack_out:
-        geometry = (0,) * 10
-    else:
-        t = tiles or xnor_tiles(m, n, kw, sm_count(a.device))
-        geometry = (*t.args, copy_words(kw, a.data_ptr(), w.data_ptr()),
-                    *t.grid, t.smem)
+    t = tiles or xnor_tiles(m, n, kw, sm_count(a.device), pack_out)
+    geometry = (*t.args, copy_words(kw, a.data_ptr(), w.data_ptr()),
+                *t.grid, t.smem)
     with torch.cuda.device(a.device):
         err = _launcher()(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
                           kw, k, int(pack_out), *geometry,

@@ -17,8 +17,22 @@ ones.  Run one cell a process under a time limit::
 Each cell's record is written to ``build/repro_torch/dryrun/`` (never
 ``benchmarks/``): ``repro``'s keys, with ``trace_s`` for its
 ``lower_s``/``compile_s``; a failing cell is a bug and keeps its
-traceback.  The meshes ``pod`` and ``multipod`` need collectives over
-several cards (ROADMAP §1 item 5.5) and raise.  ``repro``'s
+traceback.
+
+``--mesh pod`` (16 x 16, 256 chips) and ``--mesh multipod`` (2 x 16 x 16,
+512) shard the cell's arguments instead: the parameters, optimizer state,
+batch and cache take ``repro``'s partition specs (``distributed/
+sharding.py``, ``train/steps.state_specs``) on the abstract production
+mesh, placed as DTensors on a ``DeviceMesh`` under a ``fake`` process group
+of 256 or 512 ranks, on meta tensors; the record gives each category's
+bytes on one device, summed from the leaves' shard shapes, and
+``step_counted: false``: the sharded step's FLOPs and bytes need its
+collectives (ROADMAP §1 item 5.5b)::
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod \\
+        --arch smollm-360m --shape train_4k
+
+``repro``'s
 ``--rwkv-unroll``, ``--mamba-unroll`` and ``--moe-fp8-dispatch`` are not
 offered: the port's recurrences are eager loops with nothing to unroll,
 and it has no expert-parallel dispatch to carry in fp8.
@@ -38,6 +52,9 @@ import torch
 from repro_torch.configs import shapes as shp
 from repro_torch.configs.base import active_param_count
 from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import op_cost, roofline
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers as opt
@@ -45,6 +62,11 @@ from repro_torch.train import serve, steps
 
 META = torch.device("meta")
 MESH = "card"
+MESHES = (MESH, "pod", "multipod")
+# the argument categories of a sharded cell's record
+CATEGORIES = ("params", "optimizer_state", "batch", "cache")
+NOT_COUNTED = ("the sharded step's FLOPs and bytes need its collectives "
+               "(ROADMAP §1 item 5.5b): only its arguments are sharded")
 OUT = os.path.join("build", "repro_torch", "dryrun")
 
 
@@ -118,29 +140,99 @@ def count_cell(cfg, shape: shp.ShapeSpec, arch: str) -> dict:
     }
 
 
-def skipped(cfg, arch: str, shape_name: str):
+def production_mesh(mesh_name: str):
+    """The abstract production mesh of ``pod`` or ``multipod``."""
+    return mesh_lib.make_production_mesh(multi_pod=mesh_name == "multipod",
+                                         abstract=True)
+
+
+def argument_trees(cfg, shape: shp.ShapeSpec, mesh) -> dict:
+    """The cell's step arguments by category: (meta tree, spec tree), as
+    ``repro``'s dry run gives them its ``in_shardings``."""
+    batch = shp.input_specs(cfg, shape)
+    if shape.step == "train":
+        optimizer = build_optimizer(cfg)
+        state = steps.state_shape(cfg, optimizer)
+        specs = steps.state_specs(cfg, mesh, optimizer)
+        rest = ("opt_state", "step")
+        return {"params": (state["params"], specs["params"]),
+                "optimizer_state": ({k: state[k] for k in rest},
+                                    {k: specs[k] for k in rest}),
+                "batch": (batch, shd.batch_specs(cfg, mesh, batch))}
+    params = transformer.init_params(cfg, device=META)
+    trees = {"params": (params, shd.param_specs(cfg, mesh, params))}
+    if shape.step == "prefill":
+        trees["batch"] = (batch, shd.batch_specs(cfg, mesh, batch))
+        return trees
+    cache = transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                   device=META)
+    tok = list(batch.values())[0]
+    trees["cache"] = (cache, shd.cache_specs(cfg, mesh, cache))
+    trees["batch"] = (tok, shd.batch_specs(cfg, mesh, {"t": tok})["t"])
+    return trees
+
+
+def shard_bytes(tree, named_tree) -> int:
+    """Bytes of one device's shards of a meta tree's leaves."""
+    named = dict(shd.leaves_with_path(named_tree))
+    return sum(named[path].distribute(leaf).to_local().numel()
+               * leaf.element_size()
+               for path, leaf in shd.leaves_with_path(tree))
+
+
+def shard_cell(cfg, shape: shp.ShapeSpec, arch: str, mesh_name: str) -> dict:
+    """The record of one supported cell on ``pod`` or ``multipod``: its
+    arguments' bytes a device, by category, under a fake process group of
+    the mesh's size (torn down after the cell)."""
+    t0 = time.time()
+    mesh = production_mesh(mesh_name)
+    trees = argument_trees(cfg, shape, mesh)
+    per_device = dict.fromkeys(CATEGORIES, 0)
+    with dctx.fake_process_group(mesh.size):
+        dmesh = shd.device_mesh(mesh)
+        for category, (tree, specs) in trees.items():
+            per_device[category] = shard_bytes(
+                tree, shd.to_named(mesh, specs, dmesh))
+    return {
+        "arch": arch, "shape": shape.name, "mesh": mesh_name,
+        "status": "OK", "chips": mesh.size,
+        "trace_s": round(time.time() - t0, 2),
+        "step_counted": False, "step_note": NOT_COUNTED,
+        "argument_bytes_per_device": per_device,
+        "bytes_per_chip": {"argument": sum(per_device.values())},
+    }
+
+
+def skipped(cfg, arch: str, shape_name: str, mesh_name: str = MESH):
     """The SKIPPED record of a cell ``cell_supported`` refuses, else None."""
     ok, reason = shp.cell_supported(cfg, shape_name)
     if ok:
         return None
-    return {"arch": arch, "shape": shape_name, "mesh": MESH,
+    return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
             "status": "SKIPPED", "reason": reason}
 
 
-def lower_cell(arch: str, shape_name: str, overrides=None) -> dict:
+def lower_cell(arch: str, shape_name: str, overrides=None,
+               mesh_name: str = MESH) -> dict:
     """One cell's record: SKIPPED where ``cell_supported`` says so, else
-    its counted step (exceptions propagate; :func:`main` records them)."""
+    its counted step on the card, or its sharded arguments on ``pod`` or
+    ``multipod`` (exceptions propagate; :func:`main` records them)."""
     cfg = cell_config(arch, overrides)
-    return (skipped(cfg, arch, shape_name)
-            or count_cell(cfg, shp.SHAPES[shape_name], arch))
+    shape = shp.SHAPES[shape_name]
+    if mesh_name not in MESHES:
+        raise ValueError(f"mesh {mesh_name!r} not in {MESHES}")
+    return (skipped(cfg, arch, shape_name, mesh_name)
+            or (count_cell(cfg, shape, arch) if mesh_name == MESH
+                else shard_cell(cfg, shape, arch, mesh_name)))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all", help="arch id or 'all'")
     ap.add_argument("--shape", default="all", help="shape name or 'all'")
-    ap.add_argument("--mesh", default=MESH,
-                    help=f"{MESH} (pod and multipod: ROADMAP §1 item 5.5)")
+    ap.add_argument("--mesh", default=MESH, choices=MESHES,
+                    help=f"{MESH}: the step counted on one card; pod, "
+                         f"multipod: the arguments sharded")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--quant", default=None, help="e.g. 'binary'")
     ap.add_argument("--width-mult", type=float, default=None)
@@ -154,11 +246,6 @@ def main(argv=None):
     ap.add_argument("--bf16-grads", action="store_true",
                     help="bf16 cotangents into the gradient matmuls (perf knob)")
     args = ap.parse_args(argv)
-    if args.mesh != MESH:
-        raise SystemExit(
-            f"--mesh {args.mesh}: the pod and multipod meshes need "
-            f"collectives over several cards, not ported yet (ROADMAP §1 "
-            f"item 5.5); this dry run counts one card, --mesh {MESH}")
     if args.dump_hlo:
         raise SystemExit("--dump-hlo: an eager step is not compiled to HLO")
 
@@ -182,7 +269,7 @@ def main(argv=None):
         for sn in shape_names:
             cell_id = f"{arch}__{sn}__{args.mesh}{args.tag}"
             try:
-                res = lower_cell(arch, sn, overrides)
+                res = lower_cell(arch, sn, overrides, args.mesh)
             except Exception as e:  # a failing cell is a bug: record it
                 res = {"arch": arch, "shape": sn, "mesh": args.mesh,
                        "status": "FAIL", "error": f"{type(e).__name__}: {e}",
@@ -191,12 +278,19 @@ def main(argv=None):
             with open(os.path.join(args.out, f"dryrun_{cell_id}.json"),
                       "w") as f:
                 json.dump(res, f, indent=1)
-            line = (f"[{res['status']:7s}] {arch:18s} {sn:12s} {args.mesh:8s}"
-                    + (f" dom={res.get('bottleneck', '-'):10s}"
-                       f" roofline={res.get('roofline_fraction', 0):.2%}"
-                       f" trace={res.get('trace_s', 0):.1f}s"
-                       if res["status"] == "OK" else
-                       f" {res.get('reason', res.get('error', ''))[:90]}"))
+            if res["status"] != "OK":
+                tail = f" {res.get('reason', res.get('error', ''))[:90]}"
+            elif "step_counted" in res:
+                tail = (f" args/device="
+                        f"{res['bytes_per_chip']['argument'] / 1e9:.3f}GB "
+                        f"of {res['chips']} chips (step not counted)"
+                        f" trace={res['trace_s']:.1f}s")
+            else:
+                tail = (f" dom={res['bottleneck']:10s}"
+                        f" roofline={res['roofline_fraction']:.2%}"
+                        f" trace={res['trace_s']:.1f}s")
+            line = (f"[{res['status']:7s}] {arch:18s} {sn:12s} "
+                    f"{args.mesh:8s}" + tail)
             print(line, flush=True)
     n_fail = sum(r["status"] == "FAIL" for r in results)
     print(f"\n{len(results)} cells: "

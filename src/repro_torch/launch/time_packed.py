@@ -4,7 +4,9 @@ table) at the shapes the main paths launch them.
 Times ``xnor_matmul`` (int32 sums) at cifar9_s1's last FC layer (M=8,
 K=1024, N=10) and at BitLinear's SmolLM-360M MLP up-projection (M=256
 tokens, K=960, N=2560), ``xnor_matmul(pack_out=True)`` at mnist5's hidden
-layer (M=8, K=256, N=64), and ``binarize_pack`` at BitLinear's input
+layer (M=8, K=256, N=64), the same layer at the serve batch (M=256) and at
+BitLinear's shape (where the work, not the launch, sets the time), and
+``binarize_pack`` at BitLinear's input
 (256, 960), cifar9_s1's layer-2 activations at batch 8 (7688, 256) and an
 odd shape (300, 100).  Each by ``torch.profiler`` device time a call, with
 CUDA events over back-to-back calls and over a CUDA graph of 50 calls
@@ -24,9 +26,10 @@ trees in one chip call to compare them on one card::
     PYTHONPATH=src python3 src/repro_torch/launch/time_packed.py
 
 ``--sweep`` (this tree only) instead times the int32 variant at each
-``XNOR`` shape over every tile geometry that fits (warps along M, n8 tiles
-a warp, K steps a chunk; ``xnor_matmul.make_tiles``), the wrapper's own
-choice (``xnor_tiles``) marked.
+``XNOR`` shape and the packed one at each ``XNOR_PACK`` shape over every
+tile geometry that fits (warps along M, n8 tiles a warp, K steps a chunk;
+``xnor_matmul.make_tiles``), the wrapper's own choice (``xnor_tiles``)
+marked.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ except ImportError:     # another tree first on PYTHONPATH: this file's own
 ITERS, SEED = 200, 0
 # (label, M, K, N): the int32 variant's main-path shapes, then the packed one
 XNOR = (("cifar9_s1 final", 8, 1024, 10), ("BitLinear", 256, 960, 2560))
-XNOR_PACK = (("mnist5 hidden", 8, 256, 64),)
+XNOR_PACK = (("mnist5 hidden", 8, 256, 64),
+             ("mnist5 hidden, serve batch", 256, 256, 64),
+             ("BitLinear's shape", 256, 960, 2560))
 # (label, M, K)
 PACK = (("BitLinear input", 256, 960), ("cifar9_s1 layer 2", 8 * 31 * 31, 256),
         ("odd", 300, 100))
@@ -76,27 +81,29 @@ def floor_ms():
 
 
 def sweep(words, smi: str) -> dict:
-    """Device ms of the int32 variant at each XNOR shape by tile
-    geometry."""
+    """A call's ms in a CUDA graph of the int32 variant at each XNOR shape
+    and of the packed one at each XNOR_PACK shape, by tile geometry."""
     report = {"card": smi}
-    for label, m, k, n in XNOR:
+    for label, m, k, n, pack in ([x + (False,) for x in XNOR]
+                                 + [x + (True,) for x in XNOR_PACK]):
         kw = -(-k // 32)
         a, w = words(m, kw), words(n, kw)
         chosen = xm.xnor_tiles(m, n, kw, torch.cuda.get_device_properties(
-            a.device).multi_processor_count)
+            a.device).multi_processor_count, pack)
         times = []
         for wm in (1, 2, 4, 8):
             if 16 * (wm - 1) >= m:
                 break
-            for tn in xm.WARP_TILES:
+            for tn in xm.PACK_WARP_TILES if pack else xm.WARP_TILES:
                 for kchunk in (1, 2, 4):
                     t = xm.make_tiles(m, n, kw, wm, tn, kchunk)
                     if t.smem > xm.SMEM_DEFAULT or t in (g for _, g in times):
                         continue
-                    ms = device_ms(lambda: xm.xnor_matmul(a, w, k, tiles=t),
-                                   50, "xnor")
+                    ms = graph_ms(lambda: xm.xnor_matmul(
+                        a, w, k, pack_out=pack, tiles=t))
                     times.append((ms, t))
         times.sort(key=lambda x: x[0])
+        label = f"{label}{' packed' if pack else ''}"
         report[f"{label} M={m} K={k} N={n}"] = [
             dict(ms=ms, bm=t.bm, bn=t.bn, tn=t.tn, kchunk=t.kchunk,
                  blocks=t.grid[0] * t.grid[1],
@@ -114,7 +121,7 @@ def sweep(words, smi: str) -> dict:
 def main() -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sweep", action="store_true",
-                        help="time the int32 variant over tile geometries")
+                        help="time both variants over tile geometries")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_packed needs a CUDA device")

@@ -8,8 +8,8 @@ through the flash-attention kernel (``kernels.ops.flash_attention``) for
 every config :func:`uses_flash` admits, as ``repro`` deploys its Pallas
 kernel on the TPU.
 
-One card has no mesh, so ``repro``'s sharding constraints
-(``shd.constrain``) are dropped.
+``repro``'s sharding constraints stand where it puts them
+(``sharding.constrain``: the identity without a mesh or on one device).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import common
 
@@ -154,7 +155,9 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *,
     g = h // kh
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     qg = q.reshape(b, kh, g, d)
+    # split-K decode: the cache's sequence over the model axis
     s = torch.einsum("bhgd,blhd->bhgl", qg, k_cache).float() * scale
+    s = shd.constrain(s, ("dp", None, None, "sp"))
     if softcap is not None:
         s = common.softcap(s, softcap)
     lpos = torch.arange(k_cache.shape[1], device=q.device)
@@ -215,21 +218,26 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
     k = common.apply_rope(k, cos, sin)
 
     window = cfg.sliding_window if kind == "local" else None
-    if mode == "prefill" and uses_flash(cfg, kind):
-        y = ops.flash_attention(q, k, v, causal=True,
-                                probs_bf16=cfg.attn_probs_bf16)
-        new_kv = (k, v)
-    elif mode in ("train", "prefill"):
-        y = chunked_attention(q, k, v, causal=True, window=window,
-                              softcap=cfg.attn_softcap,
-                              chunk_q=chunk_q, chunk_k=chunk_k,
-                              probs_bf16=cfg.attn_probs_bf16)
+    if mode in ("train", "prefill"):
+        if mode == "prefill" and uses_flash(cfg, kind):
+            y = ops.flash_attention(q, k, v, causal=True,
+                                    probs_bf16=cfg.attn_probs_bf16)
+        else:
+            y = chunked_attention(q, k, v, causal=True, window=window,
+                                  softcap=cfg.attn_softcap,
+                                  chunk_q=chunk_q, chunk_k=chunk_k,
+                                  probs_bf16=cfg.attn_probs_bf16)
+        if mode == "prefill":              # cache leaves: sequence-sharded
+            k = shd.constrain(k, ("dp", "sp", None, None))
+            v = shd.constrain(v, ("dp", "sp", None, None))
         new_kv = (k, v)
     else:  # decode: write (k, v) at position cache_len
         kc, vc = cache
         idx = int(cache_len)
         kc[:, idx:idx + 1] = k.to(kc.dtype)
         vc[:, idx:idx + 1] = v.to(vc.dtype)
+        kc = shd.constrain(kc, ("dp", "sp", None, None))
+        vc = shd.constrain(vc, ("dp", "sp", None, None))
         y = decode_attention(q, kc, vc, idx + 1, window=window,
                              softcap=cfg.attn_softcap)
         new_kv = (kc, vc)

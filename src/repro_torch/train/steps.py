@@ -10,9 +10,10 @@ same gradients.  A step is eager: ``repro`` ``jax.jit``\\ s it.
 The train state is ``{"params", "opt_state", "step"}`` as ``repro``'s, so
 ``checkpoint.ckpt`` saves and restores it in either package's format;
 ``step`` is an int32 scalar tensor.  :func:`state_shape` is the state on
-meta tensors (shapes and types, nothing allocated); ``state_specs`` is
-sharding, which waits for the training half of the distributed layer
-(ROADMAP §1 item 5.5).
+meta tensors (shapes and types, nothing allocated); :func:`state_specs`
+its partition specs on a mesh.  The logits of each CE chunk carry
+``repro``'s sharding constraint (``sharding.constrain``: the identity
+without a mesh or on one device).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers as opt
 
@@ -34,6 +36,8 @@ def _ce_chunk(params, cfg, h_chunk, labels_chunk):
     (B, c, ncb) with codebooks (logits (B, c, ncb, V): the softmax and the
     gather run over the last axis either way)."""
     logits = transformer.lm_logits(params, cfg, h_chunk).to(torch.float32)
+    logits = shd.constrain(
+        logits, ("dp",) + (None,) * (logits.ndim - 2) + ("tp",))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels_chunk.to(torch.int64)[..., None])[..., 0]
@@ -119,3 +123,32 @@ def state_shape(cfg, optimizer: opt.Optimizer):
     :func:`create_state` on meta tensors (``repro``'s ``jax.eval_shape``
     of it)."""
     return create_state(cfg, 0, optimizer, device="meta")
+
+
+def state_specs(cfg, mesh, optimizer: opt.Optimizer):
+    """The partition specs of the whole train state on ``mesh``.
+
+    Optimizer leaves mirror their parameter's spec exactly; adafactor's
+    factored vectors keep the axes of the dims they keep ("vr" drops the
+    last dim, "vc" the second-to-last)."""
+    shapes = state_shape(cfg, optimizer)
+    pspecs = shd.param_specs(cfg, mesh, shapes["params"])
+    by_path = dict(shd.leaves_with_path(pspecs))
+
+    def opt_spec(path, leaf):
+        parts = list(path)
+        tail = parts[-1] if parts and parts[-1] in ("vr", "vc", "v") else None
+        core = parts[1:-1] if tail else parts[1:]   # strip the m|v dict key
+        ref = by_path.get("/".join(core))
+        if ref is None and tail is None:
+            ref = by_path.get("/".join(parts[1:]))
+        if ref is None:
+            return shd.P(*([None] * len(leaf.shape)))
+        if tail == "vr":
+            return shd.P(*ref[:-1])
+        if tail == "vc":
+            return shd.P(*ref[:-2], ref[-1])
+        return ref
+
+    ospecs = shd.tree_map_with_path(opt_spec, shapes["opt_state"])
+    return {"params": pspecs, "opt_state": ospecs, "step": shd.P()}

@@ -9,17 +9,26 @@
   prefill and decode shapes: OK, and the same counts on CPU tensors as
   on meta (the counter reads shapes, strides and types only).
 * The 40 cells' SKIPPED statuses against ``repro``'s ``cell_supported``,
-  one full-width cell through ``main``, and the meshes it refuses.
+  one full-width cell through ``main``.
+* ``--mesh pod`` and ``--mesh multipod``: each record's chips, each
+  category's bytes on one device equal to the arithmetic of ``repro``'s
+  spec trees on its abstract meshes, ``step_counted: false``; every
+  multipod cell OK or SKIPPED.
 """
 
 import json
+import math
 
 import jax
+import numpy as np
 import pytest
 import torch
+from jax.sharding import AbstractMesh
+from jax.sharding import PartitionSpec as JP
 
 from repro.configs import registry as jreg
 from repro.configs import shapes as jshapes
+from repro.distributed import sharding as jshd
 from repro.models import transformer as jtf
 from repro.optim import optimizers as jopt
 from repro.train import steps as jsteps
@@ -121,7 +130,94 @@ def test_main_writes_a_full_width_cell(tmp_path, capsys):
     assert "1 cells: 1 ok" in capsys.readouterr().out
 
 
+def _jbytes_per_device(tree, specs, mesh) -> int:
+    """One device's bytes of a tree of ShapeDtypeStructs under repro's
+    spec tree: each dim divided by the product of its axes' sizes."""
+    specs = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, JP))
+    total = 0
+    for leaf, spec in zip(jax.tree.leaves(tree), specs):
+        n = 1
+        for i, dim in enumerate(leaf.shape):
+            entry = spec[i] if i < len(spec) else None
+            axes = () if entry is None else (
+                (entry,) if isinstance(entry, str) else entry)
+            div = math.prod(mesh.shape[a] for a in axes)
+            assert dim % div == 0
+            n *= dim // div
+        total += n * np.dtype(leaf.dtype).itemsize
+    return total
+
+
+def _repro_per_device(arch, shape_name, mesh):
+    """repro's dry-run arguments of a cell by category, in bytes a
+    device."""
+    cfg = jreg.get_config(arch)
+    shape = jshapes.SHAPES[shape_name]
+    batch = jshapes.input_specs(cfg, shape)
+    want = dict.fromkeys(dryrun.CATEGORIES, 0)
+    if shape.step == "train":
+        jo = jopt.make(cfg.optimizer,
+                       jopt.cosine_schedule(3e-4, warmup=100, total=10000))
+        state = jsteps.state_shape(cfg, jo)
+        specs = jsteps.state_specs(cfg, mesh, jo)
+        want["params"] = _jbytes_per_device(state["params"],
+                                            specs["params"], mesh)
+        want["optimizer_state"] = sum(
+            _jbytes_per_device(state[k], specs[k], mesh)
+            for k in ("opt_state", "step"))
+        want["batch"] = _jbytes_per_device(
+            batch, jshd.batch_specs(cfg, mesh, batch), mesh)
+        return want
+    params = jax.eval_shape(lambda k: jtf.init_params(k, cfg),
+                            jax.random.PRNGKey(0))
+    want["params"] = _jbytes_per_device(
+        params, jshd.param_specs(cfg, mesh, params), mesh)
+    cache = jax.eval_shape(lambda: jtf.init_cache(cfg, shape.global_batch,
+                                                  shape.seq_len))
+    want["cache"] = _jbytes_per_device(
+        cache, jshd.cache_specs(cfg, mesh, cache), mesh)
+    tok = list(batch.values())[0]
+    want["batch"] = _jbytes_per_device(
+        tok, jshd.batch_specs(cfg, mesh, {"t": tok})["t"], mesh)
+    return want
+
+
+# these cases replace one that held --mesh pod|multipod to raise: they
+# shard the cell's arguments now
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
 @pytest.mark.parametrize("mesh", ["pod", "multipod"])
-def test_meshes_of_several_cards_raise(mesh):
-    with pytest.raises(SystemExit, match="5.5"):
-        dryrun.main(["--mesh", mesh, "--arch", "smollm-360m"])
+def test_mesh_cells_record_per_device_argument_bytes(mesh, shape, tmp_path,
+                                                     capsys):
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--mesh", mesh, "--arch", "smollm-360m", "--shape",
+                     shape, "--out", str(tmp_path)])
+    assert done.value.code == 0
+    rec = json.loads((tmp_path / f"dryrun_smollm-360m__{shape}__{mesh}.json")
+                     .read_text())
+    jmesh = AbstractMesh((2, 16, 16) if mesh == "multipod" else (16, 16),
+                         ("pod", "data", "model") if mesh == "multipod"
+                         else ("data", "model"))
+    assert rec["status"] == "OK" and rec["mesh"] == mesh
+    assert rec["chips"] == (512 if mesh == "multipod" else 256)
+    assert rec["step_counted"] is False and "5.5b" in rec["step_note"]
+    want = _repro_per_device("smollm-360m", shape, jmesh)
+    assert rec["argument_bytes_per_device"] == want
+    assert rec["bytes_per_chip"]["argument"] == sum(want.values())
+    assert (want["cache"] > 0) == (shape == "decode_32k")
+    assert (want["optimizer_state"] > 0) == (shape == "train_4k")
+    assert "1 cells: 1 ok" in capsys.readouterr().out
+    import torch.distributed as dist
+    assert not dist.is_initialized()            # torn down after the cell
+
+
+def test_every_multipod_cell_is_ok_or_skipped(tmp_path, capsys):
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--mesh", "multipod", "--out", str(tmp_path)])
+    assert done.value.code == 0
+    assert "40 cells: 32 ok, 8 skipped, 0 failed" in capsys.readouterr().out
+    recs = [json.loads(f.read_text()) for f in tmp_path.glob("*.json")]
+    assert len(recs) == 40
+    for rec in recs:
+        if rec["status"] == "OK":
+            assert rec["chips"] == 512 and rec["step_counted"] is False
+            assert rec["bytes_per_chip"]["argument"] > 0

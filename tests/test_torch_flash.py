@@ -7,10 +7,19 @@ flash_attention_fwd`` run in Pallas interpret mode, as ``repro``'s own
 tests run it, and against ``repro.models.attention.chunked_attention``,
 on inputs made from a numpy seed.  Tolerances are ``repro``'s: 2e-5 in
 float32 and 3e-2 in bfloat16 (the two round p to bf16 at the same place
-but sum in other orders).  Interpret-mode cases stay at S <= 128.  The
-CUDA kernel is held against the plain version on the card by
-``test_torch_gpu.py`` and ``chip_smoke.py``.
+but sum in other orders).  Interpret-mode cases stay at S <= 128.  Head
+dims off the kernel's instantiations (8 and 20, the ``scaled()`` configs
+of kimi-k2, qwen1.5-110b and musicgen-medium) are held the same way, and
+the kernel's rule for them (the next instantiation up, zero columns past
+d, d columns stored, the scale of the true d) is held on the plain version
+and the launcher's helpers.  The CUDA kernel is held against the plain
+version on the card by ``test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+
+import ctypes
+import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +63,12 @@ CASES = {
     "mqa": (1, 64, 8, 1, 32, 64, 32, True, "float32"),
     "non_causal": (2, 128, 4, 2, 16, 64, 64, False, "float32"),
     "bf16": (1, 128, 4, 2, 16, 64, 64, True, "bfloat16"),
+    # head dims the kernel pads: kimi-k2's and qwen1.5-110b's scaled() 8
+    # (G = 2), musicgen-medium's 20 (MHA), causal and not, both types
+    "d8_gqa": (2, 128, 4, 2, 8, 64, 64, True, "float32"),
+    "d8_bf16": (1, 128, 4, 2, 8, 64, 64, True, "bfloat16"),
+    "d20_mha": (1, 128, 4, 4, 20, 64, 64, True, "float32"),
+    "d20_non_causal_bf16": (2, 64, 6, 2, 20, 32, 64, False, "bfloat16"),
 }
 
 
@@ -202,3 +217,83 @@ def test_inputs_neither_version_takes_raise(bad):
         k, v = k[:, :8], v[:, :8]
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# head dims off the instantiations: the kernel's padding rule
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [1, 8, 15, 20, 33, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padding_to_the_instantiation_keeps_the_output(d, causal):
+    """What the kernel does at a head dim d between its instantiations,
+    on the plain version: q, k and v zero-padded to ``kernel_dim(d)``
+    columns, the scale of the true d, the first d output columns kept,
+    equal to the plain version at d (the zeros add nothing to q.k, the
+    padded columns of p.v are zeros and are dropped)."""
+    dk = fa.kernel_dim(d)
+    assert dk in fa.HEAD_DIMS and dk >= d and (dk == 16 or dk // 2 < d)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(d, 2, 70, 6, 2, d))
+    padded = [torch.nn.functional.pad(x, (0, dk - d)) for x in (q, k, v)]
+    got = fa.flash_attention_plain(*padded, causal=causal,
+                                   scale=1.0 / math.sqrt(d))
+    assert got.shape[-1] == dk and not got[..., d:].any()
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got[..., :d].numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    # the scale of the padded dim is another function: the trap
+    wrong = fa.flash_attention_plain(*padded, causal=causal)[..., :d]
+    assert d == dk or not torch.allclose(wrong, want, atol=1e-3)
+
+
+def test_kernel_dims_and_copy_widths():
+    assert [fa.kernel_dim(d) for d in (1, 8, 16, 17, 20, 32, 64, 65, 128)] \
+        == [16, 16, 16, 32, 32, 32, 64, 128, 128]
+    for bad in (0, 129, 256):
+        with pytest.raises(ValueError, match="1 to 128"):
+            fa.kernel_dim(bad)
+    # a row of d bf16 is 2 d bytes: the widest copy dividing it and every
+    # pointer (D = 20: 40-byte rows take 8-byte copies)
+    assert fa.copy_bytes(64, 0, 16) == 16 and fa.copy_bytes(20, 0, 0) == 8
+    assert fa.copy_bytes(8, 0, 0) == 16 and fa.copy_bytes(64, 0, 8) == 8
+    assert fa.copy_bytes(7, 0) == 2 and fa.copy_bytes(6, 0, 4) == 4
+    for d in range(1, 129):
+        for ptrs in ((0, 0), (0, 2), (4, 8), (16, 48)):
+            w = fa.copy_bytes(d, *ptrs)
+            assert 2 * d % w == 0 and all(p % w == 0 for p in ptrs)
+
+
+def test_launcher_matches_the_c_entry_point():
+    """The C entry point's dispatch names exactly ``HEAD_DIMS`` for both
+    types and its ctypes declaration carries every argument in order."""
+    src = (Path(fa.__file__).resolve().parents[1] / "csrc"
+           / "flash_attention.cu").read_text()
+    for sign in ("", "-"):
+        cases = [int(c) for c in re.findall(
+            rf"case {sign}(\d+):\s+return launch_(?:bf16|f32)<\1>", src)]
+        assert tuple(cases) == fa.HEAD_DIMS
+    sig = re.search(r'extern "C" int flash_attention_launch\(([^)]*)\)',
+                    src).group(1)
+    types = {"int": ctypes.c_int, "float": ctypes.c_float}
+    want = [types.get(p.split()[0], ctypes.c_void_p)
+            for p in sig.replace("\n", " ").split(",")]
+    assert fa.ARGTYPES == want
+
+
+def test_kernel_refuses_head_dims_past_the_limit():
+    q, k, v = (torch.zeros(1, 4, 2, 129) for _ in range(3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention(q, k, v)          # the device is checked first
+    with pytest.raises(ValueError, match="1 to 128"):
+        fa.kernel_dim(q.shape[-1])
+
+
+def test_flop_formula_counts_the_true_head_dim():
+    """The op's registered FLOPs at d = 20 are those of d = 20, not of the
+    instantiation the kernel pads to."""
+    from torch.utils.flop_counter import FlopCounterMode
+    q, k, v = (torch.from_numpy(x) for x in _qkv(4, 1, 16, 4, 4, 20))
+    with FlopCounterMode(display=False) as counter:
+        ops.flash_attention(q, k, v, causal=True)
+    assert counter.get_total_flops() == fa.attention_flops(1, 16, 4, 20,
+                                                           True)

@@ -335,6 +335,38 @@ def test_xnor_matmul_on_the_tensor_cores_matches_plain_version_on_the_card():
 
 
 @pytest.mark.gpu
+def test_packed_xnor_matmul_on_the_tensor_cores_matches_plain_version():
+    """The packed xnor_matmul (the same GEMM, sign-and-pack epilogue) at
+    mnist5's hidden layer (M=8, K=256, N=64), at the serve batch (M=256)
+    and at M=256, K=960, N=2560, then at ragged M and K (one row, one
+    past an m16, K off the word and the 256-bit step) with one word or
+    several, with aligned operands and 4 bytes off: equal, bit for bit, to
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    shapes = [(8, 64, 256), (256, 64, 256), (256, 2560, 960)] + [
+        (m, n, k) for m in (1, 17) for n in (32, 96, 2560)
+        for k in (1, 100, 960, 4096)]
+    for m, n, k in shapes:
+        kw = -(-k // 32)
+        a, w = _words(rng, m, kw).to(dev), _words(rng, n, kw).to(dev)
+        t = xm.xnor_tiles(m, n, kw, pack=True)
+        assert t.tn in xm.PACK_WARP_TILES
+        assert torch.equal(xm.xnor_matmul(a, w, k, pack_out=True),
+                           xm.xnor_matmul_plain(a, w, k, pack_out=True)), \
+            (m, n, k)
+    for m, n, k in ((256, 2560, 960), (17, 64, 100)):
+        kw = -(-k // 32)
+        a = _words(rng, m * kw + 1).to(dev)[1:].view(m, kw)
+        w = _words(rng, n * kw + 1).to(dev)[1:].view(n, kw)
+        assert torch.equal(xm.xnor_matmul(a, w, k, pack_out=True),
+                           xm.xnor_matmul_plain(a, w, k, pack_out=True)), \
+            (m, n, k)
+
+
+@pytest.mark.gpu
 def test_training_step_on_the_card_equals_the_cpu():
     """One face-detector STE step (forward, backward, adamw) from the same
     params and state on the card and on the CPU: latents within
@@ -395,16 +427,19 @@ def test_training_step_on_the_card_equals_the_cpu():
 
 @pytest.mark.gpu
 def test_flash_attention_matches_plain_version_on_the_card():
-    """The flash-attention kernel vs its plain version at five small shapes
+    """The flash-attention kernel vs its plain version at small shapes
     (G = 3 with a ragged S, whose 16-row fragments straddle positions; G = 4
     with D = 128; MQA with D = 128, not causal; the scaled() configs' head
-    dims 32 and 16, the latter not causal), in both types and every
-    probability type: within 2e-5 where the chain is float32 throughout,
-    3e-2 where p or the output is bf16 (repro's tolerances), and at a given
-    probability type ten times closer on the mean to the plain version at
-    that type than at the other; a head dim of 8 raises.  Prefills of a
-    small SmolLM-shaped model through the kernel, float32 and bf16, launch
-    it once per layer and match the chunked forward."""
+    dims 32 and 16, the latter not causal; head dims 8 (G = 8 and MHA, not
+    causal) and 20 (MHA, and G = 3 not causal) on the next instantiation
+    up; D = 64 and 20 from inputs 2 bytes off a 16-byte boundary), in both
+    types and every probability type: within 2e-5 where the chain is
+    float32 throughout, 3e-2 where p or the output is bf16 (repro's
+    tolerances), and at a given probability type ten times closer on the
+    mean to the plain version at that type than at the other; a head dim
+    of 129 raises.  Prefills of a small SmolLM-shaped model through the
+    kernel, float32 and bf16, launch it once per layer and match the
+    chunked forward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.configs.registry import get_config
@@ -412,15 +447,23 @@ def test_flash_attention_matches_plain_version_on_the_card():
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
     gen = torch.Generator().manual_seed(11)
-    for b, s, h, kh, d, causal in ((2, 77, 6, 2, 64, True),
-                                   (1, 96, 16, 4, 128, True),
-                                   (1, 130, 8, 1, 128, False),
-                                   (2, 70, 6, 2, 32, True),
-                                   (1, 90, 4, 4, 16, False)):
+    for b, s, h, kh, d, causal, off in ((2, 77, 6, 2, 64, True, 0),
+                                        (1, 96, 16, 4, 128, True, 0),
+                                        (1, 130, 8, 1, 128, False, 0),
+                                        (2, 70, 6, 2, 32, True, 0),
+                                        (1, 90, 4, 4, 16, False, 0),
+                                        (2, 100, 8, 1, 8, True, 0),
+                                        (1, 90, 4, 4, 8, False, 0),
+                                        (2, 77, 3, 3, 20, True, 0),
+                                        (2, 64, 6, 2, 20, False, 0),
+                                        (2, 77, 6, 2, 64, True, 1),
+                                        (1, 70, 3, 3, 20, True, 1)):
         qkv = [torch.randn(shape, generator=gen) for shape in
                ((b, s, h, d), (b, s, kh, d), (b, s, kh, d))]
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (x.to(dtype).cuda() for x in qkv)
+            # off: each input one element past its storage's start
+            q, k, v = (torch.cat([x.new_zeros(off), x.flatten()]).to(
+                dtype).cuda()[off:].view(x.shape) for x in qkv)
             for probs_bf16 in (None, True, False):
                 f32_chain = (dtype == torch.float32
                              and not fa.bf16_probs_of(dtype, probs_bf16))
@@ -445,9 +488,9 @@ def test_flash_attention_matches_plain_version_on_the_card():
                     assert e_same * 10 < e_other, (b, s, h, kh, d, dtype,
                                                    probs_bf16, float(e_same),
                                                    float(e_other))
-    # a head dim the kernel lacks is refused on the card, not rerouted
-    q = torch.zeros((1, 8, 2, 8), device="cuda")
-    with pytest.raises(ValueError, match="head dim 8"):
+    # a head dim past the largest instantiation is refused, not rerouted
+    q = torch.zeros((1, 8, 2, 129), device="cuda")
+    with pytest.raises(ValueError, match="1 to 128"):
         fa.flash_attention(q, q, q)
     cfg = get_config("smollm-360m").with_(num_layers=3, d_model=192,
                                           num_heads=6, num_kv_heads=2,
@@ -938,3 +981,93 @@ def test_smollm_prefill_counts_on_the_card_equal_meta_and_flash_op():
             assert got.dtype == dtype and got.is_contiguous()
             assert torch.allclose(got.float(), want.float(), rtol=tol,
                                   atol=tol), (dtype, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "qwen1.5-110b",
+                                  "musicgen-medium"])
+def test_scaled_head_dims_prefill_and_decode_on_the_card_equal_the_cpu(arch):
+    """The scaled() configs whose head dims the kernel pads (kimi-k2 and
+    qwen1.5-110b: 8, G = 8; musicgen-medium: 20, four codebooks) in
+    float32: prefill through the flash kernel (a launch an attention
+    layer) and decode on the card == on the CPU within 2e-4, where both
+    runs routed alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import serve
+    cfg = get_config(arch).scaled().with_(dtype="float32",
+                                          param_dtype="float32")
+    kinds = cfg.prefix + cfg.pattern * cfg.num_pattern_repeats
+    n_attn = sum(k in transformer.ATTN_KINDS for k in kinds)
+    n_moe = sum(k.endswith("_moe") for k in kinds)
+    params = transformer.init_params(cfg, seed=6, device="cpu")
+    b, s, k = 2, 100, 4
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    toks = torch.randint(0, cfg.vocab_size, (b, s + k) + cb,
+                         generator=torch.Generator().manual_seed(10),
+                         dtype=torch.int32)
+    out = []
+    for where in ("cpu", "cuda"):
+        p, t = to_device(params, torch.device(where)), toks.to(where)
+        ops.reset_launch_counts()
+        with moe.record_routes() as rec:
+            logits, cache = serve.build_prefill_step(cfg, max_len=s + k)(
+                p, {"tokens": t[:, :s]})
+            outs = [logits]
+            for i in range(k):
+                logits, cache = serve.build_decode_step(cfg)(
+                    p, cache, t[:, s + i][:, None], s + i)
+                outs.append(logits)
+        assert ops.launch_counts()["flash_attention"] == (
+            n_attn if where == "cuda" else 0)
+        out.append((torch.cat(outs, dim=1).cpu(), moe.route_table(
+            rec, [(0, s)] + [(s + i, 1) for i in range(k)], n_moe)))
+    first, _ = moe.route_divergence(out[1][1], out[0][1])
+    keep = _comparable(first, b, range(s - 1, s + k))
+    assert keep.any() and torch.isfinite(out[1][0]).all()
+    assert torch.allclose(out[1][0][keep], out[0][0][keep], rtol=2e-4,
+                          atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_one_rank_training_step_under_the_host_mesh_on_the_card():
+    """The host mesh over the one card, on a one-rank process group: every
+    leaf of SmolLM scaled()'s train state shards to its full shape, and
+    one adamw step under ``mesh_context(make_host_mesh())`` equals the same
+    step outside it, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.optim import optimizers as topt
+    from repro_torch.train import steps
+    cfg = get_config("smollm-360m").scaled()
+    optimizer = topt.make("adamw", topt.cosine_schedule(3e-4, warmup=100,
+                                                        total=10000))
+    batch = tokens.batch_for_step(cfg, 0, global_batch=4, seq_len=32,
+                                  device="cuda")
+    step = steps.build_train_step(cfg, optimizer)
+    mesh = tmesh.make_host_mesh(devices=["cuda:0"])
+
+    def run():
+        return step(steps.create_state(cfg, 0, optimizer), batch)
+
+    with dctx.local_process_group():
+        named = dict(shd.leaves_with_path(shd.to_named(
+            mesh, steps.state_specs(cfg, mesh, optimizer))))
+        for path, leaf in shd.leaves_with_path(steps.state_shape(
+                cfg, optimizer)):
+            assert named[path].shard_shape(leaf.shape) == tuple(leaf.shape)
+        with dctx.mesh_context(mesh):
+            inside, _ = run()
+    outside, _ = run()
+    for (path, a), (_, b) in zip(shd.leaves_with_path(inside),
+                                 shd.leaves_with_path(outside)):
+        assert torch.equal(a, b), path

@@ -1,16 +1,18 @@
 """The tensor-core XNOR matmul (``csrc/xnor_matmul.cu``) and the sign+pack
 kernels (``csrc/binarize_pack.cu``) emulated on the CPU.
 
-The int32 ``xnor_matmul`` is a binary GEMM on ``mma.sync.m16n8k256 .b1
-.and.popc``: rows are M, columns N, K runs over the packed words padded
+``xnor_matmul``, int32 or packed, is a binary GEMM on ``mma.sync.m16n8k256
+.b1 .and.popc``: rows are M, columns N, K runs over the packed words padded
 with zero words to 256-bit steps, lane t of a quad holds a step's words 2t
 and 2t + 1, and the XNOR count comes from the AND count by
 ``s = K - 2 (pa + pw - 2 popc(a & w))``.  No CUDA kernel runs here, so
 :func:`emulate_xnor` repeats the kernel's arithmetic lane by lane at the
 wrapper's own launch geometry (``xnor_tiles``): the staged chunks, each
 warp's fragments as the MMA reads them, pa and pw from the loaded words,
-the quad sums and shuffles, and the masked store.  ``binarize_pack``'s two
-paths are emulated the same way: the flat path's float4 nibbles, shuffle
+the quad sums and shuffles, and the masked store, or for the packed
+variant (``pack_out``, whose tiles take whole 32-column words) the sign
+bits each lane holds, the quad's OR and one store a word.
+``binarize_pack``'s two paths are emulated the same way: the flat path's float4 nibbles, shuffle
 ORs and 16-byte word quads, the row path's ballots.  Both are held
 bit-exact (tolerance 0) against the plain versions and against ``repro``'s
 Pallas kernels in interpret mode, on numpy inputs from a seed; the launch
@@ -89,15 +91,18 @@ def _stage(a, w, t, m0, n0, chunk):
     return buf
 
 
-def emulate_xnor(a, w, k, *, sms=xm.SMS):
-    """csrc/xnor_matmul.cu's int32 kernel, lane by lane, on numpy words.
+def emulate_xnor(a, w, k, *, sms=xm.SMS, pack=False):
+    """csrc/xnor_matmul.cu's kernel, lane by lane, on numpy words.
 
-    a: (M, Kw) uint32, w: (N, Kw) uint32.  Returns (M, N) int64 sums;
-    raises if an output is written twice or never."""
+    a: (M, Kw) uint32, w: (N, Kw) uint32.  Returns (M, N) int64 sums, or
+    with ``pack`` the (M, N / 32) uint32 sign words of the packed
+    epilogue (each lane's 8 bits of a word, the quad's OR, lane t = 0's
+    store); raises if an output is written twice or never."""
     (m, kw), n = a.shape, w.shape[0]
-    t = xm.xnor_tiles(m, n, kw, sms)
-    out = np.zeros((m, n), np.int64)
-    writes = np.zeros((m, n), np.int64)
+    t = xm.xnor_tiles(m, n, kw, sms, pack)
+    shape = (m, n // 32) if pack else (m, n)
+    out = np.zeros(shape, np.uint32 if pack else np.int64)
+    writes = np.zeros(shape, np.int64)
     for by in range(t.grid[1]):
         for bx in range(t.grid[0]):
             m0, n0 = by * t.bm, bx * t.bn
@@ -125,20 +130,38 @@ def emulate_xnor(a, w, k, *, sms=xm.SMS):
             for warp in range(xm.WARPS):
                 pa0, pa1 = _quad_sum(pa[warp, 0]), _quad_sum(pa[warp, 1])
                 r0 = m0 + (warp % t.wm) * 16 + G
+                wcol = n0 + (warp // t.wm) * 8 * t.tn
+                bits = np.zeros((t.tn // 4 if pack else 0, 2, 32), np.uint32)
                 for j in range(t.tn):
                     pwq = _quad_sum(pw[warp, j])
                     pw0, pw1 = pwq[8 * T], pwq[8 * T + 4]
-                    col = n0 + (warp // t.wm) * 8 * t.tn + 8 * j + 2 * T
+                    col = wcol + 8 * j + 2 * T
                     and_ = acc[warp, j]
                     sums = {(0, 0): k - 2 * (pa0 + pw0 - 2 * and_[:, 0]),
                             (0, 1): k - 2 * (pa0 + pw1 - 2 * and_[:, 1]),
                             (8, 0): k - 2 * (pa1 + pw0 - 2 * and_[:, 2]),
                             (8, 1): k - 2 * (pa1 + pw1 - 2 * and_[:, 3])}
                     for (dr, dc), v in sums.items():
+                        if pack:        # bit 8 (j % 4) + 2t + dc of word j / 4
+                            sh = (8 * (j % 4) + 2 * T + dc).astype(np.uint32)
+                            bits[j // 4, dr // 8] |= (v < 0).astype(
+                                np.uint32) << sh
+                            continue
                         r, cc = r0 + dr, col + dc
                         ok = (r < m) & (cc < n)
                         out[r[ok], cc[ok]] = v[ok]
                         np.add.at(writes, (r[ok], cc[ok]), 1)
+                for wd in range(bits.shape[0]):
+                    for i in range(2):
+                        b = bits[wd, i]
+                        b = b | b[LANES ^ 1]
+                        b = b | b[LANES ^ 2]
+                        r, cc = r0 + 8 * i, wcol + 32 * wd
+                        ok = (T == 0) & (r < m)
+                        if cc >= n:
+                            continue
+                        out[r[ok], cc // 32] = b[ok]
+                        np.add.at(writes, (r[ok], cc // 32), 1)
     if not (writes == 1).all():
         raise AssertionError(f"outputs written {np.unique(writes)} times")
     return out
@@ -178,6 +201,28 @@ def test_xnor_emulation_at_several_row_blocks():
     np.testing.assert_array_equal(
         emulate_xnor(a, w, 1600),
         xm.xnor_matmul_plain(_i32(a), _i32(w), 1600).numpy())
+
+
+def _repro_xnor_pack(a, w, k):
+    return np.asarray(jxm.xnor_matmul(jnp.asarray(a), jnp.asarray(w), k=k,
+                                      pack_out=True, interpret=True))
+
+
+# the packed variant: M at one row, one m16, one past it and the serve
+# batch; N at one word, mnist5's two and BitLinear's 80; K at mnist5's 256,
+# BitLinear's 960 and 100 (off the word and the 256-bit step)
+@pytest.mark.parametrize("m", [1, 8, 17, 256])
+@pytest.mark.parametrize("n", [32, 64, 2560])
+@pytest.mark.parametrize("k", [256, 960, 100])
+def test_xnor_pack_emulation_vs_plain_and_repro(m, n, k):
+    rng = np.random.default_rng(7 * m + n + k)
+    kw = -(-k // 32)
+    a, w = _words(rng, (m, kw)), _words(rng, (n, kw))
+    got = emulate_xnor(a, w, k, pack=True)
+    plain = xm.xnor_matmul_plain(_i32(a), _i32(w), k,
+                                 pack_out=True).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, _repro_xnor_pack(a, w, k))
 
 
 def test_xnor_identity_counts_bits_past_k_as_the_plain_version():
@@ -244,6 +289,61 @@ def test_xnor_tiles_cover_every_output_once_and_fit(m, n, kw):
     counts = np.zeros((m, n), np.int64)
     np.add.at(counts, (r, c), 1)
     assert (counts == 1).all()
+
+
+def _pack_shapes():
+    """(M, N, Kw) of every REGISTRY FC layer with whole words of N (the
+    packed variant's) at the serves' batches, and the packed tests'."""
+    shapes = {(m, n, kw) for m, n, kw in _fc_shapes() if n % 32 == 0}
+    shapes |= {(m, n, -(-k // 32)) for m in (1, 8, 17, 256)
+               for n in (32, 64, 2560) for k in (256, 960, 100)}
+    return sorted(shapes)
+
+
+def _word_stores(t, m, n):
+    """(row, word) of every word the packed epilogue stores at geometry
+    t: lane t = 0 of each quad, rows g and g + 8, a word a 32 columns of
+    the warp's strip."""
+    rows, cols = [], []
+    for by in range(t.grid[1]):
+        for bx in range(t.grid[0]):
+            for warp in range(xm.WARPS):
+                r0 = by * t.bm + (warp % t.wm) * 16 + G[T == 0]
+                c0 = bx * t.bn + (warp // t.wm) * 8 * t.tn
+                assert c0 % 32 == 0
+                for wd in range(t.tn // 4):
+                    for dr in (0, 8):
+                        r = r0 + dr
+                        ok = (r < m) & (c0 + 32 * wd < n)
+                        rows.append(r[ok])
+                        cols.append(np.full(ok.sum(), (c0 + 32 * wd) // 32))
+    return np.concatenate(rows), np.concatenate(cols)
+
+
+@pytest.mark.parametrize("m,n,kw", _pack_shapes())
+def test_xnor_pack_tiles_take_whole_words_and_cover_each_once(m, n, kw):
+    t = xm.xnor_tiles(m, n, kw, pack=True)
+    assert t.tn in xm.PACK_WARP_TILES and t.bn % 32 == 0
+    assert t.smem <= xm.SMEM_DEFAULT and t.wm * t.wn == xm.WARPS
+    r, c = _word_stores(t, m, n)
+    counts = np.zeros((m, n // 32), np.int64)
+    np.add.at(counts, (r, c), 1)
+    assert (counts == 1).all()
+
+
+def test_xnor_pack_tiles_break_ties_toward_more_blocks():
+    """At BitLinear's shape the packed tiles of equal work on the busiest
+    SM and over all blocks are 80 blocks of 64 x 128 and 160 of 64 x 64:
+    the packed variant takes the 160 (the int32 variant's tie-break, the
+    fewest blocks, is unchanged: 64 x 80 there).  At mnist5's hidden
+    layer at the serve batch (N = 64) the 16 x 256 tiles overhang N by
+    four times: 4 blocks of 64 x 64."""
+    t = xm.xnor_tiles(BITLINEAR[0], BITLINEAR[1], BITLINEAR[2] // 32,
+                      pack=True)
+    assert (t.bm, t.bn, t.tn) == (64, 64, 4) and t.grid == (40, 4)
+    assert xm.xnor_tiles(8, 64, 8, pack=True).bn == 256      # one block
+    t = xm.xnor_tiles(256, 64, 8, pack=True)
+    assert (t.bm, t.bn) == (64, 64) and t.grid == (1, 4)
 
 
 def test_xnor_tiles_fill_the_card_in_one_wave_at_bitlinear():
@@ -395,9 +495,13 @@ def test_python_geometry_constants_match_the_kernels():
     assert _const(xsrc, "kWarps") == xm.WARPS
     assert _const((CSRC / "conv_mma.cuh").read_text(),
                   "kStepWords") == xm.STEP_WORDS
-    cases = sorted(int(c) for c in re.findall(
-        r"case (\d+): launch_mma<\1>", xsrc))
-    assert tuple(cases) == xm.WARP_TILES
+    for pack, tiles in ((False, xm.WARP_TILES), (True, xm.PACK_WARP_TILES)):
+        cases = sorted(int(c) for c in re.findall(
+            rf"case (\d+): launch_mma<\1, {str(pack).lower()}>", xsrc))
+        assert tuple(cases) == tiles
+    # one kernel design: the CUDA-core pack kernel is gone
+    assert re.findall(r"__global__ void (?:__launch_bounds__\(\w+\)\s+)?"
+                      r"(\w+)\(", xsrc) == ["xnor_mma_kernel"]
     psrc = (CSRC / "binarize_pack.cu").read_text()
     assert _const(psrc, "kWarps") == bp.WARPS
     assert _const(psrc, "kChunks") == bp.CHUNKS
