@@ -88,6 +88,7 @@ limit on lines of their own; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -301,6 +302,18 @@ FLASH_EARLIER_MS = 0.01719
 STEP_GRAPH_CALLS = 5            # steps a CUDA graph of phase 8 replays
 STEP_EVENT_ITERS = 5            # steps CUDA events time where capture fails
 BOUND_SHARE_MAX = 1.05          # no step runs faster than its bound
+# phase 8's trip-count checks: (arch, step, seq, batch, scaled()): counted
+# eagerly on the card (every iteration of the recurrence) == counted on
+# meta (four iterations, the middle one's charges scaled), exactly
+SCAN_STEPS = ((RWKV_ARCH, "prefill", 256, 1, False),
+              (HYBRID_ARCH, "train", 64, 2, True))
+# phase 10: one OLMoE-1B-7B MoE layer at full width, float32: prefill x
+# (B, S) through apply_ep, decode x (B, 1) through apply_ep_decode
+EP_PREFILL, EP_DECODE = (4, 512), (4, 1)
+EP_NO_DROP = 8.0                # capacity factor E / k: nothing drops
+FP8_MEAN_REL = 0.1              # repro's bound on the fp8 dispatch vs dense
+PIPE_CHECK = (64, 8, 960)       # batch, microbatches, width (SmolLM's)
+COLLECTIVE_BACKEND = "cpu:gloo,cuda:nccl"   # NCCL for the card's tensors
 
 
 def sh(*cmd: str) -> str:
@@ -1395,6 +1408,237 @@ def mesh_phase(dev) -> None:
           f"{LM_ARCH} adamw step {b} x {sq} under the mesh == without it, "
           f"bit for bit (loss {float(loss_in):.6f}); phase 9 took "
           f"{time.perf_counter() - t0:.1f} s")
+
+
+def scan_cost_checks(card, dev) -> int:
+    """Phase 8's trip-count checks: each of SCAN_STEPS counted on the card
+    by ``launch.op_cost`` (every iteration of the per-token recurrence
+    runs) == counted on meta (``op_cost.scan``: four iterations, the
+    middle one's charges scaled), FLOPs and bytes exactly.  Returns the
+    flash launches inside the card's counts."""
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens as dtok
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+
+    flash = 0
+    for arch, step, seq, batch, scaled in SCAN_STEPS:
+        cfg = get_config(arch)
+        cfg = cfg.scaled() if scaled else cfg
+        shape = shp.ShapeSpec(f"{step} {batch}x{seq}", seq, batch, step)
+        fn, meta_args = dryrun.step_and_args(cfg, shape)
+        t0 = time.perf_counter()
+        meta = op_cost.count(fn, *meta_args)
+        t_meta = time.perf_counter() - t0
+        del meta_args
+        torch.cuda.empty_cache()
+        toks = dtok.batch_for_step(cfg, 0, global_batch=batch, seq_len=seq,
+                                   device=dev)
+        if step == "train":
+            optimizer = dryrun.build_optimizer(cfg)
+            args = (steps.create_state(cfg, 0, optimizer, device=dev), toks)
+        else:
+            args = (transformer.init_params(cfg, seed=0, device=dev),
+                    {"tokens": toks["tokens"]})
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cost = op_cost.count(fn, *args)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        n_flash = ops.launch_counts()["flash_attention"]
+        flash += n_flash
+        del args
+        torch.cuda.empty_cache()
+        what = f"{arch}{' scaled()' if scaled else ''} {shape.name}"
+        if (cost.flops, cost.bytes) != (meta.flops, meta.bytes):
+            raise AssertionError(
+                f"{what}: the card counts {cost.flops:.6e} FLOPs, "
+                f"{cost.bytes:.6e} bytes eagerly; meta scaled "
+                f"{meta.flops:.6e}, {meta.bytes:.6e}")
+        print(f"  {what}: {cost.flops:.6e} FLOPs, {cost.bytes:.6e} bytes "
+              f"counted eagerly on the card ({seq} iterations a recurrent "
+              f"layer, {t_card:.1f} s; flash launches {n_flash}) == scaled "
+              f"on meta ({t_meta:.1f} s); peak_bytes card "
+              f"{cost.peak_bytes / 1e9:.3f} GB, meta "
+              f"{meta.peak_bytes / 1e9:.3f} GB")
+    return flash
+
+
+def first_routed_apart(card_rec, cpu_rec, length: int) -> float:
+    """The first token, in the flat (batch, position) order capacity slots
+    follow, that the two runs of one MoE layer routed differently (each
+    must be a near-tie: ``moe.route_divergence``), or inf.  A token
+    routed apart moves every later token's slot, so only the ones before
+    it compare."""
+    from repro_torch.models import moe
+    first, _ = moe.route_divergence(
+        moe.route_table(card_rec, [(0, length)], 1),
+        moe.route_table(cpu_rec, [(0, length)], 1))
+    return min((r * length + p for r, p in first.items()),
+               default=float("inf"))
+
+
+def ep_checks(dev, mesh, cpu_mesh) -> list:
+    """Phase 10's expert-parallel part on a one-rank mesh: one OLMoE-1B-7B
+    MoE layer at full width in float32, prefill through apply_ep and
+    decode through apply_ep_decode, each with and without the fp8
+    dispatch: at capacity factor E / k == apply_dense on the card (within
+    LM_TOL; fp8 within repro's mean bound), and at the config's factor ==
+    the same path on the CPU (drops and all, within LM_TOL, before the
+    first token the two routed apart, a near-tie).  Returns the lines it
+    prints."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH).with_(dtype="float32", param_dtype="float32")
+    m = cfg.moe
+    params = moe.init(torch.Generator(device=dev).manual_seed(11), cfg,
+                      device=dev)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    lines = []
+    for path, (b, s) in ((moe.apply_ep, EP_PREFILL),
+                         (moe.apply_ep_decode, EP_DECODE)):
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+        dense, _ = moe.apply_dense(params, cfg, x)
+        for fp8 in (False, True):
+            name = f"{path.__name__}{' fp8' if fp8 else ''} B={b} S={s}"
+            free = cfg.with_(moe=dataclasses.replace(
+                m, capacity_factor=EP_NO_DROP, dispatch_fp8=fp8))
+            y, _ = path(params, free, x, mesh)
+            if fp8 and path is moe.apply_ep:
+                err = float((y - dense).abs().mean()
+                            / (dense.abs().mean() + 1e-6))
+                if not err < FP8_MEAN_REL:
+                    raise AssertionError(f"{name}: mean rel err {err} vs "
+                                         f"dense")
+                no_drop = f"mean rel err {err:.3e} (bound {FP8_MEAN_REL})"
+            else:
+                no_drop = (f"max abs err "
+                           f"{close_err(y, dense, LM_TOL):.3e}")
+            own = cfg.with_(moe=dataclasses.replace(m, dispatch_fp8=fp8))
+            with moe.record_routes() as rec_card:
+                y_card, aux_card = path(params, own, x, mesh)
+            with moe.record_routes() as rec_cpu:
+                y_cpu, aux_cpu = path(cpu_params, own, x.cpu(), cpu_mesh)
+            first = first_routed_apart(rec_card, rec_cpu, s)
+            keep = int(min(first, b * s))
+            if keep == 0:
+                raise AssertionError(f"{name}: no token left to compare")
+            d = cfg.d_model
+            err = close_err(y_card.reshape(-1, d)[:keep].cpu(),
+                            y_cpu.reshape(-1, d)[:keep], LM_TOL)
+            aux_err = abs(float(aux_card) - float(aux_cpu))
+            if aux_err > LM_TOL * max(1.0, abs(float(aux_cpu))):
+                raise AssertionError(f"{name}: aux {float(aux_card)} vs the "
+                                     f"CPU's {float(aux_cpu)}")
+            lines.append(
+                f"  {name}: capacity factor {EP_NO_DROP} == apply_dense on "
+                f"the card ({no_drop}); factor {m.capacity_factor} == the "
+                f"CPU's (max abs err {err:.3e} over {keep} of {b * s} "
+                f"tokens, tolerance {LM_TOL}; aux err {aux_err:.3e})")
+    return lines
+
+
+def psum_checks(dev, mesh, cpu_mesh) -> str:
+    """Phase 10's compressed psum at world size 1 over SmolLM-360M's
+    gradient tree (random gradients in its parameters' shapes and types):
+    every leaf's mean and residual == ``compress`` then ``decompress`` on
+    the card, bit for bit, and == the same psum on the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.models import transformer
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                           device=dev).to(p.dtype),
+                     transformer.init_params(cfg, device="meta"))
+    err = gc.init_error_state(grads)
+    with dctx.mesh_context(mesh):
+        mean, new_err = gc.compressed_psum_tree(grads, err, "data")
+    with dctx.mesh_context(cpu_mesh):
+        cpu_mean, cpu_err = gc.compressed_psum_tree(
+            tree_map(lambda t: t.cpu(), grads),
+            tree_map(lambda t: t.cpu(), err), "data")
+    n = 0
+    for g, e, got, got_e, c, c_e in zip(
+            *(tree_leaves(t) for t in (grads, err, mean, new_err, cpu_mean,
+                                       cpu_err))):
+        q, scale, want_e = gc.compress(g, e)
+        want = gc.decompress(q, scale).to(g.dtype)
+        if not (torch.equal(got, want) and torch.equal(got_e, want_e)
+                and torch.equal(got.cpu(), c) and torch.equal(got_e.cpu(),
+                                                              c_e)):
+            raise AssertionError("compressed psum at world size 1 differs "
+                                 "from compress + decompress or from the "
+                                 "CPU's")
+        n += g.numel()
+    return (f"  compressed psum over {LM_ARCH}'s gradient tree "
+            f"({len(tree_leaves(grads))} leaves, {n / 1e6:.1f} M values) at "
+            f"world size 1 == compress + decompress on the card and == the "
+            f"CPU's, bit for bit (max abs err 0)")
+
+
+def pipeline_check(dev) -> str:
+    """Phase 10's pipeline: one stage over a one-rank ``pod`` axis, M
+    microbatches: the output and the stage's gradients == the stage
+    applied to the whole batch (within LM_TOL: the microbatches' products
+    are smaller GEMMs)."""
+    from repro_torch.checkpoint.ckpt import make_mesh
+    from repro_torch.distributed.pipeline import pipelined
+
+    b, m, d = PIPE_CHECK
+    gen = torch.Generator(device=dev).manual_seed(14)
+    params = {"w": torch.randn((1, d, d), generator=gen, device=dev)
+              / d ** 0.5,
+              "b": torch.randn((1, d), generator=gen, device=dev) * 0.1}
+    x = torch.randn((b, d), generator=gen, device=dev)
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    y = pipelined(stage, make_mesh((1, 1), ("pod", "data"), devices=[dev]),
+                  m)(leaves, x)
+    (y ** 2).sum().backward()
+    ref = {k: v.clone().requires_grad_() for k, v in params.items()}
+    want = stage({k: v[0] for k, v in ref.items()}, x)
+    (want ** 2).sum().backward()
+    errs = [close_err(y.detach(), want.detach(), LM_TOL)] + [
+        close_err(leaves[k].grad, ref[k].grad, LM_TOL) for k in params]
+    return (f"  pipeline, 1 stage x {m} microbatches, B={b} D={d}: output "
+            f"== the stage on the batch (max abs err {errs[0]:.3e}), "
+            f"gradients w, b (max abs err {errs[1]:.3e}, {errs[2]:.3e}; "
+            f"tolerance {LM_TOL})")
+
+
+def collective_phase(card, dev) -> None:
+    """Phase 10: the collectives and expert parallelism at world size 1,
+    on a one-rank process group whose CUDA tensors go through NCCL (the
+    backend a multi-card job takes) and whose CPU tensors through gloo
+    (for the CPU's runs of the same paths): ``ep_checks``,
+    ``psum_checks``, ``pipeline_check``."""
+    from repro_torch.checkpoint.ckpt import make_mesh
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with dctx.local_process_group(COLLECTIVE_BACKEND):
+        mesh = mesh_lib.make_host_mesh()
+        cpu_mesh = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+        for line in ep_checks(dev, mesh, cpu_mesh):
+            print(line)
+        print(psum_checks(dev, mesh, cpu_mesh))
+        print(pipeline_check(dev))
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s [{card.smi}]")
 
 
 def cost_phase(card, dev) -> int:
@@ -4080,7 +4324,7 @@ def main() -> None:
              f"counted on the card == on meta, timed, against the roofline "
              f"[{card.smi}]")
     t8 = time.perf_counter()
-    n8 = cost_phase(card, dev)
+    n8 = cost_phase(card, dev) + scan_cost_checks(card, dev)
     by_phase["flash_attention"]["8"] = n8
     rows["flash_attention"]["launches"] += n8
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
@@ -4089,6 +4333,13 @@ def main() -> None:
     phase(9, "the training meshes at world size 1: the host mesh, shard "
              "shapes, a step under the mesh == the step without")
     mesh_phase(dev)
+
+    # -- 10. the collectives and expert parallelism ---------------------------
+    phase(10, "the collectives at world size 1 on a one-rank NCCL group: "
+              f"{MOE_ARCH}'s MoE layer through apply_ep and "
+              f"apply_ep_decode, the compressed psum over {LM_ARCH}'s "
+              f"gradients, a one-stage pipeline")
+    collective_phase(card, dev)
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(card.smi)

@@ -257,18 +257,9 @@ def placements(spec: P, mesh) -> tuple:
 
 def device_mesh(mesh):
     """The ``torch.distributed`` ``DeviceMesh`` of ``mesh``, over the
-    default process group, which must have the mesh's size (an abstract
-    mesh's is a ``context.fake_process_group``, of CPU type)."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-    if not dist.is_initialized() or dist.get_world_size() != mesh.size:
-        raise RuntimeError(
-            f"a DeviceMesh of {mesh.size} devices needs a default process "
-            f"group of that size (context.fake_process_group for an "
-            f"abstract mesh, context.local_process_group for one device)")
-    kind = "cpu" if mesh.is_abstract else mesh.devices.flat[0].type
-    return init_device_mesh(kind, tuple(mesh.axis_sizes),
-                            mesh_dim_names=tuple(mesh.axis_names))
+    default process group, which must have the mesh's size
+    (``context.device_mesh``, made once a group)."""
+    return dctx.device_mesh(mesh)
 
 
 @dataclasses.dataclass(frozen=True)

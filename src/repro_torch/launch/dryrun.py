@@ -6,10 +6,12 @@ builds the same train, prefill or decode step, feeds it meta parameters,
 state, cache and ``configs/shapes.py``'s input specs (shapes and types,
 nothing allocated), counts it with ``launch/op_cost.py`` and builds the
 H100 roofline (``launch/roofline.py``) at ``chips=1`` on the mesh
-``"card"``.  An eager step runs every iteration of its loops, so a cell
-traces in time proportional to its ops: the per-token recurrences
-(RWKV-6, Mamba) and the chunked attention at 32k tokens are the slow
-ones.  Run one cell a process under a time limit::
+``"card"``.  An eager step runs its loops, so a cell traces in time
+proportional to its ops, except the per-token recurrences (RWKV-6,
+Mamba), which go through ``op_cost.scan``: on meta four of their
+iterations run and the middle one's charges are scaled, so every cell
+ends in seconds (the chunked attention at 32k tokens is the slowest).
+Run one cell a process under a time limit::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \\
         --shape decode_32k
@@ -26,8 +28,9 @@ sharding.py``, ``train/steps.state_specs``) on the abstract production
 mesh, placed as DTensors on a ``DeviceMesh`` under a ``fake`` process group
 of 256 or 512 ranks, on meta tensors; the record gives each category's
 bytes on one device, summed from the leaves' shard shapes, and
-``step_counted: false``: the sharded step's FLOPs and bytes need its
-collectives (ROADMAP §1 item 5.5b)::
+``step_counted: false``: the sharded step, one device's share of its
+FLOPs, bytes and collective wire bytes, is not counted yet (ROADMAP §1
+item 5.5d)::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod \\
         --arch smollm-360m --shape train_4k
@@ -35,7 +38,10 @@ collectives (ROADMAP §1 item 5.5b)::
 ``repro``'s
 ``--rwkv-unroll``, ``--mamba-unroll`` and ``--moe-fp8-dispatch`` are not
 offered: the port's recurrences are eager loops with nothing to unroll,
-and it has no expert-parallel dispatch to carry in fp8.
+and the fp8 dispatch belongs to the expert-parallel path
+(``models/moe.py`` ``apply_ep``), which a step takes only on a mesh whose
+model axis has several devices: the card's one-device step is dense, and
+the sharded cells do not count their step.
 """
 
 from __future__ import annotations
@@ -65,8 +71,9 @@ MESH = "card"
 MESHES = (MESH, "pod", "multipod")
 # the argument categories of a sharded cell's record
 CATEGORIES = ("params", "optimizer_state", "batch", "cache")
-NOT_COUNTED = ("the sharded step's FLOPs and bytes need its collectives "
-               "(ROADMAP §1 item 5.5b): only its arguments are sharded")
+NOT_COUNTED = ("the sharded step's FLOPs, bytes and collective wire bytes "
+               "a device are not counted yet (ROADMAP §1 item 5.5d): only "
+               "its arguments are sharded")
 OUT = os.path.join("build", "repro_torch", "dryrun")
 
 

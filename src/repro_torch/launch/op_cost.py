@@ -35,14 +35,38 @@ Counted per op (``hlo_cost``'s conventions, where they carry over):
 
 What has no counterpart: every eager op is its own kernel, so
 ``hlo_cost``'s fusion rule (a fusion charged at its call site, its inner
-traffic free) does not apply, and neither does its trip-count scaling
-(an eager loop runs, and is counted, every iteration).  One card has no
-collectives: ``coll_wire_bytes`` is 0 and ``coll_breakdown`` lists
-``hlo_cost``'s five kinds at 0.
+traffic free) does not apply.
+
+Trip counts: an eager loop runs, and is charged, every iteration, except
+a loop written with :func:`scan` on meta tensors under the counter.
+There ``hlo_cost``'s rule for a scanned body (``repro/launch/hlo_cost.py``
+``_trip_count``: one body, scaled by the trip count) becomes: the first
+and the last two iterations run as they are, and one middle iteration
+runs with its charges scaled by n - 3, its backward too.  Charges depend
+on shapes alone, and the middle iterations are alike: each takes the
+carry at its steady shape, and in the backward each gets both a carry's
+and an output's gradient and adds its share to every gradient the later
+iterations started (the last iteration's carry may have no gradient, so
+the one before it may start one: hence two at the end).  So the count
+equals the eager one exactly, and the outputs keep their full shapes.  On CPU or CUDA tensors, or with no counter, :func:`scan` is the
+plain loop.
+
+Collectives: the ``c10d`` and ``_c10d_functional`` ops a step issues over
+a ``torch.distributed`` group are charged their bytes as any op, no
+FLOPs, and wire bytes a card by ``hlo_cost``'s ring rules with n the
+group's size: all-gather out * (n-1)/n, all-reduce 2 * bytes * (n-1)/n,
+reduce-scatter in * (n-1)/n, all-to-all in * (n-1)/n, and a point-to-point
+send (a collective-permute's share) its bytes.  A step on one card issues
+none: ``coll_wire_bytes`` is 0 and ``coll_breakdown`` lists the five
+kinds at 0.
 
 ``peak_bytes`` is the peak of live tensor bytes during the call: the
 arguments' storages, then every storage an op creates, each counted from
-its creation to its release.
+its creation to its release.  A scaled :func:`scan` adds the bytes the
+n - 4 iterations it does not run would hold: their outputs until the
+loop's stack, and what each keeps for the backward until the backward
+of the middle iteration has run (an upper bound on the eager peak, which
+frees them one iteration at a time).
 """
 
 from __future__ import annotations
@@ -54,7 +78,8 @@ import weakref
 from typing import Callable, Dict
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
@@ -87,13 +112,21 @@ _WRITE_ONLY = {aten.copy_, aten.fill_, aten.zero_, aten.normal_,
                aten.uniform_, aten.exponential_, aten.bernoulli_,
                aten.random_}
 _SORTS = {aten.sort, aten.topk}
+# the collective ops' namespaces, and each kind by a word of the op's name
+# (``c10d::allreduce_``, ``_c10d_functional::all_to_all_single``, ...)
+_COLL_NAMESPACES = ("c10d", "_c10d_functional")
+_COLL_KINDS = (("allreduce", "all-reduce"), ("all_reduce", "all-reduce"),
+               ("allgather", "all-gather"), ("all_gather", "all-gather"),
+               ("reduce_scatter", "reduce-scatter"),
+               ("alltoall", "all-to-all"), ("all_to_all", "all-to-all"),
+               ("send", "collective-permute"))
 
 
 @dataclasses.dataclass
 class ModuleCost:
     flops: float               # per card
     bytes: float               # per card, bytes accessed
-    coll_wire_bytes: float     # 0: one card has no collectives
+    coll_wire_bytes: float     # per card, ring wire bytes (0 on one card)
     coll_breakdown: Dict[str, float]
     peak_bytes: float          # peak live tensor bytes, arguments included
     argument_bytes: float = 0.0    # the arguments' storages
@@ -110,7 +143,11 @@ def span_bytes(t: torch.Tensor) -> int:
 
 
 def _tensors(tree):
-    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+    """The tensors of ``tree``; a functional collective's result, an
+    ``AsyncCollectiveTensor``, as the tensor it wraps."""
+    return [getattr(x, "elem", x) if type(x).__name__ ==
+            "AsyncCollectiveTensor" else x
+            for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
 
 
 def _storage_key(t: torch.Tensor) -> int:
@@ -144,6 +181,17 @@ class _Live:
         with self.lock:
             self.live -= self.sizes.pop(key, 0)
 
+    def grow(self, nbytes: int) -> None:
+        """Bytes no tensor here holds (a scaled :func:`scan`'s iterations
+        that did not run), live until :meth:`shrink`."""
+        with self.lock:
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+
+    def shrink(self, nbytes: int) -> None:
+        with self.lock:
+            self.live -= nbytes
+
 
 class _CountMode(TorchDispatchMode):
     def __init__(self, live: _Live):
@@ -151,6 +199,8 @@ class _CountMode(TorchDispatchMode):
         self.live = live
         self.flops = 0.0
         self.bytes = 0.0
+        self.coll = {k: 0.0 for k in COLLECTIVES}
+        self.scale = 1          # a scaled scan's middle iteration: n - 3
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -160,6 +210,9 @@ class _CountMode(TorchDispatchMode):
         for t in outs:
             self.live.add(t)
         packet = func.overloadpacket
+        if func.namespace in _COLL_NAMESPACES:
+            self._collective(func, args, ins, outs)
+            return out
         if packet in _FREE or not outs:
             return out
         mutated = func._schema.is_mutable
@@ -168,10 +221,61 @@ class _CountMode(TorchDispatchMode):
             return out                       # a view: no data moves
         if packet in _WRITE_ONLY:
             ins = ins[1:]
-        self.bytes += (sum(span_bytes(t) for t in ins)
-                       + sum(span_bytes(t) for t in outs))
-        self.flops += _flops(func, packet, args, kwargs, out, ins, outs)
+        self.bytes += self.scale * (sum(span_bytes(t) for t in ins)
+                                    + sum(span_bytes(t) for t in outs))
+        self.flops += self.scale * _flops(func, packet, args, kwargs, out,
+                                          ins, outs)
         return out
+
+    def _collective(self, func, args, ins, outs) -> None:
+        """A collective: its bytes, no FLOPs, and its wire bytes by the
+        ring rules.  An op that only hands its input back (``wait_tensor``,
+        the autograd wrapper) moves nothing."""
+        name = func._schema.name.split("::")[-1]
+        kind = next((k for word, k in _COLL_KINDS if word in name), None)
+        in_keys = {_storage_key(t) for t in ins}
+        if kind is None and all(_storage_key(t) in in_keys for t in outs):
+            return
+        self.bytes += self.scale * (sum(span_bytes(t) for t in ins)
+                                    + sum(span_bytes(t) for t in outs))
+        if kind is None:
+            return
+        functional = func.namespace == "_c10d_functional"
+        # c10d's in-place ops take (output, input, group, ...), except
+        # allreduce_ and send, which take the tensors they send first
+        first = _tensors(args[0])
+        second = _tensors(args[1]) if len(args) > 1 else []
+        if kind == "collective-permute":
+            wire = sum(span_bytes(t) for t in first)
+        else:
+            n = _group_size(args)
+            ratio = (n - 1) / n if n > 1 else 0.0
+            if kind == "all-reduce":
+                moved = 2 * sum(span_bytes(t) for t in first)
+            elif kind == "all-gather":
+                moved = sum(span_bytes(t) for t in (outs if functional
+                                                    else first))
+            else:                   # reduce-scatter, all-to-all: the input
+                moved = sum(span_bytes(t) for t in (first if functional
+                                                    else second))
+            wire = moved * ratio
+        self.coll[kind] += self.scale * wire
+
+
+def _group_size(args) -> int:
+    """The size of the process group a collective's arguments name: a
+    functional collective's group name, or c10d's ``ProcessGroup``."""
+    import torch.distributed as dist
+    for a in args:
+        if isinstance(a, str) and dist.is_initialized():
+            try:
+                return dist.distributed_c10d._resolve_process_group(a).size()
+            except (ValueError, RuntimeError, KeyError):
+                continue
+        if (isinstance(a, torch.ScriptObject)
+                and "ProcessGroup" in a._type().qualified_name()):
+            return dist.ProcessGroup.unbox(a).size()
+    raise ValueError("a collective whose arguments name no process group")
 
 
 def _flops(func, packet, args, kwargs, out, ins, outs) -> float:
@@ -213,8 +317,119 @@ def count(fn: Callable, *args, **kwargs) -> ModuleCost:
     output = _unique_bytes(_tensors(out))
     del out
     return ModuleCost(flops=mode.flops, bytes=mode.bytes,
-                      coll_wire_bytes=0.0,
-                      coll_breakdown={k: 0.0 for k in COLLECTIVES},
+                      coll_wire_bytes=sum(mode.coll.values()),
+                      coll_breakdown=dict(mode.coll),
                       peak_bytes=float(live.peak),
                       argument_bytes=float(argument),
                       output_bytes=float(output))
+
+
+# ---------------------------------------------------------------------------
+# The loop construct the counter scales
+# ---------------------------------------------------------------------------
+
+def _counter():
+    """The innermost :func:`count` open on this thread, or None."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, _CountMode):
+            return mode
+    return None
+
+
+def scan(step: Callable, carry: torch.Tensor, n: int, dim: int = 0):
+    """``for t in range(n): carry, y_t = step(carry, t)``; returns the
+    last carry and the y_t stacked on ``dim``.  ``repro``'s ``lax.scan``
+    over an index, as a Python loop.  Under :func:`count` on meta tensors
+    (n > 4), four iterations run: the first and the last two as they are,
+    and one middle one whose charges, forward and backward, count n - 3
+    times (the module docstring says why that is exact)."""
+    mode = _counter()
+    if mode is None or n <= 4 or carry.device.type != "meta":
+        ys = []
+        for t in range(n):
+            carry, y = step(carry, t)
+            ys.append(y)
+        return carry, torch.stack(ys, dim)
+    return _scaled_scan(mode, step, carry, n, dim)
+
+
+def _scaled_scan(mode: _CountMode, step, carry, n: int, dim: int):
+    k = n - 3
+    grad = torch.is_grad_enabled()
+    carry, y0 = step(carry, 0)
+    closing = None
+    if grad and carry.requires_grad:
+        carry, = _Window.apply(mode, None, k, carry)
+        closing = carry.grad_fn
+    before = mode.live.live
+    mode.scale *= k
+    try:
+        carry, ym = step(carry, 1)
+    finally:
+        mode.scale //= k
+    # the n - 4 iterations not run: their outputs, live until the stack,
+    # and what each keeps (for the backward, or nothing)
+    one = ym.untyped_storage().nbytes()
+    out_bytes = one * (k - 1)
+    kept = max(mode.live.live - before - one, 0) * (k - 1)
+    mode.live.grow(out_bytes + kept)
+    if grad and (carry.requires_grad or ym.requires_grad):
+        if closing is None:
+            raise RuntimeError("scan: a middle iteration whose input carry "
+                               "needs no gradient cannot be scaled")
+        carry, ym = _Window.apply(mode, k, None, carry, ym)
+    carry, y1 = step(carry, n - 2)
+    carry, y2 = step(carry, n - 1)
+    tail = (y0, ym, y1, y2)
+    if grad and any(y.requires_grad for y in tail):
+        ys = _Stack.apply(dim, n, *tail)
+    else:
+        ys = torch.stack([y0] + [ym] * k + [y1, y2], dim)
+    mode.live.shrink(out_bytes)
+    if closing is not None:
+        closing.kept = kept
+    else:
+        mode.live.shrink(kept)
+    return carry, ys
+
+
+class _Window(torch.autograd.Function):
+    """An identity whose backward multiplies (``mul``) or divides
+    (``div``) the counter's scale.  On a scaled iteration's outputs it
+    opens the window in the backward; on its input carry it closes it,
+    and releases the bytes the iterations not run kept.  Autograd runs
+    every node made between the two, the iteration's own, before the
+    closing one: it runs ready nodes latest-made first, and those nodes
+    feed only each other and the opening one."""
+
+    @staticmethod
+    def forward(ctx, mode, mul, div, *xs):
+        ctx.set_materialize_grads(False)
+        ctx.mode, ctx.mul, ctx.div = mode, mul, div
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.mul:
+            ctx.mode.scale *= ctx.mul
+        if ctx.div:
+            ctx.mode.scale //= ctx.div
+            ctx.mode.live.shrink(getattr(ctx, "kept", 0))
+        return (None, None, None) + grads
+
+
+class _Stack(torch.autograd.Function):
+    """``torch.stack`` of (y_0, y_m n - 3 times, y_n-2, y_n-1), charged as
+    the eager loop's stack; its backward hands y_m one slice of the
+    gradient (autograd would sum n - 3), as each eager iteration gets
+    one."""
+
+    @staticmethod
+    def forward(ctx, dim, n, y0, ym, y1, y2):
+        ctx.dim = dim
+        return torch.stack([y0] + [ym] * (n - 3) + [y1, y2], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        gs = g.unbind(ctx.dim)
+        return None, None, gs[0], gs[1], gs[-2], gs[-1]

@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.models.mamba``.  Projections and the causal
 conv run over the whole sequence at once; only the (B, d_inner, d_state)
-float32 recurrence runs token by token, a Python loop here where
-``repro`` runs ``lax.scan`` (a decode step is the loop's one step).
+float32 recurrence runs token by token, ``op_cost.scan`` (a Python loop)
+here where ``repro`` runs ``lax.scan`` (a decode step is the loop's one
+step).
 Decode carries (conv_state, ssm_state) explicitly.
 """
 
@@ -14,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.op_cost import scan
 from repro_torch.models import common
 
 
@@ -101,14 +103,15 @@ def apply(params, cfg, x: torch.Tensor, *, state=None):
     xf = xc.float()
     h = (state[1] if state is not None
          else torch.zeros((b, di, ds), dtype=torch.float32, device=x.device))
-    ys = []
-    for t in range(s):
+
+    def step(h, t):
         dtt = dt[:, t]
         da = torch.exp(dtt[:, :, None] * a[None])       # (B, di, ds)
         dbx = (dtt * xf[:, t])[:, :, None] * bm[:, t, None, :]
         h = da * h + dbx
-        ys.append(torch.einsum("bds,bs->bd", h, cm[:, t]))
-    y = torch.stack(ys, dim=1)
+        return h, torch.einsum("bds,bs->bd", h, cm[:, t])
+
+    h, y = scan(step, h, s, dim=1)
     y = y + xf * params["D"][None, None, :]
     y = y.to(x.dtype) * F.silu(z)
     out = common.linear_apply(params["out_proj"], y, **kw)

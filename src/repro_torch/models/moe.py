@@ -1,12 +1,23 @@
-"""Mixture-of-Experts: a top-k router and the dense execution path.
+"""Mixture-of-Experts: a top-k router and two execution paths.
 
-The counterpart of ``repro.models.moe``.  :func:`apply_dense` runs every
-expert on every token and combines them by the router's weights: exact
-(no capacity drops), at E/k times the routed work.  It is the path
-``repro`` takes without a mesh, the only case one card reaches, so
-:func:`apply` takes it there.  The expert-parallel paths (``apply_ep``,
-``apply_ep_decode``: capacity dispatch and all-to-all over a mesh's model
-axis) need a mesh and raise: ROADMAP §1 item 5.5.
+The counterpart of ``repro.models.moe``.
+
+* :func:`apply_dense` runs every expert on every token and combines them
+  by the router's weights: exact (no capacity drops), at E/k times the
+  routed work.  It is the path without a mesh, or on a mesh whose model
+  axis has one device, as on one card.
+* :func:`apply_ep` is expert parallelism over the ambient mesh's
+  ``model`` axis, one process a device (``distributed/context.py``, the
+  torch twin of ``repro``'s ``shard_map``): each rank routes its block of
+  the sequence, sorts the (token, expert) pairs by expert into capacity
+  slots (overflow dropped), sends each expert's slots to the rank holding
+  it (an all-to-all, the slots in ``float8_e4m3fn`` bits with
+  ``dispatch_fp8``), runs its E/n experts, sends the results back (an
+  all-to-all) and scatter-adds them by the gates.
+  :func:`apply_ep_decode`, for few tokens, keeps them replicated over the
+  model axis: each rank runs its local experts on the tokens routed to
+  them, then a sum over the axis.  :func:`apply` dispatches as
+  ``repro``'s does.
 
 The dtypes and the order are ``repro``'s: the router in float32, softmax,
 then top-k, then the renormalisation; expert weights cast to the
@@ -24,6 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import eff_d_expert
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed.sharding import P
 from repro_torch.models import common
 
 
@@ -117,38 +130,187 @@ def _shared(params, cfg, xf):
 
 
 # ---------------------------------------------------------------------------
-# Expert-parallel paths: not ported
+# Expert-parallel path: capacity dispatch and all-to-all over "model"
 # ---------------------------------------------------------------------------
 
-def _ep_not_ported(name: str):
-    raise NotImplementedError(
-        f"moe.{name} needs a mesh: expert parallelism (capacity dispatch, "
-        f"all-to-all) is not ported yet (ROADMAP §1 item 5.5)")
+class _DispatchFp8(torch.autograd.Function):
+    """The dispatch all-to-all in ``float8_e4m3fn``, sent as its bits in
+    ``uint8`` (gloo has no fp8 type), back in the activations' type; the
+    gradient takes the same way back, as JAX's transposes of the casts
+    and the all-to-all do."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _fp8_all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fp8_all_to_all(g, ctx.mesh, ctx.axis), None, None
 
 
-def apply_ep(params, cfg, x, mesh):
-    _ep_not_ported("apply_ep")
+def _fp8_all_to_all(x, mesh, axis):
+    bits = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    got = dctx.all_to_all(bits, mesh, axis)
+    return got.view(torch.float8_e4m3fn).to(x.dtype)
 
 
-def apply_ep_decode(params, cfg, x, mesh):
-    _ep_not_ported("apply_ep_decode")
+def _sorted_slots(fe, n_keys: int, cap: int):
+    """Pairs sorted (stably) by expert key ``fe`` (T*k,): the order, and
+    each one's position among its key's pairs."""
+    order = torch.argsort(fe, stable=True)
+    fe_s = fe[order]
+    counts = torch.bincount(fe, minlength=n_keys)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(fe.shape[0], device=fe.device) - starts[fe_s]
+    return order, fe_s, pos
 
 
-def apply(params, cfg, x: torch.Tensor, mesh=None):
-    """Dispatch on ``cfg.moe.impl``, the mesh and the shape, as ``repro``'s
-    ``apply`` does on its ambient mesh.  ``mesh``: the devices of an
-    expert-parallel group (a tuple of ``torch.device``), None on one card,
-    which takes the dense path; a mesh the expert-parallel paths would
-    take raises rather than run dense."""
+def _ep_local(xf, router_w, wi, wg, wo, *, cfg, n_shards, mesh, ep_axis):
+    """One rank's body.  xf: (T_loc, D); wi/wg/wo: its (E_loc, ...)
+    experts."""
     m = cfg.moe
-    n = len(mesh) if mesh is not None else 1
+    t, d = xf.shape
+    e, k = m.num_experts, m.top_k
+    e_loc = e // n_shards
+    cap = int(-(-t * k * m.capacity_factor // e))  # per (device, expert)
+
+    gates, sel, aux = _route(xf, router_w, m)
+    fe = sel.reshape(-1)                               # (T*k,) expert ids
+    ft = torch.arange(t * k, device=xf.device) // k    # token ids
+    fg = gates.reshape(-1)
+    order, fe_s, pos = _sorted_slots(fe, e, cap)
+    ft_s, fg_s = ft[order], fg[order]
+    valid = pos < cap
+    slot = torch.where(valid, fe_s * cap + pos, e * cap)  # sentinel drops
+    buf = xf.new_zeros((e * cap + 1, d)).index_put((slot,), xf[ft_s])[:-1]
+
+    # dispatch: rows e_loc*j .. e_loc*(j+1) go to shard j
+    buf = buf.reshape(n_shards, e_loc * cap, d)
+    if m.dispatch_fp8:
+        recv = _DispatchFp8.apply(buf, mesh, ep_axis)
+    else:
+        recv = dctx.all_to_all(buf, mesh, ep_axis)
+    tok = recv.reshape(n_shards, e_loc, cap, d).transpose(0, 1)
+    tok = tok.reshape(e_loc, n_shards * cap, d)
+    y = _expert_ffn(tok, wi.to(xf.dtype), wg.to(xf.dtype), wo.to(xf.dtype),
+                    cfg.act)
+    y = y.reshape(e_loc, n_shards, cap, d).transpose(0, 1)
+    y = y.reshape(n_shards, e_loc * cap, d)
+    back = dctx.all_to_all(y, mesh, ep_axis).reshape(e * cap, d)
+
+    gathered = back[torch.clamp_max(slot, e * cap - 1)]   # (T*k, D)
+    w = (fg_s * valid).to(xf.dtype)[:, None]
+    out = xf.new_zeros((t, d)).index_add(0, ft_s, gathered * w)
+    return out, dctx.pmean(aux, mesh, ep_axis)
+
+
+def _expert_blocks(params, mesh):
+    """This rank's router (whole) and its experts' weights."""
+    return ((dctx.local_block(params["router"], mesh, P(None, None)),)
+            + tuple(dctx.local_block(params[n], mesh, P("model", None, None))
+                    for n in ("wi", "wg", "wo")))
+
+
+def apply_ep(params, cfg, x: torch.Tensor, mesh):
+    """x: (B, S, D), global; each rank takes its block sharded over the
+    data axes (batch) and ``model`` (sequence).  Shared experts run
+    outside, on the whole x."""
+    m = cfg.moe
+    b, s, d = x.shape
+    dp = dctx.data_axes(mesh)
+    n_shards = mesh.shape["model"]
+    if m.num_experts % n_shards:
+        raise ValueError(f"{m.num_experts} experts over {n_shards} shards")
+    spec = P(dp, "model", None)
+    xl = dctx.local_block(x, mesh, spec)
+    bl, sl, _ = xl.shape
+    out, aux = _ep_local(xl.reshape(-1, d), *_expert_blocks(params, mesh),
+                         cfg=cfg, n_shards=n_shards, mesh=mesh,
+                         ep_axis="model")
+    for ax in dp:
+        aux = dctx.pmean(aux, mesh, ax)
+    out = dctx.global_value(out.reshape(bl, sl, d), mesh, spec, x.shape)
+    if "shared" in params:
+        out = out + _shared(params, cfg, x.reshape(-1, d)).reshape(b, s, d)
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Decode path: tokens are few (B x 1): replicated over the model axis, each
+# shard runs its local experts on the tokens routed to them, then a sum.
+# No all-to-all: the traffic is the output's sum (B x D a layer).
+# ---------------------------------------------------------------------------
+
+def _ep_decode_local(xf, router_w, wi, wg, wo, *, cfg, n_shards, mesh,
+                     ep_axis):
+    m = cfg.moe
+    t, d = xf.shape
+    e, k = m.num_experts, m.top_k
+    e_loc = e // n_shards
+    e_off = dctx.axis_index(mesh, ep_axis) * e_loc
+    cap = max(1, int(-(-t * k * max(m.capacity_factor, 4.0) // e)))
+
+    gates, sel, aux = _route(xf, router_w, m)
+    fe = sel.reshape(-1) - e_off                      # local expert ids
+    ft = torch.arange(t * k, device=xf.device) // k
+    fg = gates.reshape(-1)
+    local = (fe >= 0) & (fe < e_loc)
+    fe_key = torch.where(local, fe, e_loc)            # sentinel bucket
+    order, fe_s, pos = _sorted_slots(fe_key, e_loc + 1, cap)
+    ft_s, fg_s, loc_s = ft[order], fg[order], local[order]
+    valid = loc_s & (pos < cap)
+    slot = torch.where(valid, fe_s * cap + pos, e_loc * cap)
+    buf = xf.new_zeros((e_loc * cap + 1, d)).index_put((slot,),
+                                                       xf[ft_s])[:-1]
+    y = _expert_ffn(buf.reshape(e_loc, cap, d), wi.to(xf.dtype),
+                    wg.to(xf.dtype), wo.to(xf.dtype), cfg.act)
+    y = y.reshape(e_loc * cap, d)
+    gathered = y[torch.clamp_max(slot, e_loc * cap - 1)]
+    w = (fg_s * valid).to(xf.dtype)[:, None]
+    out = xf.new_zeros((t, d)).index_add(0, ft_s, gathered * w)
+    out = dctx.psum(out, mesh, ep_axis)
+    return out, dctx.pmean(aux, mesh, ep_axis)
+
+
+def apply_ep_decode(params, cfg, x: torch.Tensor, mesh):
+    """x: (B, S, D), global; the batch split over the data axes where
+    they divide it, the tokens replicated over ``model``."""
+    b, s, d = x.shape
+    dp = dctx.data_axes(mesh)
+    n_shards = mesh.shape["model"]
+    dp_size = math.prod(mesh.shape[a] for a in dp)
+    spec = P(dp if b % dp_size == 0 else None, None, None)
+    xl = dctx.local_block(x, mesh, spec)
+    bl, sl, _ = xl.shape
+    out, aux = _ep_decode_local(xl.reshape(-1, d),
+                                *_expert_blocks(params, mesh), cfg=cfg,
+                                n_shards=n_shards, mesh=mesh,
+                                ep_axis="model")
+    for ax in dp:
+        aux = dctx.pmean(aux, mesh, ax)
+    out = dctx.global_value(out.reshape(bl, sl, d), mesh, spec, x.shape)
+    if "shared" in params:
+        out = out + _shared(params, cfg, x.reshape(-1, d)).reshape(b, s, d)
+    return out, aux
+
+
+def apply(params, cfg, x: torch.Tensor):
+    """Dispatch on ``cfg.moe.impl``, the ambient mesh
+    (``context.current_mesh``) and the shape, as ``repro``'s ``apply``
+    does."""
+    m = cfg.moe
+    mesh = dctx.current_mesh()
+    impl = m.impl
+    n = dctx.model_axis_size(mesh)
     ep_ok = (mesh is not None and n > 1 and m.num_experts % n == 0
              and m.num_experts >= n)
-    impl = m.impl
     if impl == "auto":
         impl = "ep" if ep_ok else "dense"
     if impl == "ep" and ep_ok:
-        if x.shape[1] % n == 0 and x.shape[1] >= n:
+        dp_size = math.prod(mesh.shape[a] for a in dctx.data_axes(mesh))
+        if (x.shape[1] % n == 0 and x.shape[1] >= n
+                and x.shape[0] % dp_size == 0):
             return apply_ep(params, cfg, x, mesh)
         return apply_ep_decode(params, cfg, x, mesh)
     return apply_dense(params, cfg, x)

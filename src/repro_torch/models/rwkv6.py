@@ -4,10 +4,10 @@ The counterpart of ``repro.models.rwkv6``: the ddlerp token shift
 (LoRA-modulated), a per-channel data-dependent decay w_t =
 exp(-exp(w0 + lora(x))), the bonus-u WKV recurrence with a float32
 (head, hs, hs) state, the per-head norm and the squared-ReLU channel mix.
-The WKV recurrence runs token by token (a Python loop where ``repro``
-runs ``lax.scan``; a decode step is one step), or chunked
-(:func:`_wkv_chunked`) when the config sets ``rwkv.chunk`` and it
-divides the sequence.
+The WKV recurrence runs token by token (``op_cost.scan``, a Python loop
+where ``repro`` runs ``lax.scan``; a decode step is one step), or
+chunked (:func:`_wkv_chunked`, a scan over the chunks) when the config
+sets ``rwkv.chunk`` and it divides the sequence.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import eff_d_ff
+from repro_torch.launch.op_cost import scan
 from repro_torch.models import common
 
 _MIX_KEYS = ("w", "k", "v", "r", "g")
@@ -111,8 +112,7 @@ def _wkv_chunked(rh, kh, vh, wh, u, S0, chunk: int, sub_chunk: int = 16):
     cross_mask = (torch.arange(chunk, device=dev)[None, :]
                   < (torch.arange(m, device=dev) * sub)[:, None]).to(rh.dtype)
 
-    S, ys = S0, []
-    for i in range(n):
+    def step(S, i):
         r_t, v_t, k_o, p_l = r_tld[i], vc[i], k_out[i], p_last[i]
         r_raw, k_raw, la_c, la_p = rc_[i], kc[i], la[i], la_prev[i]
         bb, hh = r_raw.shape[:2]
@@ -144,20 +144,22 @@ def _wkv_chunked(rh, kh, vh, wh, u, S0, chunk: int, sub_chunk: int = 16):
         y_bonus = torch.einsum("bhci,bhci->bhc", r_raw * u[None, :, None, :],
                                k_raw)[..., None] * v_t
         S = p_l[..., :, None] * S + torch.einsum("bhci,bhcj->bhij", k_o, v_t)
-        ys.append(y_state + y_intra + y_bonus)
-    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, s, nh, hs)
+        return S, y_state + y_intra + y_bonus
+
+    S, y = scan(step, S0, n, dim=0)
+    y = y.permute(1, 0, 3, 2, 4).reshape(b, s, nh, hs)
     return S, y
 
 
 def _wkv_scan(rh, kh, vh, wh, u, S):
     """The per-token WKV recurrence: (B, S, H, hs) inputs -> (S, y)."""
-    ys = []
-    for t in range(rh.shape[1]):
+    def step(S, t):
         kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]   # (B, H, hs, hs)
-        ys.append(torch.einsum("bhi,bhij->bhj", rh[:, t],
-                               S + u[None, :, :, None] * kv))
-        S = wh[:, t, :, :, None] * S + kv
-    return S, torch.stack(ys, dim=1)
+        y = torch.einsum("bhi,bhij->bhj", rh[:, t],
+                         S + u[None, :, :, None] * kv)
+        return wh[:, t, :, :, None] * S + kv, y
+
+    return scan(step, S, rh.shape[1], dim=1)
 
 
 def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):

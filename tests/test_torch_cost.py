@@ -342,3 +342,115 @@ def test_model_flops_for_equals_repros(shape):
                                       t_active(tcfg))
                 == jroof.model_flops_for(jcfg, jshapes.SHAPES[shape],
                                          j_active(jcfg)))
+
+
+# ---------------------------------------------------------------------------
+# trip counts: op_cost.scan on meta, scaled, against the eager loop
+# ---------------------------------------------------------------------------
+
+# A scaled scan's peak is an upper bound: it holds the iterations it did
+# not run until the middle iteration's backward, where the eager loop frees
+# them one at a time.  At these sizes the two have come out equal.
+PEAK_BAND = 1.05
+
+
+def _zeros_on_cpu(tree):
+    """Zeros on the CPU in a meta tree's shapes and types (the counter
+    reads shapes, strides and types alone)."""
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros(tree.shape, dtype=tree.dtype)
+    if isinstance(tree, dict):
+        return {k: _zeros_on_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros_on_cpu(v) for v in tree)
+    return tree
+
+
+def _assert_scaled_equals_eager(meta, cpu):
+    assert meta.flops == cpu.flops
+    assert meta.bytes == cpu.bytes
+    assert meta.output_bytes == cpu.output_bytes
+    assert cpu.peak_bytes <= meta.peak_bytes <= PEAK_BAND * cpu.peak_bytes
+
+
+@pytest.mark.parametrize("n", [1, 4, 5, 12])
+@pytest.mark.parametrize("grad", [False, True])
+def test_scan_on_meta_counts_as_the_eager_loop(n, grad):
+    """A toy recurrence with a captured input read a step at a time and
+    a carry read twice: the scaled count (n > 4) on meta equals every
+    iteration run on the CPU, the backward included; the outputs keep
+    their full shapes."""
+    def fn(w, xs, c0):
+        def step(c, t):
+            y = torch.tanh(c @ w + xs[:, t])
+            return c * 0.5 + y, y * c
+        c, ys = op_cost.scan(step, c0, n, dim=1)
+        assert ys.shape == (xs.shape[0], n, w.shape[1]) and c.shape == c0.shape
+        if grad:
+            torch.autograd.grad((ys * ys).sum() + c.sum(), (w, xs))
+        return ys
+
+    def args(device):
+        return (torch.zeros(16, 16, device=device, requires_grad=grad),
+                torch.zeros(3, n, 16, device=device, requires_grad=grad),
+                torch.zeros(3, 16, device=device))
+    _assert_scaled_equals_eager(op_cost.count(fn, *args("meta")),
+                                op_cost.count(fn, *args("cpu")))
+
+
+def test_scan_without_a_counter_is_the_plain_loop():
+    xs = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 9, 4)).astype(np.float32))
+
+    def step(c, t):
+        return c * 0.9 + xs[:, t], torch.sin(c)
+    c, ys = op_cost.scan(step, torch.ones(2, 4), 9, dim=1)
+    want_c, want = torch.ones(2, 4), []
+    for t in range(9):
+        want_c, y = step(want_c, t)
+        want.append(y)
+    assert torch.equal(c, want_c) and torch.equal(ys, torch.stack(want, 1))
+
+
+# (arch, overrides, seq): RWKV-6 per token and chunked (chunk 16: 8 chunks
+# at seq 128), and Jamba's Mamba layers, at scaled() width
+RECURRENT_CELLS = [("rwkv6-3b", {}, 32), ("rwkv6-3b", {}, 128),
+                   ("rwkv6-3b", {"rwkv_chunk": 16}, 128),
+                   ("jamba-v0.1-52b", {}, 64)]
+
+
+@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch,overrides,seq", RECURRENT_CELLS)
+def test_scaled_recurrent_steps_count_as_eager(arch, overrides, seq, step):
+    """The per-token recurrences' steps on meta (scaled) against the same
+    steps' every iteration on CPU tensors: FLOPs and bytes exactly, the
+    training step's backward included; peaks within PEAK_BAND."""
+    from repro_torch.launch import dryrun
+    cfg = dryrun.cell_config(arch, overrides).scaled()
+    shape = tshapes.ShapeSpec(f"{step}_small", seq, 2, step)
+    fn, args = dryrun.step_and_args(cfg, shape)
+    _assert_scaled_equals_eager(op_cost.count(fn, *args),
+                                op_cost.count(fn, *_zeros_on_cpu(args)))
+
+
+def test_a_mamba_block_with_its_backward_counts_as_eager():
+    """One Mamba block with a state, its gradient taken to the parameters
+    and x: scaled on meta == eager on the CPU."""
+    from repro_torch.models import mamba
+    cfg = treg.get_config("jamba-v0.1-52b").scaled()
+
+    def fn(params, x, state):
+        y, (conv, h) = mamba.apply(params, cfg, x, state=state)
+        leaves = [p for p in topt.tree_leaves(params) if p.requires_grad]
+        torch.autograd.grad((y * y).sum() + h.sum(), leaves + [x])
+        return y
+
+    def args(device):
+        p = topt.tree_map(lambda t: t.requires_grad_(),
+                          mamba.init(torch.Generator().manual_seed(0), cfg,
+                                     device=device))
+        return (p, torch.zeros(2, 96, cfg.d_model, device=device,
+                               requires_grad=True),
+                mamba.init_state(cfg, 2, device=device))
+    _assert_scaled_equals_eager(op_cost.count(fn, *args("meta")),
+                                op_cost.count(fn, *args("cpu")))

@@ -9,7 +9,9 @@
   prefill and decode shapes: OK, and the same counts on CPU tensors as
   on meta (the counter reads shapes, strides and types only).
 * The 40 cells' SKIPPED statuses against ``repro``'s ``cell_supported``,
-  one full-width cell through ``main``.
+  one full-width cell through ``main``, and RWKV6-3B's and Jamba's
+  ``train_4k`` cells through ``main`` (their recurrences scaled by
+  ``op_cost.scan``).
 * ``--mesh pod`` and ``--mesh multipod``: each record's chips, each
   category's bytes on one device equal to the arithmetic of ``repro``'s
   spec trees on its abstract meshes, ``step_counted: false``; every
@@ -199,7 +201,7 @@ def test_mesh_cells_record_per_device_argument_bytes(mesh, shape, tmp_path,
                          else ("data", "model"))
     assert rec["status"] == "OK" and rec["mesh"] == mesh
     assert rec["chips"] == (512 if mesh == "multipod" else 256)
-    assert rec["step_counted"] is False and "5.5b" in rec["step_note"]
+    assert rec["step_counted"] is False and "5.5d" in rec["step_note"]
     want = _repro_per_device("smollm-360m", shape, jmesh)
     assert rec["argument_bytes_per_device"] == want
     assert rec["bytes_per_chip"]["argument"] == sum(want.values())
@@ -221,3 +223,20 @@ def test_every_multipod_cell_is_ok_or_skipped(tmp_path, capsys):
         if rec["status"] == "OK":
             assert rec["chips"] == 512 and rec["step_counted"] is False
             assert rec["bytes_per_chip"]["argument"] > 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_recurrent_train_4k_cell_ends_ok(arch, tmp_path, capsys):
+    """The per-token recurrences' training cells at full width, which ran
+    every one of their 4096 iterations a layer before op_cost.scan and
+    outlasted 1200 s: OK, their recurrence counted once and scaled."""
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", arch, "--shape", "train_4k", "--out",
+                     str(tmp_path)])
+    assert done.value.code == 0
+    rec = json.loads((tmp_path / f"dryrun_{arch}__train_4k__card.json")
+                     .read_text())
+    assert rec["status"] == "OK" and rec["bottleneck"] == "memory"
+    assert rec["hlo_flops"] > rec["model_flops"] > 0
+    assert rec["trace_s"] < 300
+    assert "1 cells: 1 ok" in capsys.readouterr().out

@@ -1071,3 +1071,99 @@ def test_one_rank_training_step_under_the_host_mesh_on_the_card():
     for (path, a), (_, b) in zip(shd.leaves_with_path(inside),
                                  shd.leaves_with_path(outside)):
         assert torch.equal(a, b), path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,step,seq", [("rwkv6-3b", "prefill", 64),
+                                           ("rwkv6-3b", "train", 32),
+                                           ("jamba-v0.1-52b", "train", 32)])
+def test_recurrent_counts_on_the_card_equal_scaled_meta(arch, step, seq):
+    """The scaled() per-token recurrences counted on CUDA tensors (every
+    iteration runs) == on meta (``op_cost.scan``: one middle iteration,
+    its charges scaled), FLOPs and bytes exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import shapes
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import tokens
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+    cfg = get_config(arch).scaled()
+    fn, meta_args = dryrun.step_and_args(
+        cfg, shapes.ShapeSpec("small", seq, 2, step))
+    meta = op_cost.count(fn, *meta_args)
+    batch = tokens.batch_for_step(cfg, 0, global_batch=2, seq_len=seq,
+                                  device="cuda")
+    args = ((steps.create_state(cfg, 0, dryrun.build_optimizer(cfg)), batch)
+            if step == "train" else
+            (transformer.init_params(cfg), {"tokens": batch["tokens"]}))
+    card = op_cost.count(fn, *args)
+    assert (card.flops, card.bytes) == (meta.flops, meta.bytes)
+
+
+@pytest.mark.gpu
+def test_collectives_at_world_size_one_on_the_card():
+    """Smoke phase 10 at OLMoE scaled()'s width on a one-rank group (NCCL
+    for the card's tensors, gloo for the CPU's): apply_ep and
+    apply_ep_decode at capacity factor E / k == apply_dense, and at the
+    config's factor == the CPU's (every token routed alike at this size);
+    the compressed psum == compress + decompress, bit for bit; a one-stage
+    pipeline == the stage, with its gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.checkpoint.ckpt import make_mesh
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed.pipeline import pipelined
+    from repro_torch.models import moe
+    from repro_torch.optim import grad_compress as gc
+    dev = torch.device("cuda", 0)
+    tol = 2e-4
+    cfg = get_config("olmoe-1b-7b").scaled().with_(dtype="float32",
+                                                  param_dtype="float32")
+    m = cfg.moe
+    params = moe.init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    with dctx.local_process_group("cpu:gloo,cuda:nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
+        cpu_mesh = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+        card = {k: v.to(dev) for k, v in params.items()}
+        for path, s in ((moe.apply_ep, 16), (moe.apply_ep_decode, 1)):
+            x = torch.randn((2, s, cfg.d_model), generator=gen)
+            free = cfg.with_(moe=dataclasses.replace(
+                m, capacity_factor=m.num_experts / m.top_k))
+            got, _ = path(card, free, x.to(dev), mesh)
+            want, _ = moe.apply_dense(card, cfg, x.to(dev))
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            for fp8 in (False, True):
+                own = cfg.with_(moe=dataclasses.replace(m, dispatch_fp8=fp8))
+                got, aux = path(card, own, x.to(dev), mesh)
+                want, want_aux = path(params, own, x, cpu_mesh)
+                torch.testing.assert_close(got.cpu(), want, rtol=tol,
+                                           atol=tol)
+                assert abs(float(aux) - float(want_aux)) < tol
+        grads = {"a": torch.randn((33, 7), generator=gen).to(dev),
+                 "b": torch.randn((5,), generator=gen).to(dev,
+                                                          torch.bfloat16)}
+        err = gc.init_error_state(grads)
+        with dctx.mesh_context(mesh):
+            mean, new_err = gc.compressed_psum_tree(grads, err, "model")
+        for k, g in grads.items():
+            q, scale, want_err = gc.compress(g, err[k])
+            assert torch.equal(mean[k], gc.decompress(q, scale).to(g.dtype))
+            assert torch.equal(new_err[k], want_err)
+        w = {"w": torch.randn((1, 32, 32), generator=gen).to(dev) / 6,
+             "b": torch.zeros((1, 32), device=dev)}
+        x = torch.randn((16, 32), generator=gen).to(dev)
+        leaves = {k: v.clone().requires_grad_() for k, v in w.items()}
+        y = pipelined(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                      make_mesh((1, 1), ("pod", "data"), devices=[dev]),
+                      4)(leaves, x)
+        (y ** 2).sum().backward()
+        want = torch.tanh(x @ w["w"][0] + w["b"][0])
+        torch.testing.assert_close(y.detach(), want, rtol=tol, atol=tol)
+        torch.testing.assert_close(
+            leaves["w"].grad[0], x.T @ (2 * want * (1 - want ** 2)),
+            rtol=tol, atol=tol)

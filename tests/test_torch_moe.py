@@ -252,33 +252,68 @@ def test_apply_dense_matches_repro(arch):
         close(ty - ty0, shared.reshape(ty.shape).detach().numpy(), 1e-5)
 
 
-def test_apply_dispatches_like_repro_and_refuses_a_mesh():
-    """No mesh: auto, dense and ep all take the dense path, as repro's
-    apply does without a mesh.  With a mesh the expert-parallel paths
-    would take, the port raises (ROADMAP §1 item 5.5) rather than run
-    dense."""
+# These cases replace one that held apply to raise under a mesh the
+# expert-parallel paths would take: it takes them now
+# (tests/test_torch_moe_ep.py runs them on 8 ranks).
+@pytest.mark.parametrize("mesh", [None, (1, 1), (4, 1), (2, 2, 1)])
+@pytest.mark.parametrize("impl", ["auto", "dense", "ep"])
+def test_apply_is_dense_without_a_model_axis_like_repro(impl, mesh):
+    """Without a mesh, or on a mesh whose model axis has one device,
+    every impl takes the dense path, as repro's apply does (its (1, 1)
+    mesh is the one this host's single CPU device makes)."""
+    from repro.distributed import context as jctx
+    from repro_torch.checkpoint.ckpt import Mesh
+    from repro_torch.distributed import context as tctx
     jcfg, tcfg, jp, tp = _moe_params("olmoe-1b-7b")
     x = np.random.default_rng(4).standard_normal(
         (2, 8, jcfg.d_model)).astype(np.float32)
     want, _ = jmoe.apply_dense(jp, jcfg, jnp.asarray(x))
-    for impl in ("auto", "dense", "ep"):
-        jc = jcfg.with_(moe=dataclasses.replace(jcfg.moe, impl=impl))
-        tc = tcfg.with_(moe=dataclasses.replace(tcfg.moe, impl=impl))
+    jc = jcfg.with_(moe=dataclasses.replace(jcfg.moe, impl=impl))
+    tc = tcfg.with_(moe=dataclasses.replace(tcfg.moe, impl=impl))
+    with jctx.mesh_context(jax.make_mesh((1, 1), ("data", "model"))):
         jy, _ = jmoe.apply(jp, jc, jnp.asarray(x))
+    close(jy, want, 1e-6)
+    tmesh = None if mesh is None else Mesh.abstract(
+        mesh, ("pod", "data", "model")[-len(mesh):])
+    with tctx.mesh_context(tmesh):
         ty, _ = tmoe.apply(tp, tc, torch.from_numpy(x))
-        close(jy, want, 1e-6)
-        close(ty, want)
-    mesh = (torch.device("cpu"),) * 2
-    for impl in ("auto", "ep"):
-        tc = tcfg.with_(moe=dataclasses.replace(tcfg.moe, impl=impl))
-        for s in (8, 1):                    # apply_ep, apply_ep_decode
-            with pytest.raises(NotImplementedError, match="§1 item 5.5"):
-                tmoe.apply(tp, tc, torch.from_numpy(x[:, :s]), mesh=mesh)
-    # a dense impl, or a one-device mesh, stays dense
-    tc = tcfg.with_(moe=dataclasses.replace(tcfg.moe, impl="dense"))
-    close(tmoe.apply(tp, tc, torch.from_numpy(x), mesh=mesh)[0], want)
-    close(tmoe.apply(tp, tcfg, torch.from_numpy(x),
-                     mesh=mesh[:1])[0], want)
+    close(ty, want)
+
+
+@pytest.mark.parametrize("mesh", [(2, 4), (1, 4), (2, 2, 2)])
+@pytest.mark.parametrize("impl", ["auto", "dense", "ep"])
+def test_apply_dispatches_like_repro_under_a_mesh(impl, mesh, monkeypatch):
+    """On a mesh with a model axis of several devices: the same path as
+    repro's apply, shape by shape (apply_ep where the sequence splits
+    over the model axis and the batch over the data axes, else
+    apply_ep_decode; dense for impl dense), each side's paths spied."""
+    from jax.sharding import AbstractMesh
+    from repro.distributed import context as jctx
+    from repro_torch.checkpoint.ckpt import Mesh
+    from repro_torch.distributed import context as tctx
+    names = ("pod", "data", "model")[-len(mesh):]
+    taken = {"repro": [], "port": []}
+    for mod, side in ((jmoe, "repro"), (tmoe, "port")):
+        for path in ("apply_ep", "apply_ep_decode"):
+            monkeypatch.setattr(mod, path, lambda *a, _p=path, _s=side: (
+                taken[_s].append(_p), (None, None))[1])
+        monkeypatch.setattr(mod, "apply_dense", lambda *a, _s=side: (
+            taken[_s].append("apply_dense"), (None, None))[1])
+    jcfg, tcfg = cfgs("olmoe-1b-7b")
+    jc = jcfg.with_(moe=dataclasses.replace(jcfg.moe, impl=impl))
+    tc = tcfg.with_(moe=dataclasses.replace(tcfg.moe, impl=impl))
+    shapes = [(b, s) for b in (1, 2, 3, 4) for s in (1, 2, 3, 4, 6, 8)]
+    monkeypatch.setattr(jctx._state, "mesh", AbstractMesh(mesh, names),
+                        raising=False)
+    with tctx.mesh_context(Mesh.abstract(mesh, names)):
+        for b, s in shapes:
+            jmoe.apply({}, jc, jnp.zeros((b, s, 4)))
+            tmoe.apply({}, tc, torch.zeros(b, s, 4))
+    assert taken["port"] == taken["repro"]
+    assert len(taken["port"]) == len(shapes)
+    kinds = set(taken["port"])
+    assert kinds == ({"apply_dense"} if impl == "dense"
+                     else {"apply_ep", "apply_ep_decode"})
 
 
 def test_route_divergence_follows_the_near_tie_rule():
