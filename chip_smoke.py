@@ -91,6 +91,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -293,8 +294,18 @@ COST_STEPS = ((LM_ARCH, "prefill", LM_PROMPT, LM_BATCH),
               (LM_ARCH, "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH),
               (MOE_ARCH, "prefill", 512, 4))
 # phase 9: the training meshes at world size 1, one full-width step of
-# SmolLM-360M (batch, sequence) under the host mesh and outside it
+# SmolLM-360M (batch, sequence) under the host mesh and outside it, then
+# on DTensors of the state's specs on a one-rank NCCL group
 MESH_STEP = (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+# phase 9's sharded count on the card: SmolLM-360M's scaled() config with
+# 8 heads over 4 KV heads (so that the (2, 4) mesh's model axis splits
+# them), a prefill of (batch, sequence) on a fake group of 8 ranks whose
+# blocks lie on the card, counted == on meta; then one full-width pod
+# cell of the dry run on meta
+SHARDED_MESH = (2, 4)
+SHARDED_HEADS = (8, 4)
+SHARDED_PREFILL = (8, 256)
+POD_CELL = (LM_ARCH, "train_4k")
 # row 10 at SmolLM's prefill (bf16, probs_bf16=True), a call in a CUDA
 # graph before the padded head dims (PERF.md's kernel table): the D = 64
 # path they leave as it was
@@ -1347,14 +1358,15 @@ def codebook_vlm_train(card, dev) -> None:
               f"the bound), loss |card - CPU| {dl:.2e}")
 
 
-def mesh_phase(dev) -> None:
+def mesh_phase(dev) -> int:
     """Phase 9: the training meshes at world size 1.  The host mesh over
     the one card on a one-rank process group (gloo, a localhost
     rendezvous); every leaf of SmolLM-360M's train state (adamw) shards to
     its full shape; one full-width training step (MESH_STEP, bf16
     activations) under ``mesh_context(make_host_mesh())`` equals, bit for
     bit, the same step outside it (every leaf of the new state and the
-    loss)."""
+    loss).  Then the sharded step (:func:`sharded_checks`); returns its
+    flash launches."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import tokens
     from repro_torch.distributed import context as dctx
@@ -1406,8 +1418,131 @@ def mesh_phase(dev) -> None:
     print(f"  host mesh {dict(mesh.shape)} over {dmesh.device_type}, one "
           f"rank: {len(leaves)} state leaves shard to their full shapes; "
           f"{LM_ARCH} adamw step {b} x {sq} under the mesh == without it, "
-          f"bit for bit (loss {float(loss_in):.6f}); phase 9 took "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"bit for bit (loss {float(loss_in):.6f})")
+    n_flash = sharded_checks(dev, cfg, optimizer, step, batch, mesh)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    return n_flash
+
+
+def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
+    """Phase 9's sharded counts.  (1) The full-width training step on
+    DTensors of the state's specs over the host mesh (1, 1), on a
+    one-rank NCCL group: counted on the card == the plain
+    step's count (FLOPs and bytes, exactly; no wire bytes), and its new
+    state and loss == the plain step's, bit for bit.  (2) A prefill of
+    SmolLM-360M's scaled() config (SHARDED_HEADS) on a fake group of 8
+    ranks over the (2, 4) mesh, its blocks on the card: counted == on
+    meta, exactly, the flash kernel launched once an attention layer on
+    each rank's blocks (batch over "data", heads over "model").  (3) The
+    dry run's POD_CELL on the 256-chip mesh, on meta, printed.  Returns
+    (2)'s flash launches."""
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.train import serve, steps
+
+    state = steps.create_state(cfg, 0, optimizer, device=dev)
+    plain = op_cost.count(step, state, batch)
+    new, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    with dctx.local_process_group(COLLECTIVE_BACKEND):
+        dmesh = shd.device_mesh(mesh)
+        dstate = shd.distribute(state, shd.to_named(
+            mesh, steps.state_specs(cfg, mesh, optimizer), dmesh))
+        dbatch = shd.distribute(batch, shd.to_named(
+            mesh, shd.batch_specs(cfg, mesh, batch), dmesh))
+        with dctx.sharded_step(mesh):
+            counted = op_cost.count(step, dstate, dbatch)
+            dnew, dmetrics = step(dstate, dbatch)
+        got = {p: x.full_tensor() for p, x in shd.leaves_with_path(dnew)}
+        loss = dmetrics["loss"].full_tensor()
+        torch.cuda.synchronize()
+    if (counted.flops, counted.bytes) != (plain.flops, plain.bytes):
+        raise AssertionError(
+            f"the (1, 1) mesh's DTensor step counts {counted.flops:.6e} "
+            f"FLOPs, {counted.bytes:.6e} bytes; the plain step "
+            f"{plain.flops:.6e}, {plain.bytes:.6e}")
+    if counted.coll_wire_bytes:
+        raise AssertionError(f"wire bytes {counted.coll_wire_bytes} on one "
+                             f"device")
+    differ = [p for p, x in shd.leaves_with_path(new)
+              if not torch.equal(x, got[p])]
+    if differ or not torch.equal(loss, metrics["loss"]):
+        raise AssertionError(f"the DTensor step differs from the plain "
+                             f"step: {differ[:4]}, loss {float(loss)} vs "
+                             f"{float(metrics['loss'])}")
+    del state, new, dstate, dnew, got
+    torch.cuda.empty_cache()
+    print(f"  (1, 1) mesh, one-rank NCCL group: {LM_ARCH}'s DTensor adamw "
+          f"step counted on the card {counted.flops:.6e} FLOPs, "
+          f"{counted.bytes:.6e} bytes == the plain step's, its state and "
+          f"loss ({float(loss):.6f}) == the plain step's, bit for bit")
+
+    h, kh = SHARDED_HEADS
+    scfg = get_config(LM_ARCH).scaled().with_(num_heads=h, num_kv_heads=kh)
+    b, sq = SHARDED_PREFILL
+    shape = shp.ShapeSpec("prefill_sharded", sq, b, "prefill")
+    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
+                                   SHARDED_MESH[1], abstract=True)
+    with dctx.fake_process_group(smesh.size):
+        dmesh = shd.device_mesh(smesh)
+        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
+            scfg, shape, smesh)
+        with dctx.sharded_step(smesh):
+            on_meta = op_cost.count(step_fn, *meta_args)
+        params = transformer.init_params(scfg, seed=0, device=dev)
+        toks = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                for k, v in shp.input_specs(scfg, shape).items()}
+        args = (shd.distribute(params, shd.to_named(
+                    smesh, shd.param_specs(scfg, smesh, params), dmesh)),
+                shd.distribute(toks, shd.to_named(
+                    smesh, shd.batch_specs(scfg, smesh, toks), dmesh)))
+        blocks = {t.to_local().device.type
+                  for _, t in shd.leaves_with_path(args)}
+        ops.reset_launch_counts()
+        with dctx.sharded_step(smesh):
+            on_card = op_cost.count(serve.build_prefill_step(scfg), *args)
+        torch.cuda.synchronize()
+        n_flash = ops.launch_counts()["flash_attention"]
+    if blocks != {"cuda"}:
+        raise AssertionError(f"the fake group's blocks lie on {blocks}")
+    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
+            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
+        raise AssertionError(
+            f"the sharded prefill counted on the card ({on_card.flops:.6e} "
+            f"FLOPs, {on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes} "
+            f"wire) != on meta ({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
+            f"{on_meta.coll_wire_bytes})")
+    if n_flash != attn_layers(scfg):
+        raise AssertionError(f"{n_flash} flash launches in the sharded "
+                             f"prefill, {attn_layers(scfg)} attention layers")
+    print(f"  {LM_ARCH} scaled() H={h} KH={kh} prefill {b} x {sq} on a fake "
+          f"group of {smesh.size} over {dict(smesh.shape)}, blocks on the "
+          f"card: one device's {on_card.flops:.6e} FLOPs, "
+          f"{on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes:.6e} wire "
+          f"bytes == on meta; flash launched {n_flash} times on each rank's "
+          f"blocks (batch / {SHARDED_MESH[0]}, heads / {SHARDED_MESH[1]})")
+
+    t = time.perf_counter()
+    rec = dryrun.lower_cell(*POD_CELL, mesh_name="pod")
+    if rec["status"] != "OK" or not rec["step_counted"]:
+        raise AssertionError(f"pod cell {POD_CELL}: {rec}")
+    print(f"  dry run {POD_CELL[0]} {POD_CELL[1]} on pod ({rec['chips']} "
+          f"chips, meta, {time.perf_counter() - t:.1f} s): one device "
+          f"{rec['hlo_flops'] / rec['chips']:.6e} FLOPs, "
+          f"{rec['hlo_bytes'] / rec['chips']:.6e} bytes, "
+          f"{rec['coll_bytes_per_chip']:.6e} wire bytes "
+          f"{ {k: v for k, v in rec['coll_breakdown'].items() if v} }; "
+          f"t_compute {rec['t_compute']:.4f} s, t_memory "
+          f"{rec['t_memory']:.4f} s, t_collective {rec['t_collective']:.4f}"
+          f" s ({rec['bottleneck']}), roofline_fraction "
+          f"{rec['roofline_fraction']:.4f}")
+    return n_flash
 
 
 def scan_cost_checks(card, dev) -> int:
@@ -4331,8 +4466,13 @@ def main() -> None:
 
     # -- 9. the training meshes --------------------------------------------
     phase(9, "the training meshes at world size 1: the host mesh, shard "
-             "shapes, a step under the mesh == the step without")
-    mesh_phase(dev)
+             "shapes, a step under the mesh == the step without; the "
+             "sharded step counted (a (1, 1) DTensor step == the plain "
+             "one, a fake (2, 4) group's blocks on the card == on meta, a "
+             "pod cell on meta)")
+    n9 = mesh_phase(dev)
+    by_phase["flash_attention"]["9"] = n9
+    rows["flash_attention"]["launches"] += n9
 
     # -- 10. the collectives and expert parallelism ---------------------------
     phase(10, "the collectives at world size 1 on a one-rank NCCL group: "

@@ -41,6 +41,7 @@ import time
 import traceback
 
 import torch
+from torch._prims_common import make_contiguous_strides_for
 
 _state = threading.local()
 # the DeviceMesh of each mesh layout over the current default process
@@ -65,6 +66,20 @@ def mesh_context(mesh):
         yield mesh
     finally:
         _state.mesh = prev
+
+
+@contextlib.contextmanager
+def sharded_step(mesh):
+    """The block runs a step on DTensors over ``mesh``: the mesh
+    installed (:func:`mesh_context`), and a plain tensor the step makes
+    (a scalar, a mask, a table of frequencies) taken as replicated on
+    every device (``implicit_replication``).  Tensors with the batch's
+    rows are built as blocks at their factories instead
+    (``sharding.built_like``): replicating them would build the whole
+    batch on every device."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with mesh_context(mesh), implicit_replication():
+        yield mesh
 
 
 def data_axes(mesh) -> tuple:
@@ -195,8 +210,12 @@ def run_local(fn, world_size: int, *args, timeout: float = 120.0) -> list:
 def device_mesh(mesh):
     """The ``torch.distributed`` ``DeviceMesh`` of ``mesh`` over the
     default process group, which must have the mesh's size (an abstract
-    mesh's is a :func:`fake_process_group`, of CPU type); made once a
-    group."""
+    mesh's is a :func:`fake_process_group`); made once a group.  Its
+    device type is the mesh's devices' type, or ``cuda`` for an abstract
+    mesh: the production meshes are cards, whatever device the caller's
+    blocks lie on (meta in the dry run), and on a CPU mesh DTensor would
+    gather a whole dim where on the cards it moves a block from one
+    tensor dim to another by an all-to-all."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized() or dist.get_world_size() != mesh.size:
@@ -204,7 +223,7 @@ def device_mesh(mesh):
             f"a DeviceMesh of {mesh.size} devices needs a default process "
             f"group of that size (fake_process_group for an abstract mesh, "
             f"local_process_group for one device, run_local for several)")
-    kind = "cpu" if mesh.is_abstract else mesh.devices.flat[0].type
+    kind = "cuda" if mesh.is_abstract else mesh.devices.flat[0].type
     key = (kind, tuple(mesh.axis_names), tuple(mesh.axis_sizes))
     world = dist.distributed_c10d._get_default_group()
     with _DMESH_LOCK:
@@ -284,10 +303,24 @@ class _LocalBlock(torch.autograd.Function):
                 None, None)
 
 
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
 def local_block(x: torch.Tensor, mesh, spec) -> torch.Tensor:
     """This rank's block of the global ``x`` under ``spec`` (a
     ``sharding.P``); its gradient, summed over every rank, is the whole
-    tensor's."""
+    tensor's.  A DTensor ``x`` is redistributed to ``spec``'s placements
+    and its local block taken; the block's gradient is a partial sum
+    over the mesh dims the spec does not split, and comes back through
+    DTensor's redistribution."""
+    if _is_dtensor(x):
+        from torch.distributed.tensor import Partial
+        from repro_torch.distributed.sharding import placements
+        place = list(placements(spec, mesh))
+        return x.redistribute(x.device_mesh, place).to_local(
+            grad_placements=[Partial() if p.is_replicate() else p
+                             for p in place])
     return _LocalBlock.apply(x, mesh, spec)
 
 
@@ -313,10 +346,20 @@ class _GlobalValue(torch.autograd.Function):
         return g[ctx.where].contiguous(), None, None, None
 
 
-def global_value(x: torch.Tensor, mesh, spec, shape) -> torch.Tensor:
+def global_value(x: torch.Tensor, mesh, spec, shape,
+                 dmesh=None) -> torch.Tensor:
     """The global tensor of ``shape`` whose block under ``spec`` this rank
     holds as ``x`` (every rank holding a block along an axis the spec does
-    not split holds the same one); every rank gets it whole."""
+    not split holds the same one); every rank gets it whole.  Given the
+    ``DeviceMesh`` ``dmesh`` (the one of the DTensor the block came from,
+    :func:`local_block`), the DTensor of those blocks instead: nothing
+    moves."""
+    if dmesh is not None:
+        from torch.distributed.tensor import DTensor
+        from repro_torch.distributed.sharding import placements
+        return DTensor.from_local(x, dmesh, list(placements(spec, mesh)),
+                                  shape=torch.Size(shape),
+                                  stride=make_contiguous_strides_for(shape))
     return _GlobalValue.apply(x, mesh, spec, tuple(shape))
 
 

@@ -35,10 +35,12 @@ then one copy.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, List, Sequence, Tuple
 
 import torch
+from torch._prims_common import make_contiguous_strides_for
 
 from repro_torch import device as _device
 from repro_torch.distributed import context as dctx
@@ -238,8 +240,10 @@ def cache_specs(cfg, mesh, cache_shape):
 def placements(spec: P, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``, one a mesh axis:
     ``Shard(d)`` where tensor dim d's entry names the axis, else
-    ``Replicate()``.  A dim split over several axes takes them in mesh
-    order (DTensor's order), which is the order the rules write them."""
+    ``Replicate()``; an axis of one device splits nothing and is
+    ``Replicate()`` (DTensor cannot merge a dim "split" over it with
+    another).  A dim split over several axes takes them in mesh order
+    (DTensor's order), which is the order the rules write them."""
     from torch.distributed.tensor import Replicate, Shard
     dims = {}
     for d, entry in enumerate(spec):
@@ -251,8 +255,8 @@ def placements(spec: P, mesh) -> tuple:
                              f"mesh order {mesh.axis_names}, or one axis "
                              f"twice")
         dims.update({a: d for a in axes})
-    return tuple(Shard(dims[a]) if a in dims else Replicate()
-                 for a in mesh.axis_names)
+    return tuple(Shard(dims[a]) if a in dims and mesh.shape[a] > 1
+                 else Replicate() for a in mesh.axis_names)
 
 
 def device_mesh(mesh):
@@ -289,6 +293,160 @@ def to_named(mesh, spec_tree, dmesh=None):
     dmesh = dmesh if dmesh is not None else device_mesh(mesh)
     return tree_map_with_path(
         lambda _, s: NamedSharding(dmesh, s, placements(s, mesh)), spec_tree)
+
+
+def distribute(tree, named_tree):
+    """``tree`` with every leaf a DTensor of its :class:`NamedSharding` in
+    ``named_tree`` (a meta leaf gives a meta block and moves nothing):
+    the sharded step's arguments, as ``jax.jit``'s ``in_shardings``
+    place them."""
+    named = dict(leaves_with_path(named_tree))
+    return tree_map_with_path(
+        lambda path, leaf: named[path_str(path)].distribute(leaf), tree)
+
+
+def sharded_axis(x: torch.Tensor, dim: int):
+    """The mesh dim of several devices over which DTensor ``x`` splits
+    tensor dim ``dim`` (the first, if several), or None: none does, or
+    ``x`` is no DTensor."""
+    dim %= max(x.ndim, 1)
+    for axis, p in enumerate(getattr(x, "placements", ())):
+        if p.is_shard(dim) and x.device_mesh.size(axis) > 1:
+            return axis
+    return None
+
+
+def split_ready(x: torch.Tensor, dim: int, parts: int):
+    """``x`` ready to split tensor dim ``dim`` into (``parts``, rest), as
+    the head views do: a DTensor whose blocks of ``dim`` do not divide
+    ``parts`` (15 heads over 16 devices) is replicated along the mesh
+    dims that split it, as XLA's partitioner replicates a dim it cannot
+    split; anything else is returned as it is."""
+    dim %= max(x.ndim, 1)
+    place = list(getattr(x, "placements", ()))
+    n = math.prod(x.device_mesh.size(a) for a, p in enumerate(place)
+                  if p.is_shard(dim)) if place else 1
+    if parts % n == 0:
+        return x
+    from torch.distributed.tensor import Replicate
+    place = [Replicate() if p.is_shard(dim) else p for p in place]
+    return x.redistribute(x.device_mesh, place)
+
+
+def built_like(make, shape, like: torch.Tensor, dims=None):
+    """``make(shape)``: a tensor of the global ``shape`` that the step
+    builds (zeros, a fill, positions).  Beside a DTensor ``like``, each
+    device builds only its block: dim d of the new tensor is split as
+    ``like``'s dim ``dims[d]`` is (``dims``: new dim -> ``like``'s dim,
+    default each dim to itself), its block the same fraction of d, and
+    every other dim is whole; the result is a DTensor on ``like``'s mesh
+    (``implicit_replication`` would build the whole tensor on every
+    device and cut each block out).  Beside a plain tensor, ``make(shape)``
+    as it is."""
+    if not hasattr(like, "placements"):
+        return make(tuple(shape))
+    from torch.distributed.tensor import DTensor, Replicate
+    dims = dict(dims if dims is not None else
+                {d: d for d in range(min(len(shape), like.ndim))})
+    block = like.to_local().shape
+    local = list(shape)
+    for d, ld in dims.items():
+        local[d] = shape[d] * block[ld] // like.shape[ld]
+    to_new = {ld: d for d, ld in dims.items()}
+    place = [type(p)(to_new[p.dim]) if p.is_shard() and p.dim in to_new
+             and like.device_mesh.size(axis) > 1 else Replicate()
+             for axis, p in enumerate(like.placements)]
+    return DTensor.from_local(make(tuple(local)), like.device_mesh, place,
+                              shape=torch.Size(shape),
+                              stride=make_contiguous_strides_for(shape))
+
+
+def carry_placed(step, carry):
+    """``step`` of a scan (``carry, y = step(carry, t)``), its new carry
+    redistributed to the placements a DTensor ``carry`` entered with
+    where the step moved them, as ``lax.scan`` keeps a carry's sharding
+    across its iterations; beside a plain ``carry``, ``step`` as it
+    is."""
+    want = getattr(carry, "placements", None)
+    if want is None:
+        return step
+
+    def placed(c, t):
+        c, y = step(c, t)
+        if c.placements != want:
+            c = c.redistribute(carry.device_mesh, list(want))
+        return c, y
+    return placed
+
+
+def write_position(cache: torch.Tensor, idx: int, new: torch.Tensor):
+    """``cache[:, idx:idx + 1] = new`` in place (a decode step's KV
+    write).  A DTensor cache whose positions (dim 1) are split over a
+    mesh dim of several devices is written as XLA partitions the update:
+    every device places ``new`` as the cache with that mesh dim
+    replicated (a collective all take part in) and writes one position
+    of its block, the new value where the block holds ``idx`` and its
+    own old value elsewhere; the blocks are never gathered."""
+    axis = sharded_axis(cache, 1)
+    if axis is None:
+        cache[:, idx:idx + 1] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+    dmesh = cache.device_mesh
+    place = list(cache.placements)
+    place[axis] = Replicate()
+    block = cache.to_local()
+    n = block.shape[1]
+    j = idx - dmesh.get_local_rank(axis) * n
+    at = min(max(j, 0), n - 1)
+    new = new.redistribute(dmesh, place).to_local()
+    block[:, at:at + 1] = (new if 0 <= j < n
+                           else block[:, at:at + 1]).to(block.dtype)
+
+
+class _GradPlaced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, list(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if list(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_placed(x: torch.Tensor):
+    """``x``, whose gradient is placed as ``x`` is before it flows on: a
+    sum's gradient comes back replicated, and the ops before the sum
+    would run on the whole of it on every device; a parameter's comes
+    back partial over the devices that split the batch, and is summed
+    into the parameter's placements, as XLA matches a gradient to its
+    parameter's sharding.  Plain tensors pass as they are."""
+    if not hasattr(x, "placements"):
+        return x
+    return _GradPlaced.apply(x)
+
+
+class _SplitReadyGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, parts):
+        ctx.dim, ctx.parts = dim, parts
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_ready(g, ctx.dim, ctx.parts), None, None
+
+
+def split_ready_grad(x: torch.Tensor, dim: int, parts: int):
+    """``x``, whose dim ``dim`` a view just merged from (``parts``,
+    rest): its gradient, which the merge's backward splits again, is
+    made :func:`split_ready` first.  Plain tensors pass as they are."""
+    if not hasattr(x, "placements"):
+        return x
+    return _SplitReadyGrad.apply(x, dim, parts)
 
 
 def constrain(x: torch.Tensor, logical: tuple):

@@ -209,3 +209,32 @@ def _flash_attention_flop(q_shape, k_shape, v_shape, causal=True, *args,
                           **kwargs) -> int:
     b, s, h, d = q_shape
     return attention_flops(b, s, h, d, causal)
+
+
+def _register_sharding() -> None:
+    """The op's DTensor sharding: q, k, v and the output all replicated,
+    all split on the batch, or all split on the heads, q's with their KV
+    groups (a device's q heads read only its KV heads); a split is
+    offered only where every mesh dim of several devices divides the
+    batch or the KV heads, so that no block is uneven
+    (``models/attention.py`` replicates the heads before the op where
+    their devices do not divide them).  Any other placement is
+    redistributed to one of these first; each device then runs the op,
+    the kernel on a card, on its blocks."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _flash_attention_sharding(q, k, v, causal=True, scale=None,
+                                  probs_bf16=None):
+        sizes = [n for n in q.mesh.shape if n > 1]
+        flags = [None, None, None]
+        return [([p], [p, p, p] + flags)
+                for p, dim in ((Replicate(), None), (Shard(0), 0),
+                               (Shard(2), 2))
+                if dim is None or all(k.shape[dim] % n == 0 for n in sizes)]
+
+
+_register_sharding()

@@ -1,4 +1,5 @@
-"""Dry run: count every (arch x shape) cell on meta tensors, on one card.
+"""Dry run: count every (arch x shape) cell on meta tensors: the step on
+one card, or one device's share of it on a production mesh.
 
 The counterpart of ``repro.launch.dryrun``.  Where ``repro`` lowers and
 compiles each cell's jitted step for a 512-device mesh, this module
@@ -22,26 +23,27 @@ Each cell's record is written to ``build/repro_torch/dryrun/`` (never
 traceback.
 
 ``--mesh pod`` (16 x 16, 256 chips) and ``--mesh multipod`` (2 x 16 x 16,
-512) shard the cell's arguments instead: the parameters, optimizer state,
-batch and cache take ``repro``'s partition specs (``distributed/
-sharding.py``, ``train/steps.state_specs``) on the abstract production
-mesh, placed as DTensors on a ``DeviceMesh`` under a ``fake`` process group
-of 256 or 512 ranks, on meta tensors; the record gives each category's
-bytes on one device, summed from the leaves' shard shapes, and
-``step_counted: false``: the sharded step, one device's share of its
-FLOPs, bytes and collective wire bytes, is not counted yet (ROADMAP §1
-item 5.5d)::
+512) count one device's share of the sharded step, as ``repro``'s dry run
+reports one partition's counts: the parameters, optimizer state, batch
+and cache take ``repro``'s partition specs (``distributed/sharding.py``,
+``train/steps.state_specs``) as DTensors on a ``DeviceMesh`` of the
+abstract production mesh under a ``fake`` process group of 256 or 512
+ranks, their blocks on meta; the step runs on them
+(``context.sharded_step``) and ``op_cost`` charges the ops on this
+device's blocks and the collectives the redistributions launch, which
+the fake group never executes.  The record has ``repro``'s keys (FLOPs
+and bytes whole-program: one device's x chips), ``step_counted: true``
+and each argument category's bytes on one device::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod \\
         --arch smollm-360m --shape train_4k
 
-``repro``'s
-``--rwkv-unroll``, ``--mamba-unroll`` and ``--moe-fp8-dispatch`` are not
-offered: the port's recurrences are eager loops with nothing to unroll,
-and the fp8 dispatch belongs to the expert-parallel path
-(``models/moe.py`` ``apply_ep``), which a step takes only on a mesh whose
-model axis has several devices: the card's one-device step is dense, and
-the sharded cells do not count their step.
+``repro``'s ``--rwkv-unroll`` and ``--mamba-unroll`` are not offered:
+the port's recurrences are eager loops with nothing to unroll.
+``--moe-fp8-dispatch`` acts where the step takes the expert-parallel
+path (``models/moe.py`` ``apply_ep``), on a mesh whose model axis has
+several devices: the sharded cells of the MoE archs; the card's
+one-device step is dense.
 """
 
 from __future__ import annotations
@@ -71,9 +73,6 @@ MESH = "card"
 MESHES = (MESH, "pod", "multipod")
 # the argument categories of a sharded cell's record
 CATEGORIES = ("params", "optimizer_state", "batch", "cache")
-NOT_COUNTED = ("the sharded step's FLOPs, bytes and collective wire bytes "
-               "a device are not counted yet (ROADMAP §1 item 5.5d): only "
-               "its arguments are sharded")
 OUT = os.path.join("build", "repro_torch", "dryrun")
 
 
@@ -121,15 +120,21 @@ def count_cell(cfg, shape: shp.ShapeSpec, arch: str) -> dict:
     t0 = time.time()
     step_fn, args = step_and_args(cfg, shape)
     cost = op_cost.count(step_fn, *args)
-    trace_s = time.time() - t0
+    return _record(cfg, shape, arch, MESH, 1, cost, time.time() - t0)
+
+
+def _record(cfg, shape, arch: str, mesh_name: str, chips: int, cost,
+            trace_s: float) -> dict:
+    """A counted cell's record: ``cost`` is one device's, the FLOPs and
+    bytes ``chips`` times it (``repro``'s whole-program convention)."""
     rl = roofline.analyze(
-        cost, arch=arch, shape=shape.name, mesh_name=MESH, chips=1,
+        cost, arch=arch, shape=shape.name, mesh_name=mesh_name, chips=chips,
         model_flops=roofline.model_flops_for(cfg, shape,
                                              active_param_count(cfg)),
         dtype=cfg.dtype)
     return {
-        "arch": arch, "shape": shape.name, "mesh": MESH,
-        "status": "OK", "chips": 1, "trace_s": round(trace_s, 2),
+        "arch": arch, "shape": shape.name, "mesh": mesh_name,
+        "status": "OK", "chips": chips, "trace_s": round(trace_s, 2),
         "compute_type": roofline.compute_type(cfg.dtype),
         "hlo_flops": rl.hlo_flops, "hlo_bytes": rl.hlo_bytes,
         "coll_bytes_per_chip": rl.coll_bytes_per_chip,
@@ -179,35 +184,61 @@ def argument_trees(cfg, shape: shp.ShapeSpec, mesh) -> dict:
     return trees
 
 
-def shard_bytes(tree, named_tree) -> int:
-    """Bytes of one device's shards of a meta tree's leaves."""
-    named = dict(shd.leaves_with_path(named_tree))
-    return sum(named[path].distribute(leaf).to_local().numel()
-               * leaf.element_size()
-               for path, leaf in shd.leaves_with_path(tree))
+def _block_bytes(tree) -> int:
+    """Bytes of this device's blocks of a tree of DTensors."""
+    return sum(leaf.to_local().numel() * leaf.element_size()
+               for _, leaf in shd.leaves_with_path(tree))
+
+
+def sharded_step_and_args(cfg, shape: shp.ShapeSpec, mesh):
+    """The cell's step, its arguments as DTensors of ``repro``'s specs on
+    ``mesh``'s ``DeviceMesh``, and each category's bytes on one device.
+    Call under a process group of the mesh's size; the arguments' blocks
+    are meta."""
+    step_fn, _ = step_and_args(cfg, shape)
+    dmesh = shd.device_mesh(mesh)
+    placed = {category: shd.distribute(tree, shd.to_named(mesh, specs,
+                                                           dmesh))
+              for category, (tree, specs) in
+              argument_trees(cfg, shape, mesh).items()}
+    per_device = dict.fromkeys(CATEGORIES, 0)
+    per_device.update({category: _block_bytes(tree)
+                       for category, tree in placed.items()})
+    if shape.step == "train":
+        args = ({"params": placed["params"], **placed["optimizer_state"]},
+                placed["batch"])
+    elif shape.step == "prefill":
+        args = (placed["params"], placed["batch"])
+    else:
+        args = (placed["params"], placed["cache"], placed["batch"],
+                shape.seq_len - 1)
+    return step_fn, args, per_device
+
+
+def count_sharded(cfg, shape: shp.ShapeSpec, mesh):
+    """One device's :class:`op_cost.ModuleCost` of the cell's step on
+    ``mesh`` (:func:`sharded_step_and_args`, then the step counted under
+    ``context.sharded_step``), and its arguments' bytes by category."""
+    step_fn, args, per_device = sharded_step_and_args(cfg, shape, mesh)
+    with dctx.sharded_step(mesh):
+        cost = op_cost.count(step_fn, *args)
+    return cost, per_device
 
 
 def shard_cell(cfg, shape: shp.ShapeSpec, arch: str, mesh_name: str) -> dict:
-    """The record of one supported cell on ``pod`` or ``multipod``: its
-    arguments' bytes a device, by category, under a fake process group of
-    the mesh's size (torn down after the cell)."""
+    """The record of one supported cell on ``pod`` or ``multipod``: one
+    device's share of its sharded step counted on meta under a fake
+    process group of the mesh's size (torn down after the cell), with
+    its arguments' bytes a device by category."""
     t0 = time.time()
     mesh = production_mesh(mesh_name)
-    trees = argument_trees(cfg, shape, mesh)
-    per_device = dict.fromkeys(CATEGORIES, 0)
     with dctx.fake_process_group(mesh.size):
-        dmesh = shd.device_mesh(mesh)
-        for category, (tree, specs) in trees.items():
-            per_device[category] = shard_bytes(
-                tree, shd.to_named(mesh, specs, dmesh))
-    return {
-        "arch": arch, "shape": shape.name, "mesh": mesh_name,
-        "status": "OK", "chips": mesh.size,
-        "trace_s": round(time.time() - t0, 2),
-        "step_counted": False, "step_note": NOT_COUNTED,
-        "argument_bytes_per_device": per_device,
-        "bytes_per_chip": {"argument": sum(per_device.values())},
-    }
+        cost, per_device = count_sharded(cfg, shape, mesh)
+    rec = _record(cfg, shape, arch, mesh_name, mesh.size, cost,
+                  time.time() - t0)
+    rec["step_counted"] = True
+    rec["argument_bytes_per_device"] = per_device
+    return rec
 
 
 def skipped(cfg, arch: str, shape_name: str, mesh_name: str = MESH):
@@ -222,8 +253,9 @@ def skipped(cfg, arch: str, shape_name: str, mesh_name: str = MESH):
 def lower_cell(arch: str, shape_name: str, overrides=None,
                mesh_name: str = MESH) -> dict:
     """One cell's record: SKIPPED where ``cell_supported`` says so, else
-    its counted step on the card, or its sharded arguments on ``pod`` or
-    ``multipod`` (exceptions propagate; :func:`main` records them)."""
+    its step counted on the card, or one device's share of its sharded
+    step on ``pod`` or ``multipod`` (exceptions propagate; :func:`main`
+    records them)."""
     cfg = cell_config(arch, overrides)
     shape = shp.SHAPES[shape_name]
     if mesh_name not in MESHES:
@@ -239,7 +271,8 @@ def main(argv=None):
     ap.add_argument("--shape", default="all", help="shape name or 'all'")
     ap.add_argument("--mesh", default=MESH, choices=MESHES,
                     help=f"{MESH}: the step counted on one card; pod, "
-                         f"multipod: the arguments sharded")
+                         f"multipod: one device's share of the sharded "
+                         f"step")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--quant", default=None, help="e.g. 'binary'")
     ap.add_argument("--width-mult", type=float, default=None)
@@ -248,6 +281,8 @@ def main(argv=None):
                     help="repro's HLO dump: an eager step has no HLO")
     ap.add_argument("--rwkv-chunk", type=int, default=None,
                     help="GLA-style chunked WKV (perf knob)")
+    ap.add_argument("--moe-fp8-dispatch", action="store_true",
+                    help="fp8 dispatch all-to-all for EP MoE (perf knob)")
     ap.add_argument("--attn-probs-bf16", action="store_true",
                     help="bf16 attention probabilities (perf knob)")
     ap.add_argument("--bf16-grads", action="store_true",
@@ -265,6 +300,8 @@ def main(argv=None):
         overrides["width_mult"] = args.width_mult
     if args.rwkv_chunk:
         overrides["rwkv_chunk"] = args.rwkv_chunk
+    if args.moe_fp8_dispatch:
+        overrides["moe_dispatch_fp8"] = True
     if args.attn_probs_bf16:
         overrides["attn_probs_bf16"] = True
     if args.bf16_grads:
@@ -287,15 +324,14 @@ def main(argv=None):
                 json.dump(res, f, indent=1)
             if res["status"] != "OK":
                 tail = f" {res.get('reason', res.get('error', ''))[:90]}"
-            elif "step_counted" in res:
-                tail = (f" args/device="
-                        f"{res['bytes_per_chip']['argument'] / 1e9:.3f}GB "
-                        f"of {res['chips']} chips (step not counted)"
-                        f" trace={res['trace_s']:.1f}s")
             else:
                 tail = (f" dom={res['bottleneck']:10s}"
                         f" roofline={res['roofline_fraction']:.2%}"
                         f" trace={res['trace_s']:.1f}s")
+                if res["chips"] > 1:
+                    tail += (f" args/device="
+                             f"{res['bytes_per_chip']['argument'] / 1e9:.3f}"
+                             f"GB of {res['chips']} chips")
             line = (f"[{res['status']:7s}] {arch:18s} {sn:12s} "
                     f"{args.mesh:8s}" + tail)
             print(line, flush=True)

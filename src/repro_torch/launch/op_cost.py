@@ -60,6 +60,17 @@ send (a collective-permute's share) its bytes.  A step on one card issues
 none: ``coll_wire_bytes`` is 0 and ``coll_breakdown`` lists the five
 kinds at 0.
 
+DTensors (one device's share of a sharded step, ``dryrun --mesh``): an op
+on DTensors is charged by the ops its DTensor dispatch runs on this
+device's blocks, and the collectives its redistributions launch
+(DTensor's ``_dtensor::shard_dim_alltoall`` an all-to-all) by the rules
+above with n the mesh dim's size; never at the DTensor's global shape.
+DTensor's sharding propagation runs ops no device runs (fake tensors of
+the global shapes, an op's decomposition, the blocks' offsets on the
+host), only where its cache misses: the counter charges nothing while
+it runs.  ``argument_bytes``, ``output_bytes`` and ``peak_bytes`` are
+the blocks'.  On plain tensors none of this applies.
+
 ``peak_bytes`` is the peak of live tensor bytes during the call: the
 arguments' storages, then every storage an op creates, each counted from
 its creation to its release.  A scaled :func:`scan` adds the bytes the
@@ -71,6 +82,7 @@ frees them one iteration at a time).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -85,6 +97,12 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import flash_attention as _fa  # noqa: F401
                                     # registers repro_torch::flash_attention
+
+try:                                # torch built without distributed
+    from torch.distributed.tensor import DTensor
+except ImportError:                 # pragma: no cover
+    DTensor = ()
+from torch._subclasses.fake_tensor import FakeTensor
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -113,8 +131,10 @@ _WRITE_ONLY = {aten.copy_, aten.fill_, aten.zero_, aten.normal_,
                aten.random_}
 _SORTS = {aten.sort, aten.topk}
 # the collective ops' namespaces, and each kind by a word of the op's name
-# (``c10d::allreduce_``, ``_c10d_functional::all_to_all_single``, ...)
-_COLL_NAMESPACES = ("c10d", "_c10d_functional")
+# (``c10d::allreduce_``, ``_c10d_functional::all_to_all_single``,
+# DTensor's ``_dtensor::shard_dim_alltoall``, ...)
+_COLL_NAMESPACES = ("c10d", "_c10d_functional", "_dtensor")
+_COLL_HANDS_BACK = ("wait_tensor", "_wrap_tensor_autograd")
 _COLL_KINDS = (("allreduce", "all-reduce"), ("all_reduce", "all-reduce"),
                ("allgather", "all-gather"), ("all_gather", "all-gather"),
                ("reduce_scatter", "reduce-scatter"),
@@ -148,6 +168,11 @@ def _tensors(tree):
     return [getattr(x, "elem", x) if type(x).__name__ ==
             "AsyncCollectiveTensor" else x
             for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank; any other tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _storage_key(t: torch.Tensor) -> int:
@@ -197,16 +222,27 @@ class _CountMode(TorchDispatchMode):
     def __init__(self, live: _Live):
         super().__init__()
         self.live = live
+        self.paused = 0         # inside DTensor's sharding propagation
         self.flops = 0.0
         self.bytes = 0.0
         self.coll = {k: 0.0 for k in COLLECTIVES}
         self.scale = 1          # a scaled scan's middle iteration: n - 3
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if DTensor and any(issubclass(t, DTensor) for t in types):
+            # DTensor's own dispatch runs the op on the local blocks (and
+            # launches the redistributions' collectives), each reaching
+            # this mode: one device's charges
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
+        if self.paused or any(isinstance(t, FakeTensor)
+                              for t in ins + outs):
+            # DTensor's sharding propagation (:func:`_propagation_free`):
+            # no device runs it
+            return out
         for t in outs:
             self.live.add(t)
         packet = func.overloadpacket
@@ -230,8 +266,11 @@ class _CountMode(TorchDispatchMode):
     def _collective(self, func, args, ins, outs) -> None:
         """A collective: its bytes, no FLOPs, and its wire bytes by the
         ring rules.  An op that only hands its input back (``wait_tensor``,
-        the autograd wrapper) moves nothing."""
+        the autograd wrapper: on meta tensors their outputs may take a
+        storage of their own) moves nothing."""
         name = func._schema.name.split("::")[-1]
+        if name in _COLL_HANDS_BACK:
+            return
         kind = next((k for word, k in _COLL_KINDS if word in name), None)
         in_keys = {_storage_key(t) for t in ins}
         if kind is None and all(_storage_key(t) in in_keys for t in outs):
@@ -240,9 +279,10 @@ class _CountMode(TorchDispatchMode):
                                     + sum(span_bytes(t) for t in outs))
         if kind is None:
             return
-        functional = func.namespace == "_c10d_functional"
+        functional = func.namespace != "c10d"
         # c10d's in-place ops take (output, input, group, ...), except
-        # allreduce_ and send, which take the tensors they send first
+        # allreduce_ and send, which take the tensors they send first;
+        # the functional ones take their input first
         first = _tensors(args[0])
         second = _tensors(args[1]) if len(args) > 1 else []
         if kind == "collective-permute":
@@ -307,14 +347,14 @@ def count(fn: Callable, *args, **kwargs) -> ModuleCost:
     too, where it calls one) and return its :class:`ModuleCost`; the
     result is dropped."""
     live = _Live()
-    arg_tensors = _tensors((args, kwargs))
+    arg_tensors = [_local(t) for t in _tensors((args, kwargs))]
     for t in arg_tensors:
         live.add(t)
     argument = live.live
     mode = _CountMode(live)
-    with mode:
+    with mode, _propagation_free(mode):
         out = fn(*args, **kwargs)
-    output = _unique_bytes(_tensors(out))
+    output = _unique_bytes([_local(t) for t in _tensors(out)])
     del out
     return ModuleCost(flops=mode.flops, bytes=mode.bytes,
                       coll_wire_bytes=sum(mode.coll.values()),
@@ -322,6 +362,45 @@ def count(fn: Callable, *args, **kwargs) -> ModuleCost:
                       peak_bytes=float(live.peak),
                       argument_bytes=float(argument),
                       output_bytes=float(output))
+
+
+_PROPAGATORS = ("propagate", "propagate_op_sharding",
+                "propagate_op_sharding_non_cached")
+
+
+@contextlib.contextmanager
+def _propagation_free(mode: _CountMode):
+    """While DTensor's sharding propagation runs, ``mode`` charges
+    nothing: it runs ops that no device runs (an op's decomposition on
+    tensors of the global shapes, the blocks' sizes and offsets on the
+    host), and only where its cache misses, so charging them would make
+    a count depend on what ran before it.  The propagator's entry points
+    (whichever of ``_PROPAGATORS`` this torch has) are wrapped for the
+    block."""
+    prop = getattr(getattr(DTensor, "_op_dispatcher", None),
+                   "sharding_propagator", None) if DTensor else None
+    own = {}
+    for name in _PROPAGATORS:
+        fn = getattr(prop, name, None)
+        if fn is None:
+            continue
+        own[name] = prop.__dict__.get(name)
+
+        def paused(*args, _fn=fn, **kwargs):
+            mode.paused += 1
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                mode.paused -= 1
+        setattr(prop, name, paused)
+    try:
+        yield
+    finally:
+        for name, fn in own.items():
+            if fn is None:
+                delattr(prop, name)
+            else:
+                setattr(prop, name, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +421,9 @@ def scan(step: Callable, carry: torch.Tensor, n: int, dim: int = 0):
     over an index, as a Python loop.  Under :func:`count` on meta tensors
     (n > 4), four iterations run: the first and the last two as they are,
     and one middle one whose charges, forward and backward, count n - 3
-    times (the module docstring says why that is exact)."""
+    times (the module docstring says why that is exact): the middle
+    iterations must be alike, so a step on a DTensor carry keeps its
+    placements (``sharding.carry_placed``)."""
     mode = _counter()
     if mode is None or n <= 4 or carry.device.type != "meta":
         ys = []
@@ -369,7 +450,7 @@ def _scaled_scan(mode: _CountMode, step, carry, n: int, dim: int):
         mode.scale //= k
     # the n - 4 iterations not run: their outputs, live until the stack,
     # and what each keeps (for the backward, or nothing)
-    one = ym.untyped_storage().nbytes()
+    one = _local(ym).untyped_storage().nbytes()
     out_bytes = one * (k - 1)
     kept = max(mode.live.live - before - one, 0) * (k - 1)
     mode.live.grow(out_bytes + kept)

@@ -16,12 +16,16 @@ runs float32 matmuls at the float32 rate unless TF32 is allowed
 (``torch.backends.cuda.matmul.allow_tf32``), which the port does not do;
 ``repro`` has one constant for every cell.
 
-``repro``'s ``collective_bytes(hlo_text)`` has no counterpart: there is
-no HLO to parse, and one card has no collectives.  The collective fields
-(``coll_bytes_per_chip``, ``coll_breakdown``, ``link_bw``,
-``t_collective``) and ``compile_ok`` are kept, at 0 and True on one card,
-so that a record has ``repro``'s keys and ``Roofline`` holds to
-``repro``'s at its own constants (``tests/test_torch_cost.py``).
+``repro``'s ``collective_bytes(hlo_text)`` parses the compiled HLO; here
+``op_cost`` charges the collectives a step launches over a
+``torch.distributed`` group instead (``c10d`` and functional
+collectives, and DTensor's redistributions, by ``hlo_cost``'s ring
+rules), one device's wire bytes by kind: ``coll_bytes_per_chip`` and
+``coll_breakdown``.  A step on one card launches none (0); one device's
+share of a sharded step (``dryrun --mesh pod|multipod``) does.
+``compile_ok`` is kept at True, so that a record has ``repro``'s keys
+and ``Roofline`` holds to ``repro``'s at its own constants
+(``tests/test_torch_cost.py``).
 """
 
 from __future__ import annotations

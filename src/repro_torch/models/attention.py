@@ -14,10 +14,13 @@ kernel on the TPU.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+from torch._prims_common import make_contiguous_strides_for
 
+from repro_torch.distributed import context as dctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import common
@@ -149,7 +152,13 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *,
                      softcap: Optional[float] = None,
                      scale: Optional[float] = None):
     """q: (B,1,H,D); caches: (B,L,KH,D); cache_len: count of valid
-    positions INCLUDING the token at cache_len-1 (the one just written)."""
+    positions INCLUDING the token at cache_len-1 (the one just written).
+    DTensor caches whose positions are split over a mesh dim take
+    :func:`_split_k_decode`."""
+    axis = shd.sharded_axis(k_cache, 1)
+    if axis is not None:
+        return _split_k_decode(q, k_cache, v_cache, cache_len, axis,
+                               window=window, softcap=softcap, scale=scale)
     b, _, h, d = q.shape
     kh = k_cache.shape[2]
     g = h // kh
@@ -168,6 +177,66 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgl,blhd->bhgd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _split_k_decode(q, k_cache, v_cache, cache_len: int, axis: int, *,
+                    window=None, softcap=None, scale=None):
+    """:func:`decode_attention` on DTensor caches whose positions are
+    split over mesh dim ``axis``, as XLA partitions it: each device
+    scores its block of the cache against every head of its rows of q
+    (gathered over that dim), and the softmax's maxima and sums and the
+    weighted values' partial sums, (B, KH, G[, D]) each, are all-reduced
+    over it; the cache is never gathered.  The output is placed as the
+    cache's rows, whole on every other mesh dim."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dmesh, mesh = k_cache.device_mesh, dctx.current_mesh()
+    name = dmesh.mesh_dim_names[axis]
+    place = [p if p.is_shard(0) else Replicate() for p in k_cache.placements]
+    ql = q.redistribute(dmesh, place).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    b, _, h, d = ql.shape
+    kh, n = kl.shape[2], kl.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    s = torch.einsum("bhgd,blhd->bhgl", ql.reshape(b, kh, h // kh, d),
+                     kl).float() * scale
+    if softcap is not None:
+        s = common.softcap(s, softcap)
+    lpos = (torch.arange(n, device=kl.device)
+            + dmesh.get_local_rank(axis) * n)
+    mask = lpos < cache_len
+    if window is not None:
+        mask = mask & (lpos > cache_len - 1 - window)
+    s = torch.where(mask[None, None, None, :], s, NEG_INF)
+    m = dctx.pmax(s.amax(dim=-1, keepdim=True), mesh, name)
+    e = torch.exp(s - m)
+    z = dctx.psum(e.sum(dim=-1, keepdim=True), mesh, name)
+    out = dctx.psum(torch.einsum("bhgl,blhd->bhgd", e, vl.float()), mesh,
+                    name) / z
+    return DTensor.from_local(out.reshape(b, 1, h, d).to(q.dtype), dmesh,
+                              place)
+
+
+def _on_head_blocks(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)``, attention in which every (row, head) is
+    independent.  On DTensors it runs on each device's blocks, as
+    ``shard_map`` over the batch and the heads: a mesh dim keeps q's
+    split of the batch, and of the heads where the dims splitting them
+    divide KH (a device's q heads then read only its KV heads); every
+    other dim is made whole first.  The output is a DTensor placed as
+    the blocks.  Plain tensors run as they are."""
+    if not hasattr(q, "placements"):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Replicate
+    dmesh = q.device_mesh
+    heads = math.prod(dmesh.size(a) for a, p in enumerate(q.placements)
+                      if p.is_shard(2))
+    place = [p if p.is_shard(0) or (p.is_shard(2)
+                                    and k.shape[2] % heads == 0)
+             else Replicate() for p in q.placements]
+    out = fn(*(t.redistribute(dmesh, place).to_local() for t in (q, k, v)),
+             **kw)
+    return DTensor.from_local(out, dmesh, place, shape=q.shape,
+                              stride=make_contiguous_strides_for(q.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -205,12 +274,12 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     quant = cfg.quant
     bfg = cfg.bf16_grads
-    q = common.linear_apply(params["wq"], x, quant=quant,
-                            bf16_grads=bfg).reshape(b, s, h, dh)
-    k = common.linear_apply(params["wk"], x, quant=quant,
-                            bf16_grads=bfg).reshape(b, s, kv, dh)
-    v = common.linear_apply(params["wv"], x, quant=quant,
-                            bf16_grads=bfg).reshape(b, s, kv, dh)
+    # a head axis split over devices keeps q's heads with their KV group:
+    # its devices must divide the KV heads, or the projections' outputs
+    # are replicated first (sharding.split_ready; plain tensors pass)
+    q, k, v = (shd.split_ready(common.linear_apply(
+        params[w], x, quant=quant, bf16_grads=bfg), -1, kv).reshape(
+            b, s, n, dh) for w, n in (("wq", h), ("wk", kv), ("wv", kv)))
     if cfg.qk_norm:
         q = common.rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
         k = common.rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
@@ -223,10 +292,10 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
             y = ops.flash_attention(q, k, v, causal=True,
                                     probs_bf16=cfg.attn_probs_bf16)
         else:
-            y = chunked_attention(q, k, v, causal=True, window=window,
-                                  softcap=cfg.attn_softcap,
-                                  chunk_q=chunk_q, chunk_k=chunk_k,
-                                  probs_bf16=cfg.attn_probs_bf16)
+            y = _on_head_blocks(chunked_attention, q, k, v, causal=True,
+                                window=window, softcap=cfg.attn_softcap,
+                                chunk_q=chunk_q, chunk_k=chunk_k,
+                                probs_bf16=cfg.attn_probs_bf16)
         if mode == "prefill":              # cache leaves: sequence-sharded
             k = shd.constrain(k, ("dp", "sp", None, None))
             v = shd.constrain(v, ("dp", "sp", None, None))
@@ -234,13 +303,13 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
     else:  # decode: write (k, v) at position cache_len
         kc, vc = cache
         idx = int(cache_len)
-        kc[:, idx:idx + 1] = k.to(kc.dtype)
-        vc[:, idx:idx + 1] = v.to(vc.dtype)
+        shd.write_position(kc, idx, k)
+        shd.write_position(vc, idx, v)
         kc = shd.constrain(kc, ("dp", "sp", None, None))
         vc = shd.constrain(vc, ("dp", "sp", None, None))
         y = decode_attention(q, kc, vc, idx + 1, window=window,
                              softcap=cfg.attn_softcap)
         new_kv = (kc, vc)
-    y = y.reshape(b, s, h * dh)
+    y = shd.split_ready_grad(y.reshape(b, s, h * dh), -1, kv)
     return common.linear_apply(params["wo"], y, quant=quant,
                                bf16_grads=bfg), new_kv

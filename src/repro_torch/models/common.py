@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import binarize
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +176,35 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
 
 
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, params["table"])
+    return embedding(tokens, params["table"])
+
+
+def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  A DTensor table whose rows (the
+    vocab) are split over a mesh dim of several devices is looked up as
+    XLA partitions the gather: its other dims gathered, each device
+    looks up the tokens inside its rows (the others masked to 0) and the
+    (B, S, D) partial results are summed over that mesh dim, its
+    gradient scattered back into each device's rows (a partial sum over
+    the mesh dims that split the tokens)."""
+    axis = shd.sharded_axis(table, 0)
+    if axis is None:
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dmesh = table.device_mesh
+    place = list(tokens.placements)
+    place[axis] = Replicate()
+    rows = [Replicate()] * dmesh.ndim
+    rows[axis] = table.placements[axis]
+    grads = [Partial() if p.is_shard() else r for p, r in zip(place, rows)]
+    local = table.redistribute(dmesh, rows).to_local(grad_placements=grads)
+    tok = tokens.redistribute(dmesh, place).to_local()
+    rel = tok - dmesh.get_local_rank(axis) * local.shape[0]
+    inside = (rel >= 0) & (rel < local.shape[0])
+    out = F.embedding(torch.where(inside, rel, 0), local)
+    out = torch.where(inside[..., None], out, 0.0)
+    out = dctx.psum(out, dctx.current_mesh(), dmesh.mesh_dim_names[axis])
+    return DTensor.from_local(out, dmesh, place)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch.op_cost import scan
 from repro_torch.models import common
 
@@ -61,8 +62,9 @@ def _causal_conv(x, w, b, state=None):
     or None.  Returns (out, new_state)."""
     dc = w.shape[0]
     if state is None:
-        pad = torch.zeros((x.shape[0], dc - 1, x.shape[2]), dtype=x.dtype,
-                          device=x.device)
+        pad = shd.built_like(lambda sh: torch.zeros(
+            sh, dtype=x.dtype, device=x.device),
+            (x.shape[0], dc - 1, x.shape[2]), x, {0: 0, 2: 2})
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -102,7 +104,9 @@ def apply(params, cfg, x: torch.Tensor, *, state=None):
     a = -torch.exp(params["A_log"])                     # (di, ds)
     xf = xc.float()
     h = (state[1] if state is not None
-         else torch.zeros((b, di, ds), dtype=torch.float32, device=x.device))
+         else shd.built_like(lambda sh: torch.zeros(
+             sh, dtype=torch.float32, device=x.device), (b, di, ds), xf,
+             {0: 0, 1: 2}))
 
     def step(h, t):
         dtt = dt[:, t]
@@ -111,7 +115,7 @@ def apply(params, cfg, x: torch.Tensor, *, state=None):
         h = da * h + dbx
         return h, torch.einsum("bds,bs->bd", h, cm[:, t])
 
-    h, y = scan(step, h, s, dim=1)
+    h, y = scan(shd.carry_placed(step, h), h, s, dim=1)
     y = y + xf * params["D"][None, None, :]
     y = y.to(x.dtype) * F.silu(z)
     out = common.linear_apply(params["out_proj"], y, **kw)

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import eff_d_expert
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import P
 from repro_torch.models import common
 
@@ -81,8 +82,10 @@ def _route(x2d: torch.Tensor, router_w: torch.Tensor, m):
     # the experts each token chose, as 0/1 (the top-k are distinct):
     # F.one_hot(sel).sum(1), built the same on every device (one_hot
     # checks its input on the host off CUDA, and decomposes on meta)
-    chosen = torch.zeros((sel.shape[0], m.num_experts), dtype=torch.float32,
-                         device=sel.device).scatter_(1, sel, 1.0)
+    # (a DTensor's blocks beside DTensor routes: the scatter is in place)
+    chosen = shd.built_like(lambda sh: torch.zeros(
+        sh, dtype=torch.float32, device=sel.device),
+        (sel.shape[0], m.num_experts), sel, {0: 0}).scatter_(1, sel, 1.0)
     ce = chosen.mean(dim=0) / m.top_k
     lb = m.num_experts * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
@@ -160,7 +163,11 @@ def _sorted_slots(fe, n_keys: int, cap: int):
     each one's position among its key's pairs."""
     order = torch.argsort(fe, stable=True)
     fe_s = fe[order]
-    counts = torch.bincount(fe, minlength=n_keys)
+    # bincount, written so that meta tensors take it (its output length
+    # depends on the data, so it has no meta kernel)
+    counts = torch.zeros(n_keys, dtype=torch.int64,
+                         device=fe.device).index_add_(0, fe,
+                                                      torch.ones_like(fe))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(fe.shape[0], device=fe.device) - starts[fe_s]
     return order, fe_s, pos
@@ -230,9 +237,20 @@ def apply_ep(params, cfg, x: torch.Tensor, mesh):
                          ep_axis="model")
     for ax in dp:
         aux = dctx.pmean(aux, mesh, ax)
-    out = dctx.global_value(out.reshape(bl, sl, d), mesh, spec, x.shape)
+    out, aux = _global(out.reshape(bl, sl, d), aux, mesh, spec, x)
     if "shared" in params:
         out = out + _shared(params, cfg, x.reshape(-1, d)).reshape(b, s, d)
+    return out, aux
+
+
+def _global(out, aux, mesh, spec, x):
+    """The body's output block as the global value of ``x``'s shape, and
+    its (replicated) aux loss; on a DTensor ``x``, both DTensors on its
+    mesh, so that their gradients come back as blocks."""
+    dmesh = getattr(x, "device_mesh", None)
+    out = dctx.global_value(out, mesh, spec, x.shape, dmesh)
+    if dmesh is not None:
+        aux = dctx.global_value(aux, mesh, P(), aux.shape, dmesh)
     return out, aux
 
 
@@ -289,7 +307,7 @@ def apply_ep_decode(params, cfg, x: torch.Tensor, mesh):
                                 ep_axis="model")
     for ax in dp:
         aux = dctx.pmean(aux, mesh, ax)
-    out = dctx.global_value(out.reshape(bl, sl, d), mesh, spec, x.shape)
+    out, aux = _global(out.reshape(bl, sl, d), aux, mesh, spec, x)
     if "shared" in params:
         out = out + _shared(params, cfg, x.reshape(-1, d)).reshape(b, s, d)
     return out, aux

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import eff_d_ff
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch.op_cost import scan
 from repro_torch.models import common
 
@@ -146,7 +147,7 @@ def _wkv_chunked(rh, kh, vh, wh, u, S0, chunk: int, sub_chunk: int = 16):
         S = p_l[..., :, None] * S + torch.einsum("bhci,bhcj->bhij", k_o, v_t)
         return S, y_state + y_intra + y_bonus
 
-    S, y = scan(step, S0, n, dim=0)
+    S, y = scan(shd.carry_placed(step, S0), S0, n, dim=0)
     y = y.permute(1, 0, 3, 2, 4).reshape(b, s, nh, hs)
     return S, y
 
@@ -159,7 +160,7 @@ def _wkv_scan(rh, kh, vh, wh, u, S):
                          S + u[None, :, :, None] * kv)
         return wh[:, t, :, :, None] * S + kv, y
 
-    return scan(step, S, rh.shape[1], dim=1)
+    return scan(shd.carry_placed(step, S), S, rh.shape[1], dim=1)
 
 
 def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
@@ -174,7 +175,7 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
     dx = xs - x
     xxx = x + dx * params["mu_x"].to(x.dtype)
     lora = torch.tanh(torch.matmul(xxx, params["mix_w1"].to(x.dtype)))
-    lora = lora.reshape(b, s, 5, rc.mix_lora)
+    lora = shd.split_ready(lora, -1, 5).reshape(b, s, 5, rc.mix_lora)
     mods = torch.einsum("bsfm,fmd->bsfd", lora, params["mix_w2"].to(x.dtype))
     feeds = {k: x + dx * (params["mu"][k].to(x.dtype) + mods[:, :, i])
              for i, k in enumerate(_MIX_KEYS)}
@@ -190,19 +191,23 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
     v = common.linear_apply(params["wv"], feeds["v"], **kw)
     g = F.silu(common.linear_apply(params["wg"], feeds["g"], **kw))
 
-    rh, kh, vh = (t.reshape(b, s, nh, hs).float() for t in (r, k, v))
-    wh = w.reshape(b, s, nh, hs)
+    # a head axis split over devices must divide the heads, else the
+    # projections are replicated first (sharding.split_ready)
+    rh, kh, vh = (shd.split_ready(t, -1, nh).reshape(b, s, nh, hs).float()
+                  for t in (r, k, v))
+    wh = shd.split_ready(w, -1, nh).reshape(b, s, nh, hs)
     u = params["u"]                                      # (H, hs)
     S0 = (state[1] if state is not None
-          else torch.zeros((b, nh, hs, hs), dtype=torch.float32,
-                           device=x.device))
+          else shd.built_like(lambda sh: torch.zeros(
+              sh, dtype=torch.float32, device=x.device), (b, nh, hs, hs),
+              rh, {0: 0, 1: 2}))
     chunk = rc.chunk
     if chunk and s % chunk == 0 and not (s == 1 and mode == "decode"):
         S, y = _wkv_chunked(rh, kh, vh, wh, u, S0, chunk,
                             sub_chunk=getattr(rc, "sub_chunk", 16))
     else:
         S, y = _wkv_scan(rh, kh, vh, wh, u, S0)
-    y = y.reshape(b, s, d).to(x.dtype)
+    y = shd.split_ready_grad(y.reshape(b, s, d), -1, nh).to(x.dtype)
     y = common.rmsnorm_apply(params["ln_x"], y, cfg.norm_eps) * g
     out = common.linear_apply(params["wo"], y, **kw)
     return out, (x[:, -1:], S)

@@ -23,10 +23,10 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import device as _device
 from repro_torch.configs import base as cfgbase
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention, common, mamba, mlp, moe, rwkv6
 
 ATTN_KINDS = ("attn", "local", "global", "dense", "attn_moe")
@@ -135,10 +135,19 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
 # Blocks
 # ---------------------------------------------------------------------------
 
+def _stream(x):
+    """The residual stream as ``forward`` lays it out on a mesh: the
+    batch over the data axes, whole on "model", so that each sublayer's
+    partial sums are reduced where they join it, as Megatron's tensor
+    parallelism reduces them; the identity without a mesh or on one
+    device."""
+    return shd.constrain(x, ("dp", None, None))
+
+
 def _residual(x, y, params, which, cfg):
     if cfg.post_block_norm:
         y = common.rmsnorm_apply(params[f"{which}_post"], y, cfg.norm_eps)
-    return x + y
+    return _stream(x + y)
 
 
 def block_apply(params, cfg, kind, x, cos, sin, *, mode="train",
@@ -154,12 +163,12 @@ def block_apply(params, cfg, kind, x, cos, sin, *, mode="train",
             params["rwkv"], cfg, h,
             state=(st.get("tm_shift"), st.get("wkv")) if cache else None,
             mode=mode)
-        x = x + y
+        x = _stream(x + y)
         h2 = common.rmsnorm_apply(params["rwkv"]["ln_x2"], x, cfg.norm_eps)
         y2, cm_shift = rwkv6.channel_mix(
             params["rwkv"], cfg, h2, state=st.get("cm_shift") if cache
             else None)
-        x = x + y2
+        x = _stream(x + y2)
         new_cache = {"tm_shift": tm_state[0], "wkv": tm_state[1],
                      "cm_shift": cm_shift}
         return x, new_cache, aux
@@ -193,7 +202,7 @@ def _embed(params, cfg, batch):
     elif cfg.num_codebooks > 1:
         # tokens (B, S, ncb), tables (ncb, V, D): summed in codebook order
         tbl, toks = params["embed"]["table"], batch["tokens"]
-        x = sum(F.embedding(toks[..., c], tbl[c])
+        x = sum(common.embedding(toks[..., c], tbl[c])
                 for c in range(cfg.num_codebooks))
     else:
         x = common.embed_apply(params["embed"], batch["tokens"])
@@ -207,14 +216,17 @@ def _rope(cfg, batch, x):
         return None, None
     b, s = x.shape[:2]
     pos = batch.get("positions")
+    # positions built on each device for its rows of the batch
     if cfg.mrope:
         if pos is None:
-            pos = torch.arange(s, device=x.device)[None, :, None].expand(
-                b, s, 3)
+            pos = shd.built_like(lambda sh: torch.arange(
+                s, device=x.device)[None, :, None].expand(sh), (b, s, 3), x,
+                {0: 0})
         return common.mrope_cos_sin(pos, cfg.head_dim, cfg.rope_theta,
                                     cfg.mrope_sections)
     if pos is None:
-        pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        pos = shd.built_like(lambda sh: torch.arange(
+            s, device=x.device)[None, :].expand(sh), (b, s), x, {0: 0})
     return common.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
 
 
@@ -229,6 +241,7 @@ def forward(params, cfg, batch, *, mode: str = "train",
     recurrent blocks' new states are copied into theirs) and returns it.
     """
     x = _embed(params, cfg, batch).to(common.dtype_of(cfg))
+    x = _stream(x)
     cos, sin = _rope(cfg, batch, x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -274,7 +287,14 @@ def lm_logits(params, cfg, hidden):
     """hidden (B,S,D) -> logits (B,S,V), or (B,S,ncb,V) with codebooks."""
     if cfg.num_codebooks > 1:
         w = params["lm_head"]["w"]                       # (ncb, D, V)
-        logits = torch.einsum("bsd,cdv->bscv", hidden, w.to(hidden.dtype))
+        if hasattr(hidden, "placements"):
+            # a product a codebook: the einsum's one batched product
+            # would merge the batch's mesh dims with the codebooks'
+            logits = torch.stack([torch.matmul(hidden, w[c].to(hidden.dtype))
+                                  for c in range(cfg.num_codebooks)], dim=2)
+        else:
+            logits = torch.einsum("bsd,cdv->bscv", hidden,
+                                  w.to(hidden.dtype))
     elif cfg.tie_embeddings:
         logits = torch.matmul(hidden,
                               params["embed"]["table"].to(hidden.dtype).t())

@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
+from repro_torch.distributed import context as dctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers as opt
@@ -38,10 +39,41 @@ def _ce_chunk(params, cfg, h_chunk, labels_chunk):
     logits = transformer.lm_logits(params, cfg, h_chunk).to(torch.float32)
     logits = shd.constrain(
         logits, ("dp",) + (None,) * (logits.ndim - 2) + ("tp",))
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels_chunk.to(torch.int64)[..., None])[..., 0]
-    return torch.sum(lse - gold)
+    labels_chunk = labels_chunk.to(torch.int64)
+    vocab_axis = shd.sharded_axis(logits, logits.ndim - 1)
+    if vocab_axis is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels_chunk[..., None])[..., 0]
+    else:
+        lse, gold = _vocab_parallel_lse_gold(logits, labels_chunk,
+                                             vocab_axis)
+    return torch.sum(shd.grad_placed(lse - gold))
+
+
+def _vocab_parallel_lse_gold(logits, labels, axis: int):
+    """``logsumexp(logits, -1)`` and ``logits`` at ``labels`` for a DTensor
+    whose vocab (last) axis is split over mesh dim ``axis``, as XLA
+    partitions both: each device reduces its block (max, then the sum of
+    exponentials) and picks the labels inside it (the others masked to
+    0), and the (B, c) partial results are all-reduced over ``axis``;
+    the logits are never gathered."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dmesh, mesh = logits.device_mesh, dctx.current_mesh()
+    name = dmesh.mesh_dim_names[axis]
+    place = list(logits.placements)
+    place[axis] = Replicate()            # the (B, c) results' placements
+    lg = logits.to_local()
+    lab = labels.redistribute(dmesh, place).to_local()
+    m = dctx.pmax(lg.detach().amax(dim=-1), mesh, name)
+    s = dctx.psum(torch.exp(lg - m[..., None]).sum(dim=-1), mesh, name)
+    lse = torch.log(s) + m
+    v = lg.shape[-1]
+    rel = lab - dmesh.get_local_rank(axis) * v
+    inside = (rel >= 0) & (rel < v)
+    pick = torch.gather(lg, -1, torch.where(inside, rel, 0)[..., None])
+    gold = dctx.psum(torch.where(inside, pick[..., 0], 0.0), mesh, name)
+    return (DTensor.from_local(lse, dmesh, place),
+            DTensor.from_local(gold, dmesh, place))
 
 
 def chunked_ce(params, cfg, h, labels):
@@ -81,8 +113,11 @@ def build_train_step(cfg, optimizer: opt.Optimizer):
     loss_fn = make_loss_fn(cfg)
 
     def train_step(state, batch):
+        # sharded: each gradient comes back placed as its parameter
+        # (all-reduced or reduce-scattered over the batch's devices)
         (loss, parts), grads = opt.value_and_grad(
-            lambda p: loss_fn(p, batch), state["params"])
+            lambda p: loss_fn(opt.tree_map(shd.grad_placed, p), batch),
+            state["params"])
         new_params, new_opt, gnorm = optimizer.update(
             grads, state["opt_state"], state["params"], state["step"])
         metrics = {"loss": loss, "ce": parts["ce"].detach(),

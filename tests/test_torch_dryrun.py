@@ -14,8 +14,14 @@
   ``op_cost.scan``).
 * ``--mesh pod`` and ``--mesh multipod``: each record's chips, each
   category's bytes on one device equal to the arithmetic of ``repro``'s
-  spec trees on its abstract meshes, ``step_counted: false``; every
-  multipod cell OK or SKIPPED.
+  spec trees on its abstract meshes, ``step_counted: true`` with
+  ``repro``'s keys (one device's share of the sharded step counted:
+  ``tests/test_torch_sharded_cost.py`` holds the counts themselves);
+  every multipod cell SKIPPED where ``repro`` skips it, the decode and
+  long-context ones counted.
+* The card records of SmolLM-360M's three OK cells and of RWKV6-3B's and
+  Jamba's ``train_4k``: FLOPs and bytes as the tree before the sharded
+  count gave them, to the last digit.
 """
 
 import json
@@ -129,6 +135,8 @@ def test_main_writes_a_full_width_cell(tmp_path, capsys):
     kv = 32 * 2 * 128 * 32768 * 5 * 64 * 2
     assert rec["bytes_per_chip"]["argument"] > kv
     assert rec["hlo_bytes"] > kv
+    assert (rec["hlo_flops"], rec["hlo_bytes"]) == CARD[("smollm-360m",
+                                                          "decode_32k")]
     assert "1 cells: 1 ok" in capsys.readouterr().out
 
 
@@ -185,7 +193,8 @@ def _repro_per_device(arch, shape_name, mesh):
 
 
 # these cases replace one that held --mesh pod|multipod to raise: they
-# shard the cell's arguments now
+# count one device's share of the sharded step now (and still record its
+# arguments' bytes a device)
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
 @pytest.mark.parametrize("mesh", ["pod", "multipod"])
 def test_mesh_cells_record_per_device_argument_bytes(mesh, shape, tmp_path,
@@ -199,30 +208,84 @@ def test_mesh_cells_record_per_device_argument_bytes(mesh, shape, tmp_path,
     jmesh = AbstractMesh((2, 16, 16) if mesh == "multipod" else (16, 16),
                          ("pod", "data", "model") if mesh == "multipod"
                          else ("data", "model"))
+    chips = 512 if mesh == "multipod" else 256
     assert rec["status"] == "OK" and rec["mesh"] == mesh
-    assert rec["chips"] == (512 if mesh == "multipod" else 256)
-    assert rec["step_counted"] is False and "5.5d" in rec["step_note"]
+    assert rec["chips"] == chips and rec["step_counted"] is True
     want = _repro_per_device("smollm-360m", shape, jmesh)
     assert rec["argument_bytes_per_device"] == want
     assert rec["bytes_per_chip"]["argument"] == sum(want.values())
+    assert rec["bytes_per_chip"]["output"] > 0
+    assert rec["bytes_per_chip"]["temp"] > 0
     assert (want["cache"] > 0) == (shape == "decode_32k")
     assert (want["optimizer_state"] > 0) == (shape == "train_4k")
+    # one device's FLOPs x chips: at least the card's whole step (every
+    # device does at least its share), at most chips times it
+    card = CARD[("smollm-360m", shape)][0]
+    assert card <= rec["hlo_flops"] <= card * chips
+    # the breakdown's kinds are whole bytes, their sum the exact total
+    assert rec["coll_bytes_per_chip"] == pytest.approx(
+        sum(rec["coll_breakdown"].values()), abs=5)
+    assert rec["coll_breakdown"]["all-reduce"] > 0
+    assert rec["t_collective"] > 0 and rec["trace_s"] < 1200
+    assert rec["bottleneck"] in ("compute", "memory", "collective")
+    assert 0 < rec["roofline_fraction"] <= 1
     assert "1 cells: 1 ok" in capsys.readouterr().out
     import torch.distributed as dist
     assert not dist.is_initialized()            # torn down after the cell
 
 
 def test_every_multipod_cell_is_ok_or_skipped(tmp_path, capsys):
+    """Every one of the 40 cells on the 512-chip mesh is SKIPPED where
+    cell_supported says so; the decode_32k and long_500k cells of every
+    arch run through main and count their sharded step (the train and
+    prefill cells take 3-130 s each on meta: the whole 80-cell sweep is
+    the dry run's own command, PERF.md's tables)."""
+    for arch in ARCHS:
+        for shape in jshapes.SHAPES:
+            rec = dryrun.skipped(dryrun.cell_config(arch), arch, shape,
+                                 "multipod")
+            ok, _ = jshapes.cell_supported(jreg.get_config(arch), shape)
+            assert (rec is None) == ok, (arch, shape)
     with pytest.raises(SystemExit) as done:
-        dryrun.main(["--mesh", "multipod", "--out", str(tmp_path)])
+        dryrun.main(["--mesh", "multipod", "--shape", "decode_32k",
+                     "--out", str(tmp_path)])
     assert done.value.code == 0
-    assert "40 cells: 32 ok, 8 skipped, 0 failed" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--mesh", "multipod", "--shape", "long_500k",
+                     "--out", str(tmp_path)])
+    assert done.value.code == 0
+    out = capsys.readouterr().out
+    assert "10 cells: 10 ok, 0 skipped, 0 failed" in out
+    assert "10 cells: 2 ok, 8 skipped, 0 failed" in out
     recs = [json.loads(f.read_text()) for f in tmp_path.glob("*.json")]
-    assert len(recs) == 40
+    assert len(recs) == 20
     for rec in recs:
         if rec["status"] == "OK":
-            assert rec["chips"] == 512 and rec["step_counted"] is False
+            assert rec["chips"] == 512 and rec["step_counted"] is True
             assert rec["bytes_per_chip"]["argument"] > 0
+            assert rec["hlo_flops"] > 0 and rec["coll_bytes_per_chip"] > 0
+            assert rec["trace_s"] < 1200
+
+
+# the card records' FLOPs and bytes as the tree before the sharded count
+# gave them (launch/dryrun.py on meta): counting DTensors leaves every
+# plain step's charges as they were, to the last digit
+CARD = {("smollm-360m", "train_4k"): (3387269026290636.0,
+                                      213312222422490.0),
+        ("smollm-360m", "prefill_32k"): (2771463780234336.0,
+                                         6525640981388.0),
+        ("smollm-360m", "decode_32k"): (614123758944.0, 1277658475276.0),
+        ("rwkv6-3b", "train_4k"): (2.1749223186221124e+16,
+                                   3.4704094034495216e+16),
+        ("jamba-v0.1-52b", "train_4k"): (3.279079487113849e+17,
+                                         6.4075973341495e+16)}
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_smollm_card_records_are_unchanged(shape):
+    rec = dryrun.lower_cell("smollm-360m", shape)
+    assert (rec["hlo_flops"], rec["hlo_bytes"]) == CARD[("smollm-360m",
+                                                          shape)]
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
@@ -238,5 +301,6 @@ def test_recurrent_train_4k_cell_ends_ok(arch, tmp_path, capsys):
                      .read_text())
     assert rec["status"] == "OK" and rec["bottleneck"] == "memory"
     assert rec["hlo_flops"] > rec["model_flops"] > 0
+    assert (rec["hlo_flops"], rec["hlo_bytes"]) == CARD[(arch, "train_4k")]
     assert rec["trace_s"] < 300
     assert "1 cells: 1 ok" in capsys.readouterr().out
