@@ -304,6 +304,9 @@ MESH_STEP = (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
 # cell of the dry run on meta
 SHARDED_MESH = (2, 4)
 SHARDED_HEADS = (8, 4)
+# and with q heads that do not divide the model axis: torch.chunk's blocks
+# 2, 2, 2 and 0 of the 6 q heads, the first device's two reading KV head 0
+SHARDED_UNEVEN_HEADS = (6, 2)
 SHARDED_PREFILL = (8, 256)
 POD_CELL = (LM_ARCH, "train_4k")
 # row 10 at SmolLM's prefill (bf16, probs_bf16=True), a call in a CUDA
@@ -769,11 +772,12 @@ def lm_serve(card):
 
 
 def batch_breakdown(card, dev, cfg, params, batch: int, prompt: int,
-                    gen_len: int, iters: int = 3) -> None:
+                    gen_len: int) -> None:
     """Where one full batch's time goes in ``launch.serve``'s steps: a
     prefill of ``batch`` prompts and 8 decode steps, each profiled apart
-    over ``iters`` calls (host wall a call or step, device busy, idle
-    share, the kernels by family: flash, cuBLAS, elementwise)."""
+    over one call after a warm one (host wall a call or step, device
+    busy, idle share, the kernels by family: flash, cuBLAS,
+    elementwise)."""
     from repro_torch.data import tokens as dtok
     from repro_torch.train import serve
     toks = torch.cat([dtok.batch_for_step(cfg, i, global_batch=1,
@@ -796,8 +800,8 @@ def batch_breakdown(card, dev, cfg, params, batch: int, prompt: int,
 
     for label, fn, per in (("prefill", prefill_once, 1),
                            ("decode", decode_steps, 8)):
-        wall_ms, kernels = device_profile(fn, iters)
-        calls = iters * per
+        wall_ms, kernels = device_profile(fn, 1)
+        calls = per
         line = (f"  LM {cfg.name} {label} batch {batch} (prompt {prompt}), "
                 f"profiled: host {wall_ms / calls:.3f} ms a "
                 f"{'step' if per > 1 else 'call'}")
@@ -1424,18 +1428,13 @@ def mesh_phase(dev) -> int:
     return n_flash
 
 
-def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
-    """Phase 9's sharded counts.  (1) The full-width training step on
-    DTensors of the state's specs over the host mesh (1, 1), on a
-    one-rank NCCL group: counted on the card == the plain
-    step's count (FLOPs and bytes, exactly; no wire bytes), and its new
-    state and loss == the plain step's, bit for bit.  (2) A prefill of
-    SmolLM-360M's scaled() config (SHARDED_HEADS) on a fake group of 8
-    ranks over the (2, 4) mesh, its blocks on the card: counted == on
-    meta, exactly, the flash kernel launched once an attention layer on
-    each rank's blocks (batch over "data", heads over "model").  (3) The
-    dry run's POD_CELL on the 256-chip mesh, on meta, printed.  Returns
-    (2)'s flash launches."""
+def fake_group_prefill(dev, h: int, kh: int) -> int:
+    """A prefill of SmolLM-360M's scaled() config at ``h`` q and ``kh`` KV
+    heads on a fake group of 8 ranks over SHARDED_MESH, its blocks on the
+    card: counted == on meta, exactly (FLOPs, bytes, wire bytes), the
+    flash kernel launched once an attention layer on this rank's blocks
+    (the batch over "data", torch.chunk's blocks of the heads over
+    "model", each with the KV heads it reads).  Returns the launches."""
     from repro_torch.configs import shapes as shp
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed import context as dctx
@@ -1444,7 +1443,76 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
     from repro_torch.launch import dryrun, op_cost
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import transformer
-    from repro_torch.train import serve, steps
+    from repro_torch.train import serve
+
+    scfg = get_config(LM_ARCH).scaled().with_(num_heads=h, num_kv_heads=kh)
+    b, sq = SHARDED_PREFILL
+    shape = shp.ShapeSpec("prefill_sharded", sq, b, "prefill")
+    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
+                                   SHARDED_MESH[1], abstract=True)
+    with dctx.fake_process_group(smesh.size):
+        dmesh = shd.device_mesh(smesh)
+        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
+            scfg, shape, smesh)
+        with dctx.sharded_step(smesh):
+            on_meta = op_cost.count(step_fn, *meta_args)
+        params = transformer.init_params(scfg, seed=0, device=dev)
+        toks = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                for k, v in shp.input_specs(scfg, shape).items()}
+        args = (shd.distribute(params, shd.to_named(
+                    smesh, shd.param_specs(scfg, smesh, params), dmesh)),
+                shd.distribute(toks, shd.to_named(
+                    smesh, shd.batch_specs(scfg, smesh, toks), dmesh)))
+        blocks = {t.to_local().device.type
+                  for _, t in shd.leaves_with_path(args)}
+        ops.reset_launch_counts()
+        with dctx.sharded_step(smesh):
+            on_card = op_cost.count(serve.build_prefill_step(scfg), *args)
+        torch.cuda.synchronize()
+        n_flash = ops.launch_counts()["flash_attention"]
+    if blocks != {"cuda"}:
+        raise AssertionError(f"the fake group's blocks lie on {blocks}")
+    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
+            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
+        raise AssertionError(
+            f"the sharded prefill (H={h}, KH={kh}) counted on the card "
+            f"({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
+            f"{on_card.coll_wire_bytes} wire) != on meta "
+            f"({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
+            f"{on_meta.coll_wire_bytes})")
+    if n_flash != attn_layers(scfg):
+        raise AssertionError(f"{n_flash} flash launches in the sharded "
+                             f"prefill, {attn_layers(scfg)} attention layers")
+    q_heads = shd.chunk_ranges(h, SHARDED_MESH[1])
+    print(f"  {LM_ARCH} scaled() H={h} KH={kh} prefill {b} x {sq} on a fake "
+          f"group of {smesh.size} over {dict(smesh.shape)}, blocks on the "
+          f"card: one device's {on_card.flops:.6e} FLOPs, "
+          f"{on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes:.6e} wire "
+          f"bytes {({k: v for k, v in on_card.coll_breakdown.items() if v})}"
+          f" == on meta; flash launched {n_flash} times on each rank's "
+          f"blocks (batch / {SHARDED_MESH[0]}, q heads "
+          f"{[y - x for x, y in q_heads]} over the model devices)")
+    return n_flash
+
+
+def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
+    """Phase 9's sharded counts.  (1) The full-width training step on
+    DTensors of the state's specs over the host mesh (1, 1), on a
+    one-rank NCCL group: counted on the card == the plain
+    step's count (FLOPs and bytes, exactly; no wire bytes), and its new
+    state and loss == the plain step's, bit for bit.  (2) Prefills of
+    SmolLM-360M's scaled() config on a fake group of 8 ranks over the
+    (2, 4) mesh, its blocks on the card (:func:`fake_group_prefill`), at
+    SHARDED_HEADS and at SHARDED_UNEVEN_HEADS, whose q heads do not
+    divide the model axis; and flash on a block of no heads, returned
+    empty with no launch.  (3) The dry run's POD_CELL on the 256-chip
+    mesh, on meta, printed.  Returns (2)'s flash launches."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.train import steps
 
     state = steps.create_state(cfg, 0, optimizer, device=dev)
     plain = op_cost.count(step, state, batch)
@@ -1483,50 +1551,20 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
           f"{counted.bytes:.6e} bytes == the plain step's, its state and "
           f"loss ({float(loss):.6f}) == the plain step's, bit for bit")
 
-    h, kh = SHARDED_HEADS
-    scfg = get_config(LM_ARCH).scaled().with_(num_heads=h, num_kv_heads=kh)
-    b, sq = SHARDED_PREFILL
-    shape = shp.ShapeSpec("prefill_sharded", sq, b, "prefill")
-    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
-                                   SHARDED_MESH[1], abstract=True)
-    with dctx.fake_process_group(smesh.size):
-        dmesh = shd.device_mesh(smesh)
-        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
-            scfg, shape, smesh)
-        with dctx.sharded_step(smesh):
-            on_meta = op_cost.count(step_fn, *meta_args)
-        params = transformer.init_params(scfg, seed=0, device=dev)
-        toks = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
-                for k, v in shp.input_specs(scfg, shape).items()}
-        args = (shd.distribute(params, shd.to_named(
-                    smesh, shd.param_specs(scfg, smesh, params), dmesh)),
-                shd.distribute(toks, shd.to_named(
-                    smesh, shd.batch_specs(scfg, smesh, toks), dmesh)))
-        blocks = {t.to_local().device.type
-                  for _, t in shd.leaves_with_path(args)}
-        ops.reset_launch_counts()
-        with dctx.sharded_step(smesh):
-            on_card = op_cost.count(serve.build_prefill_step(scfg), *args)
-        torch.cuda.synchronize()
-        n_flash = ops.launch_counts()["flash_attention"]
-    if blocks != {"cuda"}:
-        raise AssertionError(f"the fake group's blocks lie on {blocks}")
-    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
-            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
-        raise AssertionError(
-            f"the sharded prefill counted on the card ({on_card.flops:.6e} "
-            f"FLOPs, {on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes} "
-            f"wire) != on meta ({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
-            f"{on_meta.coll_wire_bytes})")
-    if n_flash != attn_layers(scfg):
-        raise AssertionError(f"{n_flash} flash launches in the sharded "
-                             f"prefill, {attn_layers(scfg)} attention layers")
-    print(f"  {LM_ARCH} scaled() H={h} KH={kh} prefill {b} x {sq} on a fake "
-          f"group of {smesh.size} over {dict(smesh.shape)}, blocks on the "
-          f"card: one device's {on_card.flops:.6e} FLOPs, "
-          f"{on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes:.6e} wire "
-          f"bytes == on meta; flash launched {n_flash} times on each rank's "
-          f"blocks (batch / {SHARDED_MESH[0]}, heads / {SHARDED_MESH[1]})")
+    n_flash = 0
+    for h, kh in (SHARDED_HEADS, SHARDED_UNEVEN_HEADS):
+        n_flash += fake_group_prefill(dev, h, kh)
+    # the block of no heads a device holds where the heads do not fill
+    # the devices: returned empty, nothing launched
+    ops.reset_launch_counts()
+    empty = torch.zeros((2, 64, 0, 32), device=dev, dtype=torch.bfloat16)
+    out = fa.flash_attention(empty, empty, empty)
+    if out.shape != empty.shape or ops.launch_counts()["flash_attention"]:
+        raise AssertionError(f"flash on a block of no heads: {out.shape}, "
+                             f"{ops.launch_counts()['flash_attention']} "
+                             f"launches")
+    print(f"  flash on a block of no heads {tuple(empty.shape)}: empty, "
+          f"no launch")
 
     t = time.perf_counter()
     rec = dryrun.lower_cell(*POD_CELL, mesh_name="pod")
@@ -4346,16 +4384,16 @@ def main() -> None:
     print(f"  phase 7's kernel rows took {time.perf_counter() - t7:.1f} s")
     t_lm = time.perf_counter()
 
-    # the LM serve, warm, then profiled: prefill ms, decode ms a token,
-    # tok/s, and the device's idle share over the whole serve (parameter
-    # init and the host's prompt generation included)
+    # the LM serve, warm since phase 5, profiled: prefill ms, decode ms a
+    # token, tok/s, and the device's idle share over the whole serve
+    # (parameter init and the host's prompt generation included)
     warm = []
 
     def serve_lm():
         with quiet():
             warm.append(lm.main(list(LM_SERVE)))
 
-    wall_ms, kernels = device_profile(serve_lm, 1)
+    wall_ms, kernels = device_profile(serve_lm, 1, warmup=False)
     rep = warm[0]
     line = (f"  LM serve {LM_ARCH} ({LM_REQUESTS} requests, batch "
             f"{LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} tokens; warm): "
@@ -4415,14 +4453,12 @@ def main() -> None:
     else:
         line += ", device time not measured (no device activity recorded)"
     print(line + f" [{card.smi}]")
-    # RWKV6-3B's prefill is ~40k small launches: one profiled call each
-    for argv, iters in ((MOE_SERVE, 3), (RWKV_SERVE, 1)):
+    for argv in (MOE_SERVE, RWKV_SERVE):
         opts = dict(zip(argv[::2], argv[1::2]))
         cfg = get_config(opts["--arch"])
         params = transformer.init_params(cfg, seed=0, device=dev)
         batch_breakdown(card, dev, cfg, params, int(opts["--batch"]),
-                        int(opts["--prompt-len"]), int(opts["--gen-len"]),
-                        iters)
+                        int(opts["--prompt-len"]), int(opts["--gen-len"]))
         del params
         torch.cuda.empty_cache()
     print(f"  {MOE_ARCH}'s serve profile and the batch breakdowns of "
@@ -4435,7 +4471,7 @@ def main() -> None:
     cfg = get_config(MUSIC_ARCH)
     params = transformer.init_params(cfg, seed=0, device=dev)
     batch_breakdown(card, dev, cfg, params, int(opts["--batch"]),
-                    int(opts["--prompt-len"]), int(opts["--gen-len"]), 3)
+                    int(opts["--prompt-len"]), int(opts["--gen-len"]))
     del params
     torch.cuda.empty_cache()
     print(f"  {MUSIC_ARCH}'s batch breakdown took "
@@ -4468,8 +4504,8 @@ def main() -> None:
     phase(9, "the training meshes at world size 1: the host mesh, shard "
              "shapes, a step under the mesh == the step without; the "
              "sharded step counted (a (1, 1) DTensor step == the plain "
-             "one, a fake (2, 4) group's blocks on the card == on meta, a "
-             "pod cell on meta)")
+             "one, a fake (2, 4) group's blocks on the card == on meta at "
+             "even and uneven head splits, a pod cell on meta)")
     n9 = mesh_phase(dev)
     by_phase["flash_attention"]["9"] = n9
     rows["flash_attention"]["launches"] += n9

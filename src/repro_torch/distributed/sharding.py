@@ -20,6 +20,9 @@ only where it divides the dim, so every shard has the same shape.
 a ``torch.distributed`` ``DeviceMesh`` (:class:`NamedSharding`), and
 :func:`constrain` is the in-model constraint: the identity without a mesh
 or on a mesh of one device, else a DTensor redistributed to the spec.
+Inside the model, :func:`heads_view` splits heads that do not divide the
+axis in ``torch.chunk``'s blocks of whole heads, and :func:`on_blocks`
+runs a per-head computation on each device's blocks.
 
 The serving half (``SERVE_AXIS`` through ``gather_frames``) mirrors the
 chip's LD-once/CONV-many schedule, lifted one level: every device of a
@@ -35,7 +38,6 @@ then one copy.
 from __future__ import annotations
 
 import dataclasses
-import math
 import re
 from typing import Any, List, Sequence, Tuple
 
@@ -305,32 +307,175 @@ def distribute(tree, named_tree):
         lambda path, leaf: named[path_str(path)].distribute(leaf), tree)
 
 
+def split_axes(x: torch.Tensor, dim: int) -> List[int]:
+    """The mesh dims of several devices over which DTensor ``x`` splits
+    tensor dim ``dim`` (none for a plain tensor)."""
+    dim %= max(x.ndim, 1)
+    return [axis for axis, p in enumerate(getattr(x, "placements", ()))
+            if p.is_shard(dim) and x.device_mesh.size(axis) > 1]
+
+
 def sharded_axis(x: torch.Tensor, dim: int):
     """The mesh dim of several devices over which DTensor ``x`` splits
     tensor dim ``dim`` (the first, if several), or None: none does, or
     ``x`` is no DTensor."""
-    dim %= max(x.ndim, 1)
-    for axis, p in enumerate(getattr(x, "placements", ())):
-        if p.is_shard(dim) and x.device_mesh.size(axis) > 1:
-            return axis
-    return None
+    axes = split_axes(x, dim)
+    return axes[0] if axes else None
 
 
-def split_ready(x: torch.Tensor, dim: int, parts: int):
-    """``x`` ready to split tensor dim ``dim`` into (``parts``, rest), as
-    the head views do: a DTensor whose blocks of ``dim`` do not divide
-    ``parts`` (15 heads over 16 devices) is replicated along the mesh
-    dims that split it, as XLA's partitioner replicates a dim it cannot
-    split; anything else is returned as it is."""
-    dim %= max(x.ndim, 1)
-    place = list(getattr(x, "placements", ()))
-    n = math.prod(x.device_mesh.size(a) for a, p in enumerate(place)
-                  if p.is_shard(dim)) if place else 1
-    if parts % n == 0:
-        return x
-    from torch.distributed.tensor import Replicate
-    place = [Replicate() if p.is_shard(dim) else p for p in place]
-    return x.redistribute(x.device_mesh, place)
+def chunk_ranges(n: int, parts: int) -> List[Tuple[int, int]]:
+    """``torch.chunk``'s blocks of ``n`` over ``parts``, (start, stop) a
+    part, as DTensor shards an uneven dim: blocks of ``ceil(n / parts)``,
+    the last ones shorter or empty (15 over 16: fifteen of 1 and one of
+    0; 40 over 16: thirteen of 3, one of 1 and two of 0)."""
+    c = -(-n // parts)
+    return [(min(r * c, n), min((r + 1) * c, n)) for r in range(parts)]
+
+
+def _overlap(a, b) -> Tuple[int, int]:
+    lo = max(a[0], b[0])
+    return lo, max(lo, min(a[1], b[1]))
+
+
+def holds(have, want) -> bool:
+    """Whether a block of the columns ``have`` holds the columns
+    ``want`` (an empty range is held anywhere)."""
+    return want[1] <= want[0] or have[0] <= want[0] and want[1] <= have[1]
+
+
+def _take(block: torch.Tensor, dim: int, lo: int, part) -> torch.Tensor:
+    a, b = part
+    return block.narrow(dim, a - lo if b > a else 0, b - a)
+
+
+def move_blocks(block: torch.Tensor, dim: int, have, want, group,
+                rank: int) -> torch.Tensor:
+    """The columns ``want[rank]`` of dim ``dim`` of a global tensor whose
+    columns ``have[rank]`` this rank holds as ``block``, every rank of
+    ``group`` taking part: ``have`` partitions the dim in rank order,
+    ``want`` gives each rank a range (ranges may overlap), and each rank
+    sends every other the part of its block that the other wants, by one
+    all-to-all of uneven splits (none where every rank holds what it
+    wants).  Its gradient goes back the same way."""
+    dim %= block.ndim
+    lo = have[rank][0]
+    if all(holds(h, w) for h, w in zip(have, want)):
+        return _take(block, dim, lo, want[rank]).contiguous()
+    import torch.distributed._functional_collectives as fc
+    from repro_torch.distributed.context import _wait
+    sends = [_overlap(have[rank], w) for w in want]
+    recvs = [_overlap(want[rank], h) for h in have]
+    out = torch.cat([_take(block, dim, lo, part) for part in sends], dim)
+    out = _wait(fc.all_to_all_single_autograd(
+        out.movedim(dim, 0).contiguous(), [b - a for a, b in recvs],
+        [b - a for a, b in sends], group))
+    return out.movedim(0, dim).contiguous()
+
+
+def heads_view(x: torch.Tensor, dim: int, shape):
+    """``x`` viewed as ``shape``, which splits dim ``dim`` into (heads,
+    width) or merges dims ``dim`` and ``dim + 1`` (heads, width) into
+    one.  A DTensor whose heads or merged dim a mesh dim of several
+    devices splits keeps that split, in whole heads: the head view has
+    ``torch.chunk``'s blocks of the heads (15 heads over 16 devices: one
+    a device, the last device none), the merged view the even blocks a
+    projection's output has, and the columns each device lacks move
+    between neighbours (:func:`move_blocks`: an all-to-all of uneven
+    splits, none where the blocks already agree); the gradient moves
+    back the same way.  Anything else is reshaped as it is."""
+    dim %= x.ndim
+    shape = tuple(shape)
+    split = len(shape) == x.ndim + 1
+    axes = split_axes(x, dim)
+    if not axes:
+        return x.reshape(shape)
+    if len(axes) > 1 or (not split and split_axes(x, dim + 1)):
+        raise ValueError(f"heads of {tuple(x.shape)} split over mesh dims "
+                         f"{axes}: a head view keeps one")
+    from torch.distributed.tensor import DTensor, Shard
+    dmesh, axis = x.device_mesh, axes[0]
+    n, rank = dmesh.size(axis), dmesh.get_local_rank(axis)
+    heads, width = shape[dim:dim + 2] if split else x.shape[dim:dim + 2]
+    flat = chunk_ranges(heads * width, n)
+    whole = [(a * width, b * width) for a, b in chunk_ranges(heads, n)]
+    have, want = (flat, whole) if split else (whole, flat)
+    block = x.to_local()
+    if not split:
+        block = block.flatten(dim, dim + 1)
+    block = move_blocks(block, dim, have, want, dmesh.get_group(axis), rank)
+    if split:
+        a, b = want[rank]
+        block = block.unflatten(dim, ((b - a) // width, width))
+    shift = 1 if split else -1
+    place = [Shard(dim) if i == axis else
+             Shard(p.dim + shift) if p.is_shard() and p.dim > dim else p
+             for i, p in enumerate(x.placements)]
+    return DTensor.from_local(block, dmesh, place,
+                              shape=torch.Size(shape),
+                              stride=make_contiguous_strides_for(shape))
+
+
+def gather_ranges(x: torch.Tensor, dim: int, want, axis: int):
+    """This device's block of DTensor ``x`` with dim ``dim`` made the
+    global range ``want[r]``, r the device's coordinate on mesh dim
+    ``axis`` (ranges may overlap): a plain tensor, every other dim the
+    block ``x`` has.  ``x``'s dim split over ``axis`` moves by
+    :func:`move_blocks`; whole there, each device narrows it (and the
+    gradient is summed over the axis)."""
+    from torch.distributed.tensor import Partial, Replicate
+    dmesh = x.device_mesh
+    others = [a for a in split_axes(x, dim) if a != axis]
+    if others:
+        x = x.redistribute(dmesh, [Replicate() if a in others else p
+                                   for a, p in enumerate(x.placements)])
+    rank = dmesh.get_local_rank(axis)
+    if axis not in split_axes(x, dim):
+        # each device reads its own range: the gradient of the whole is
+        # their sum over the axis
+        block = x.to_local(grad_placements=[
+            Partial() if a == axis else p
+            for a, p in enumerate(x.placements)])
+        return _take(block, dim, 0, want[rank]).contiguous()
+    have = chunk_ranges(x.shape[dim], dmesh.size(axis))
+    return move_blocks(x.to_local(), dim, have, want, dmesh.get_group(axis),
+                       rank)
+
+
+def on_blocks(fn, like: torch.Tensor, args, outs, split_heads=True):
+    """``fn(*blocks)`` on each device's blocks, as ``shard_map`` over the
+    batch and the heads.  ``like``, a DTensor with the batch at dim 0 and
+    the heads at dim 2, names the layout: each mesh dim that splits its
+    batch or (unless ``split_heads`` is False) its heads splits every
+    argument's (``args``: (tensor, batch dim or None, heads dim)), and
+    each other dim is made whole.  An argument without a batch dim is
+    whole on the mesh dims that split the batch, and its gradient is a
+    partial sum there.  ``outs`` gives each result's (global shape, batch
+    dim, heads dim): the results are DTensors of the blocks ``fn``
+    returns (one, or a tuple)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dmesh = like.device_mesh
+    roles = [0 if p.is_shard(0) else 2 if p.is_shard(2) and split_heads
+             else None for p in like.placements]
+
+    def place(batch, heads):
+        return [Shard(batch) if role == 0 and batch is not None
+                else Shard(heads) if role == 2 else Replicate()
+                for role in roles]
+
+    blocks = []
+    for t, batch, heads in args:
+        want = place(batch, heads)
+        blocks.append(t.redistribute(dmesh, want).to_local(grad_placements=[
+            Partial() if p.is_replicate() and role is not None else p
+            for p, role in zip(want, roles)]))
+    got = fn(*blocks)
+    single = not isinstance(got, tuple)
+    got = (got,) if single else got
+    wrapped = tuple(DTensor.from_local(
+        block, dmesh, place(batch, heads), shape=torch.Size(shape),
+        stride=make_contiguous_strides_for(shape))
+        for block, (shape, batch, heads) in zip(got, outs))
+    return wrapped[0] if single else wrapped
 
 
 def built_like(make, shape, like: torch.Tensor, dims=None):
@@ -427,26 +572,6 @@ def grad_placed(x: torch.Tensor):
     if not hasattr(x, "placements"):
         return x
     return _GradPlaced.apply(x)
-
-
-class _SplitReadyGrad(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, dim, parts):
-        ctx.dim, ctx.parts = dim, parts
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return split_ready(g, ctx.dim, ctx.parts), None, None
-
-
-def split_ready_grad(x: torch.Tensor, dim: int, parts: int):
-    """``x``, whose dim ``dim`` a view just merged from (``parts``,
-    rest): its gradient, which the merge's backward splits again, is
-    made :func:`split_ready` first.  Plain tensors pass as they are."""
-    if not hasattr(x, "placements"):
-        return x
-    return _SplitReadyGrad.apply(x, dim, parts)
 
 
 def constrain(x: torch.Tensor, logical: tuple):

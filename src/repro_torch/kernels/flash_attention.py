@@ -63,6 +63,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     folded as (position, g)."""
     b, s, h, d = q.shape
     kh = k.shape[2]
+    if not h:                                     # a block of no heads
+        return torch.empty_like(q)
     g = h // kh
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     rounded = bf16_probs_of(v.dtype, probs_bf16)
@@ -112,9 +114,11 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
         raise ValueError(f"k, v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if b < 1 or s < 1 or k.shape[2] < 1 or h % k.shape[2]:
-        raise ValueError(f"need B, S >= 1 and H % KH == 0; got q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    kh = k.shape[2]
+    if b < 1 or s < 1 or (h % kh if kh else h):
+        raise ValueError(f"need B, S >= 1 and H % KH == 0 (H = KH = 0: a "
+                         f"block of no heads); got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
 
 
 def kernel_dim(d: int) -> int:
@@ -151,7 +155,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     probs_bf16: Optional[bool] = None) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (raises on any other device,
-    on non-contiguous inputs and on a head dim past ``MAX_HEAD_DIM``)."""
+    on non-contiguous inputs and on a head dim past ``MAX_HEAD_DIM``); a
+    block of no heads (H = KH = 0, a device's share of heads that do not
+    fill the devices) is returned empty, nothing launched."""
     check_args(q, k, v)
     if not (q.device.type == "cuda" and q.device == k.device == v.device):
         raise ValueError(f"the CUDA kernel needs CUDA tensors on one device, "
@@ -160,6 +166,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must be contiguous")
     b, s, h, d = q.shape
     kernel_dim(d)                                  # raises past the limit
+    if not h:
+        return torch.empty_like(q)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     cw = copy_bytes(d, *(x.data_ptr() for x in (q, k, v, out)))
@@ -211,16 +219,27 @@ def _flash_attention_flop(q_shape, k_shape, v_shape, causal=True, *args,
     return attention_flops(b, s, h, d, causal)
 
 
+def heads_align(h: int, kh: int, n: int) -> bool:
+    """Whether ``torch.chunk``'s blocks of ``h`` q heads over ``n``
+    devices read exactly the same blocks of ``kh`` KV heads (q head i
+    reads KV head i // (h // kh)): ceil(h / n) == (h / kh) ceil(kh / n).
+    Even splits of KV heads align; so does any split at a group of one
+    (15 q and 15 KV heads over 16: one each, the last device none)."""
+    return -(-h // n) == (h // kh) * -(-kh // n)
+
+
 def _register_sharding() -> None:
     """The op's DTensor sharding: q, k, v and the output all replicated,
-    all split on the batch, or all split on the heads, q's with their KV
-    groups (a device's q heads read only its KV heads); a split is
-    offered only where every mesh dim of several devices divides the
-    batch or the KV heads, so that no block is uneven
-    (``models/attention.py`` replicates the heads before the op where
-    their devices do not divide them).  Any other placement is
-    redistributed to one of these first; each device then runs the op,
-    the kernel on a card, on its blocks."""
+    all split on the batch, or all split on the heads, a device's q heads
+    with the KV heads they read.  The batch split is offered where every
+    mesh dim of several devices divides the batch; the head split where
+    on each such mesh dim ``torch.chunk``'s blocks of the q heads read
+    its blocks of the KV heads (:func:`heads_align`), even or not
+    (DTensor itself declines a split of fewer heads than devices).  Any
+    other placement is redistributed to one of these first; each device
+    then runs the op, the kernel on a card, on its blocks
+    (``models/attention.py`` hands it blocks of the q heads and each
+    device's KV heads on its own, for any split)."""
     if not torch.distributed.is_available():
         return
     from torch.distributed.tensor import Replicate, Shard
@@ -230,11 +249,14 @@ def _register_sharding() -> None:
     def _flash_attention_sharding(q, k, v, causal=True, scale=None,
                                   probs_bf16=None):
         sizes = [n for n in q.mesh.shape if n > 1]
+        h, kh = q.shape[2], k.shape[2]
+        fits = {0: all(q.shape[0] % n == 0 for n in sizes),
+                2: kh > 0 and all(heads_align(h, kh, n) for n in sizes)}
         flags = [None, None, None]
         return [([p], [p, p, p] + flags)
                 for p, dim in ((Replicate(), None), (Shard(0), 0),
                                (Shard(2), 2))
-                if dim is None or all(k.shape[dim] % n == 0 for n in sizes)]
+                if dim is None or fits[dim]]
 
 
 _register_sharding()

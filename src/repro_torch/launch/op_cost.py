@@ -56,9 +56,12 @@ a ``torch.distributed`` group are charged their bytes as any op, no
 FLOPs, and wire bytes a card by ``hlo_cost``'s ring rules with n the
 group's size: all-gather out * (n-1)/n, all-reduce 2 * bytes * (n-1)/n,
 reduce-scatter in * (n-1)/n, all-to-all in * (n-1)/n, and a point-to-point
-send (a collective-permute's share) its bytes.  A step on one card issues
-none: ``coll_wire_bytes`` is 0 and ``coll_breakdown`` lists the five
-kinds at 0.
+send (a collective-permute's share) its bytes.  An all-to-all of uneven
+splits (``sharding.move_blocks``: blocks moved between two layouts of a
+dim) is charged what this device sends to the others or receives from
+them, the larger; at even splits that is the ring rule's.  A step on
+one card issues none: ``coll_wire_bytes`` is 0 and ``coll_breakdown``
+lists the five kinds at 0.
 
 DTensors (one device's share of a sharded step, ``dryrun --mesh``): an op
 on DTensors is charged by the ops its DTensor dispatch runs on this
@@ -92,7 +95,6 @@ from typing import Callable, Dict
 import torch
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
-from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import flash_attention as _fa  # noqa: F401
@@ -162,12 +164,22 @@ def span_bytes(t: torch.Tensor) -> int:
     return elems * t.element_size()
 
 
-def _tensors(tree):
-    """The tensors of ``tree``; a functional collective's result, an
-    ``AsyncCollectiveTensor``, as the tensor it wraps."""
-    return [getattr(x, "elem", x) if type(x).__name__ ==
-            "AsyncCollectiveTensor" else x
-            for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+def _tensors(tree, out=None):
+    """The tensors of ``tree`` (an op's arguments or results: tensors in
+    tuples, lists and dicts), in ``tree_flatten``'s order; a functional
+    collective's result, an ``AsyncCollectiveTensor``, as the tensor it
+    wraps."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(getattr(tree, "elem", tree) if type(tree).__name__ ==
+                   "AsyncCollectiveTensor" else tree)
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -287,8 +299,16 @@ class _CountMode(TorchDispatchMode):
         second = _tensors(args[1]) if len(args) > 1 else []
         if kind == "collective-permute":
             wire = sum(span_bytes(t) for t in first)
+        elif (name == "all_to_all_single" and functional and args[2]
+              and len(set(args[2]) | set(args[1])) > 1):
+            # uneven splits (blocks moved between layouts): what this
+            # device sends to or receives from the others, the larger
+            me = _group(args).rank()
+            row = first[0].element_size() * math.prod(first[0].shape[1:])
+            wire = row * max(sum(args[2]) - args[2][me],
+                             sum(args[1]) - args[1][me])
         else:
-            n = _group_size(args)
+            n = _group(args).size()
             ratio = (n - 1) / n if n > 1 else 0.0
             if kind == "all-reduce":
                 moved = 2 * sum(span_bytes(t) for t in first)
@@ -302,19 +322,19 @@ class _CountMode(TorchDispatchMode):
         self.coll[kind] += self.scale * wire
 
 
-def _group_size(args) -> int:
-    """The size of the process group a collective's arguments name: a
-    functional collective's group name, or c10d's ``ProcessGroup``."""
+def _group(args):
+    """The process group a collective's arguments name: a functional
+    collective's group name, or c10d's ``ProcessGroup``."""
     import torch.distributed as dist
     for a in args:
         if isinstance(a, str) and dist.is_initialized():
             try:
-                return dist.distributed_c10d._resolve_process_group(a).size()
+                return dist.distributed_c10d._resolve_process_group(a)
             except (ValueError, RuntimeError, KeyError):
                 continue
         if (isinstance(a, torch.ScriptObject)
                 and "ProcessGroup" in a._type().qualified_name()):
-            return dist.ProcessGroup.unbox(a).size()
+            return dist.ProcessGroup.unbox(a)
     raise ValueError("a collective whose arguments name no process group")
 
 

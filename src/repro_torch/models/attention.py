@@ -216,27 +216,64 @@ def _split_k_decode(q, k_cache, v_cache, cache_len: int, axis: int, *,
                               place)
 
 
+def _kv_of_q_heads(q, k):
+    """``k`` (B, S, KH, D) made ready for q's head blocks.  A DTensor q
+    whose heads a mesh dim splits (``torch.chunk``'s blocks,
+    :func:`sharding.heads_view`) gets, on each device, the KV heads its
+    own q heads read: the KV heads of its block move to it
+    (:func:`sharding.gather_ranges`), and where its q heads straddle a
+    group boundary (SmolLM's 5 groups of 3 q heads over 4 devices: 4, 4,
+    4, 3) each local q head gets its own KV head (an index select, a
+    local group of 1).  The local group is gcd(G, ceil(H / n)), which
+    divides every device's block, so the result is a DTensor of H /
+    that many heads whose ``torch.chunk`` blocks match q's: head u
+    reads KV head u * group // G.  Anything else is returned as it
+    is."""
+    axis = shd.sharded_axis(q, 2)
+    if axis is None:
+        return k
+    from torch.distributed.tensor import DTensor, Shard
+    dmesh = q.device_mesh
+    n, rank = dmesh.size(axis), dmesh.get_local_rank(axis)
+    h, kh = q.shape[2], k.shape[2]
+    g = h // kh
+    gl = math.gcd(g, -(-h // n))
+    blocks = shd.chunk_ranges(h, n)
+    need = [(a // g, (b - 1) // g + 1) if b > a else (0, 0)
+            for a, b in blocks]
+    local = shd.gather_ranges(k, 2, need, axis)
+    a, b = blocks[rank]
+    idx = [u * gl // g - need[rank][0] for u in range(a // gl, b // gl)]
+    if idx != list(range(local.shape[2])):
+        local = local.index_select(
+            2, torch.tensor(idx, dtype=torch.long, device=local.device))
+    shape = (k.shape[0], k.shape[1], h // gl, k.shape[3])
+    place = [Shard(2) if i == axis else p
+             for i, p in enumerate(k.placements)]
+    return DTensor.from_local(local, dmesh, place, shape=torch.Size(shape),
+                              stride=make_contiguous_strides_for(shape))
+
+
 def _on_head_blocks(fn, q, k, v, **kw):
     """``fn(q, k, v, **kw)``, attention in which every (row, head) is
-    independent.  On DTensors it runs on each device's blocks, as
-    ``shard_map`` over the batch and the heads: a mesh dim keeps q's
-    split of the batch, and of the heads where the dims splitting them
-    divide KH (a device's q heads then read only its KV heads); every
-    other dim is made whole first.  The output is a DTensor placed as
-    the blocks.  Plain tensors run as they are."""
+    independent.  On DTensors it runs on each device's blocks
+    (:func:`sharding.on_blocks`): a mesh dim keeps q's split of the
+    batch, and of the heads (k and v, from :func:`_kv_of_q_heads`, are
+    split alike); every other dim is made whole first.  A device whose
+    block holds no head computes nothing.  Plain tensors run as they
+    are."""
     if not hasattr(q, "placements"):
         return fn(q, k, v, **kw)
-    from torch.distributed.tensor import DTensor, Replicate
-    dmesh = q.device_mesh
-    heads = math.prod(dmesh.size(a) for a, p in enumerate(q.placements)
-                      if p.is_shard(2))
-    place = [p if p.is_shard(0) or (p.is_shard(2)
-                                    and k.shape[2] % heads == 0)
-             else Replicate() for p in q.placements]
-    out = fn(*(t.redistribute(dmesh, place).to_local() for t in (q, k, v)),
-             **kw)
-    return DTensor.from_local(out, dmesh, place, shape=q.shape,
-                              stride=make_contiguous_strides_for(q.shape))
+
+    def local(ql, kl, vl):
+        if ql.shape[2]:
+            return fn(ql, kl, vl, **kw)
+        # no head: an empty block, still joined to k and v so that this
+        # device takes part in the backward's collectives
+        return ql + (kl.sum() + vl.sum()).to(ql.dtype)
+
+    return shd.on_blocks(local, q, [(t, 0, 2) for t in (q, k, v)],
+                         [(q.shape, 0, 2)])
 
 
 # ---------------------------------------------------------------------------
@@ -274,12 +311,12 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     quant = cfg.quant
     bfg = cfg.bf16_grads
-    # a head axis split over devices keeps q's heads with their KV group:
-    # its devices must divide the KV heads, or the projections' outputs
-    # are replicated first (sharding.split_ready; plain tensors pass)
-    q, k, v = (shd.split_ready(common.linear_apply(
-        params[w], x, quant=quant, bf16_grads=bfg), -1, kv).reshape(
-            b, s, n, dh) for w, n in (("wq", h), ("wk", kv), ("wv", kv)))
+    # a head axis split over devices keeps whole heads on each device:
+    # torch.chunk's blocks of q's heads by their count, of k's and v's by
+    # theirs (sharding.heads_view; plain tensors are reshaped)
+    q, k, v = (shd.heads_view(common.linear_apply(
+        params[w], x, quant=quant, bf16_grads=bfg), 2, (b, s, n, dh))
+        for w, n in (("wq", h), ("wk", kv), ("wv", kv)))
     if cfg.qk_norm:
         q = common.rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
         k = common.rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
@@ -288,11 +325,12 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
 
     window = cfg.sliding_window if kind == "local" else None
     if mode in ("train", "prefill"):
+        kq, vq = _kv_of_q_heads(q, k), _kv_of_q_heads(q, v)
         if mode == "prefill" and uses_flash(cfg, kind):
-            y = ops.flash_attention(q, k, v, causal=True,
-                                    probs_bf16=cfg.attn_probs_bf16)
+            y = _on_head_blocks(ops.flash_attention, q, kq, vq, causal=True,
+                                probs_bf16=cfg.attn_probs_bf16)
         else:
-            y = _on_head_blocks(chunked_attention, q, k, v, causal=True,
+            y = _on_head_blocks(chunked_attention, q, kq, vq, causal=True,
                                 window=window, softcap=cfg.attn_softcap,
                                 chunk_q=chunk_q, chunk_k=chunk_k,
                                 probs_bf16=cfg.attn_probs_bf16)
@@ -310,6 +348,6 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
         y = decode_attention(q, kc, vc, idx + 1, window=window,
                              softcap=cfg.attn_softcap)
         new_kv = (kc, vc)
-    y = shd.split_ready_grad(y.reshape(b, s, h * dh), -1, kv)
+    y = shd.heads_view(y, 2, (b, s, h * dh))
     return common.linear_apply(params["wo"], y, quant=quant,
                                bf16_grads=bfg), new_kv

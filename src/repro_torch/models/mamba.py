@@ -79,6 +79,10 @@ def _ssm_inputs(params, cfg, xc):
     di, dtr, ds, _ = _dims(cfg)
     proj = common.linear_apply(params["x_proj"], xc, quant=cfg.quant,
                                bf16_grads=cfg.bf16_grads)
+    # x_proj contracts d_inner, which "model" splits: its partial sums are
+    # reduced here, once a layer, as XLA does, so that dt, B and C reach
+    # the per-token recurrence whole (the identity without a mesh)
+    proj = shd.constrain(proj, ("dp", None, None))
     dt, bm, cm = torch.split(proj, [dtr, ds, ds], dim=-1)
     dt = common.rmsnorm_apply(params["dt_norm"], dt, cfg.norm_eps)
     bm = common.rmsnorm_apply(params["b_norm"], bm, cfg.norm_eps)

@@ -147,7 +147,7 @@ def _wkv_chunked(rh, kh, vh, wh, u, S0, chunk: int, sub_chunk: int = 16):
         S = p_l[..., :, None] * S + torch.einsum("bhci,bhcj->bhij", k_o, v_t)
         return S, y_state + y_intra + y_bonus
 
-    S, y = scan(shd.carry_placed(step, S0), S0, n, dim=0)
+    S, y = scan(step, S0, n, dim=0)
     y = y.permute(1, 0, 3, 2, 4).reshape(b, s, nh, hs)
     return S, y
 
@@ -160,7 +160,7 @@ def _wkv_scan(rh, kh, vh, wh, u, S):
                          S + u[None, :, :, None] * kv)
         return wh[:, t, :, :, None] * S + kv, y
 
-    return scan(shd.carry_placed(step, S), S, rh.shape[1], dim=1)
+    return scan(step, S, rh.shape[1], dim=1)
 
 
 def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
@@ -175,7 +175,7 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
     dx = xs - x
     xxx = x + dx * params["mu_x"].to(x.dtype)
     lora = torch.tanh(torch.matmul(xxx, params["mix_w1"].to(x.dtype)))
-    lora = shd.split_ready(lora, -1, 5).reshape(b, s, 5, rc.mix_lora)
+    lora = shd.heads_view(lora, 2, (b, s, 5, rc.mix_lora))
     mods = torch.einsum("bsfm,fmd->bsfd", lora, params["mix_w2"].to(x.dtype))
     feeds = {k: x + dx * (params["mu"][k].to(x.dtype) + mods[:, :, i])
              for i, k in enumerate(_MIX_KEYS)}
@@ -191,11 +191,12 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
     v = common.linear_apply(params["wv"], feeds["v"], **kw)
     g = F.silu(common.linear_apply(params["wg"], feeds["g"], **kw))
 
-    # a head axis split over devices must divide the heads, else the
-    # projections are replicated first (sharding.split_ready)
-    rh, kh, vh = (shd.split_ready(t, -1, nh).reshape(b, s, nh, hs).float()
-                  for t in (r, k, v))
-    wh = shd.split_ready(w, -1, nh).reshape(b, s, nh, hs)
+    # a head axis split over devices keeps whole heads on each device,
+    # torch.chunk's blocks of them (sharding.heads_view: 40 heads over 16
+    # devices, 3 on each of 13, 1 on the 14th)
+    rh, kh, vh, wh = (shd.heads_view(t, 2, (b, s, nh, hs))
+                      for t in (r, k, v, w))
+    rh, kh, vh = rh.float(), kh.float(), vh.float()
     u = params["u"]                                      # (H, hs)
     S0 = (state[1] if state is not None
           else shd.built_like(lambda sh: torch.zeros(
@@ -203,11 +204,24 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
               rh, {0: 0, 1: 2}))
     chunk = rc.chunk
     if chunk and s % chunk == 0 and not (s == 1 and mode == "decode"):
-        S, y = _wkv_chunked(rh, kh, vh, wh, u, S0, chunk,
-                            sub_chunk=getattr(rc, "sub_chunk", 16))
+        def wkv(*xs):
+            return _wkv_chunked(*xs, chunk,
+                                sub_chunk=getattr(rc, "sub_chunk", 16))
     else:
-        S, y = _wkv_scan(rh, kh, vh, wh, u, S0)
-    y = shd.split_ready_grad(y.reshape(b, s, d), -1, nh).to(x.dtype)
+        wkv = _wkv_scan
+    if hasattr(rh, "placements"):
+        # each device runs the recurrence on its heads, as shard_map does;
+        # where the cache keeps the state's heads whole (they do not divide
+        # the axis) the recurrence stays whole too: a decode step would
+        # otherwise gather the new state every token
+        S, y = shd.on_blocks(
+            wkv, rh, [(rh, 0, 2), (kh, 0, 2), (vh, 0, 2), (wh, 0, 2),
+                      (u, None, 0), (S0, 0, 1)],
+            [(S0.shape, 0, 1), (rh.shape, 0, 2)],
+            split_heads=state is None or bool(shd.split_axes(S0, 1)))
+    else:
+        S, y = wkv(rh, kh, vh, wh, u, S0)
+    y = shd.heads_view(y, 2, (b, s, d)).to(x.dtype)
     y = common.rmsnorm_apply(params["ln_x"], y, cfg.norm_eps) * g
     out = common.linear_apply(params["wo"], y, **kw)
     return out, (x[:, -1:], S)

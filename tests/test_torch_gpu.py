@@ -437,9 +437,9 @@ def test_flash_attention_matches_plain_version_on_the_card():
     float32 throughout, 3e-2 where p or the output is bf16 (repro's
     tolerances), and at a given probability type ten times closer on the
     mean to the plain version at that type than at the other; a head dim
-    of 129 raises.  Prefills of a small SmolLM-shaped model through the
-    kernel, float32 and bf16, launch it once per layer and match the
-    chunked forward."""
+    of 129 raises, a block of no heads comes back empty with no launch.
+    Prefills of a small SmolLM-shaped model through the kernel, float32
+    and bf16, launch it once per layer and match the chunked forward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.configs.registry import get_config
@@ -492,6 +492,13 @@ def test_flash_attention_matches_plain_version_on_the_card():
     q = torch.zeros((1, 8, 2, 129), device="cuda")
     with pytest.raises(ValueError, match="1 to 128"):
         fa.flash_attention(q, q, q)
+    # a block of no heads (a sharded step's last device where the heads do
+    # not fill the devices) comes back empty, nothing launched
+    ops.reset_launch_counts()
+    q = torch.zeros((2, 8, 0, 64), device="cuda", dtype=torch.bfloat16)
+    out = fa.flash_attention(q, q, q)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert ops.launch_counts()["flash_attention"] == 0
     cfg = get_config("smollm-360m").with_(num_layers=3, d_model=192,
                                           num_heads=6, num_kv_heads=2,
                                           d_ff=256, vocab_size=1000,

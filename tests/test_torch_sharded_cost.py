@@ -14,15 +14,18 @@ DTensors, ``dryrun.count_sharded``), on the CPU.
 * ``repro``'s own dry run (``lower_cell``) on an Auto (2, 4) host mesh,
   in a subprocess of 8 host devices, against the port's count on the
   same mesh shape: the measured ratios held at ``VS_REPRO``; on ``pod``,
-  the ratios of the cells furthest from ``repro``'s, held at
-  ``VS_REPRO_POD`` against ``repro``'s counts as measured.
+  the prefills whose heads split unevenly and the cells once furthest
+  from ``repro``'s, held at ``VS_REPRO_POD`` against ``repro``'s counts
+  as measured.
 * Real values on four gloo ranks: the scaled() train, prefill and
-  decode steps on DTensors over a (2, 2) mesh == the plain steps.
+  decode steps on DTensors over a (2, 2) mesh == the plain steps, heads
+  that do not divide "model" (q, KV or RWKV-6's) and Jamba among them.
 * The pieces the sharded step needs: the flash op's sharding (blocks on
-  batch and heads), ``local_block`` / ``global_value`` on DTensors, the
-  head views, the recurrences through ``op_cost.scan`` with DTensor
-  carries (scaled == eager, exactly), and a one-device mesh's DTensor
-  step == the plain step, bit for bit.
+  batch and heads, even or not) and a block of no heads,
+  ``local_block`` / ``global_value`` on DTensors, the head views
+  (``torch.chunk``'s blocks of whole heads), the recurrences through
+  ``op_cost.scan`` with DTensor carries (scaled == eager, exactly), and
+  a one-device mesh's DTensor step == the plain step, bit for bit.
 """
 
 import contextlib
@@ -191,27 +194,29 @@ def repro_counts(mesh: str, cells, timeout: float = 600):
 # of the partitioning, to be written into PERF.md section 5 with the new
 # value here.  Both programs hold the arguments to the same specs; XLA's
 # SPMD partitioner and DTensor propagate them through the step otherwise:
-# * FLOPs: XLA replicates more of a training step over "model" (0.77,
-#   0.88); decode agrees (0.997, 1.04); in SmolLM's prefill_32k the port
-#   replicates the attention, whose 15 q and 5 KV heads do not divide the
-#   4 model devices, where XLA divides it (3.15; ROADMAP section 3, fault
-#   3.6, open).
-# * gathers, 0.08-0.5: XLA gathers the FSDP'd and model-split weights at
-#   each use, forward and backward, where DTensor gathers once.
+# * FLOPs: decode and SmolLM's prefill_32k agree (0.997-1.04; the port
+#   splits SmolLM's 15 q and 5 KV heads over the 4 model devices in
+#   torch.chunk's blocks, 4, 4, 4 and 3, each with the KV heads it reads);
+#   XLA replicates more of a training step over "model" (0.52, 0.77).
+# * gathers, 0-0.64: XLA gathers the FSDP'd and model-split weights at
+#   each use, forward and backward, where DTensor gathers once; the port's
+#   SmolLM prefill gathers nothing.
 # * reductions, 0.06-0.67: XLA's partitioning reduces more partial sums
-#   than DTensor's; the kinds are not broken down further here.
-# * reshards, 0.15 (OLMoE): XLA moves the expert blocks and activations by
+#   than DTensor's (in SmolLM's prefill it reduces the attention scores
+#   over the head dim it splits); the kinds are not broken down further.
+# * reshards: OLMoE 0.15 (XLA moves the expert blocks and activations by
 #   all-to-alls and collective-permutes in the forward and again in the
-#   backward; 0 (SmolLM's prefill_32k): the port moves no block there.
+#   backward); SmolLM's prefill 0.25 (the port's all-to-alls moving the
+#   projections' columns into whole heads and back).
 # Where repro's family carries less than 1%, the port's must stay under
 # VS_REPRO_STRAY of its own wire bytes.
 VS_REPRO = {
-    "smollm-360m:train_4k": {"flops": 0.8790, "gathers": 0.1931,
-                             "reductions": 0.3893},
-    "smollm-360m:decode_32k": {"flops": 0.9966, "gathers": 0.5000,
+    "smollm-360m:train_4k": {"flops": 0.5218, "gathers": 0.1162,
+                             "reductions": 0.3584},
+    "smollm-360m:decode_32k": {"flops": 0.9965, "gathers": 0.6400,
                                "reductions": 0.6735},
-    "smollm-360m:prefill_32k": {"flops": 3.1508, "gathers": 0.3658,
-                                "reductions": 0.0606, "reshards": 0.0},
+    "smollm-360m:prefill_32k": {"flops": 1.0080, "gathers": 0.0,
+                                "reductions": 0.0606, "reshards": 0.2489},
     "olmoe-1b-7b:train_4k": {"flops": 0.7664, "gathers": 0.0800,
                              "reductions": 0.1175, "reshards": 0.1515},
     "rwkv6-3b:decode_32k": {"flops": 1.0375, "gathers": 0.0830,
@@ -271,30 +276,56 @@ def test_counts_against_repros_dry_run_on_an_auto_2x4_mesh():
 # repro's counts on pod, one device's (lower_cell on an Auto (16, 16) mesh
 # of 256 host devices: ``python tests/test_torch_sharded_cost.py pod
 # CELL``; minutes a cell, so measured once and written here), for the
-# cells furthest from the port's: "flops" and "wire" are port / repro as
-# measured, held within VS_REPRO_HOLD (fault 3.6: the attention replicated
-# over "model" in the prefills; fault 3.7: Jamba's prefill sends 31.5x
-# repro's wire bytes, nearly all of it all-reduces; OLMoE's prefill sends
-# 0.042x, RWKV6's long_500k charges 8.9x repro's FLOPs).
+# prefills whose heads split unevenly and the cells that were furthest
+# from repro's: "flops" and "wire" are port / repro as measured, held
+# within VS_REPRO_HOLD.  The port splits heads that do not divide the 16
+# model devices in torch.chunk's blocks; XLA splits them gcd(H, 16) ways
+# and the rest of the axis over the head dim where it divides it, or
+# not at all: SmolLM (15 heads: XLA the head dim 16 ways), Qwen3, Kimi
+# and Qwen1.5 (32 or 64 q heads, 8 KV heads) agree within 2%; Gemma2's 8
+# heads leave half the port's model devices without a head where XLA
+# splits the head dim in two (1.37x; ROADMAP section 3, fault 3.8);
+# MusicGen's 24 and Qwen2-VL's 12 heads XLA splits only 8 and 4 ways,
+# computing 3 heads a device where the port computes 2 and 1 (0.73x,
+# 0.44x).  Jamba reduces Mamba's x_proj once a layer before the scan
+# (0.83x and 1.97x repro's wire bytes, from 31.5x and 10.9x); RWKV6's
+# long_500k (B = 1) charges 8.9x repro's FLOPs: its 16 data devices
+# repeat the model devices' matmuls, which XLA splits over them too
+# (fault 3.9).
 VS_REPRO_POD = {
     "smollm-360m:prefill_32k": {"repro_flops": 11294511302659.0,
                                 "repro_wire": 281316578880,
-                                "flops": 11.9134, "wire": 0.07772},
+                                "flops": 1.0093, "wire": 0.062389},
     "qwen3-8b:prefill_32k": {"repro_flops": 98245597058224.0,
                              "repro_wire": 177912639488,
-                             "flops": 7.0277, "wire": 0.5715},
+                             "flops": 0.98336, "wire": 0.43524},
+    "gemma2-2b:prefill_32k": {"repro_flops": 26157059079655.0,
+                              "repro_wire": 187309608704,
+                              "flops": 1.3671, "wire": 0.82171},
+    "musicgen-medium:prefill_32k": {"repro_flops": 56676164465284.0,
+                                    "repro_wire": 137084570112,
+                                    "flops": 0.72864, "wire": 0.30327},
     "kimi-k2-1t-a32b:prefill_32k": {"repro_flops": 446636627210200.0,
                                     "repro_wire": 1399827219456,
-                                    "flops": 5.4928, "wire": 0.3429},
+                                    "flops": 0.98737, "wire": 0.29164},
+    "qwen2-vl-2b:prefill_32k": {"repro_flops": 58952669039403.0,
+                                "repro_wire": 47359783680,
+                                "flops": 0.44383, "wire": 0.58646},
+    "qwen1.5-110b:prefill_32k": {"repro_flops": 1074415696461062.0,
+                                 "repro_wire": 976284696576,
+                                 "flops": 0.99319, "wire": 0.35191},
     "olmoe-1b-7b:prefill_32k": {"repro_flops": 19653696516195.0,
                                 "repro_wire": 440442271744,
-                                "flops": 0.98127, "wire": 0.04228},
+                                "flops": 0.98127, "wire": 0.042282},
     "jamba-v0.1-52b:prefill_32k": {"repro_flops": 111268998229405.0,
                                    "repro_wire": 150881304576,
-                                   "flops": 1.6569, "wire": 31.521},
+                                   "flops": 0.99712, "wire": 0.82563},
+    "jamba-v0.1-52b:train_4k": {"repro_flops": 438309244593097.0,
+                                "repro_wire": 408621240721.5,
+                                "flops": 1.7502, "wire": 1.9650},
     "rwkv6-3b:long_500k": {"repro_flops": 53256870.0,
                            "repro_wire": 695047,
-                           "flops": 8.9293, "wire": 1.5746},
+                           "flops": 8.9291, "wire": 2.5116},
 }
 
 
@@ -319,8 +350,10 @@ def test_flash_op_runs_on_blocks_of_batch_and_heads():
     """The op on DTensors split on the batch over "data" and on the heads
     over "model" (KH = 4 over 4 devices): its output split alike, one
     device's FLOPs, no collective, and its block == the plain version on
-    its blocks.  With KH = 2 the op's sharding offers no head split: the
-    heads stay whole on every model device."""
+    its blocks.  With H = 4, KH = 2 the q blocks would not read their KV
+    blocks, so the op's sharding offers no head split: the heads stay
+    whole on every model device.  6 heads over 4 split unevenly, as
+    torch.chunk splits them, the last device holding none."""
     g = torch.Generator().manual_seed(0)
     q = torch.randn(4, 24, 8, 16, generator=g)
     k, v = (torch.randn(4, 24, 4, 16, generator=g) for _ in range(2))
@@ -348,6 +381,38 @@ def test_flash_op_runs_on_blocks_of_batch_and_heads():
         assert cost.coll_wire_bytes == 0
         assert list(ops.flash_attention(q2, k2, k2).placements) == [
             Shard(0), Replicate()]
+        # uneven heads: 6 over the 4 model devices, torch.chunk's blocks
+        # 2, 2, 2 and 0 of q's heads and of KV's (a group of one)
+        q6 = torch.randn(4, 24, 6, 16, generator=g)
+        k6, v6 = (torch.randn(4, 24, 6, 16, generator=g) for _ in range(2))
+        assert fa.heads_align(6, 6, 4) and not fa.heads_align(4, 2, 4)
+        blocks = (q6[:2, :, :2], k6[:2, :, :2], v6[:2, :, :2])
+        out = ops.flash_attention(*(DTensor.from_local(
+            t, dmesh, place, shape=(4, 24, 6, 16), stride=(2304, 96, 16, 1))
+            for t in blocks))
+        assert list(out.placements) == place and out.shape == q6.shape
+        np.testing.assert_allclose(out.to_local().numpy(),
+                                   fa.flash_attention_plain(*blocks).numpy(),
+                                   rtol=0, atol=0)
+        on_meta = [DTensor.from_local(t.to(META), dmesh, place,
+                                      shape=(4, 24, 6, 16),
+                                      stride=(2304, 96, 16, 1))
+                   for t in blocks]
+        cost = op_cost.count(ops.flash_attention, *on_meta)
+        assert cost.flops == fa.attention_flops(2, 24, 2, 16, True)
+        assert cost.coll_wire_bytes == 0
+
+
+def test_flash_takes_a_block_of_no_heads():
+    """The last device's block of heads that do not fill the devices
+    (H = KH = 0): the plain version and the op on the CPU return it
+    empty; any other KH = 0 raises."""
+    q = torch.zeros(2, 8, 0, 16)
+    for out in (fa.flash_attention_plain(q, q, q), ops.flash_attention(q, q,
+                                                                       q)):
+        assert out.shape == q.shape and out.dtype == q.dtype
+    with pytest.raises(ValueError):
+        fa.check_args(torch.zeros(2, 8, 2, 16), q, q)
 
 
 def test_local_block_and_global_value_take_dtensors():
@@ -371,20 +436,36 @@ def test_local_block_and_global_value_take_dtensors():
 
 
 def test_head_views_replicate_heads_that_do_not_divide_the_axis():
-    """15 heads of 64 (SmolLM-360M's 960) split 16 ways: the projection
-    is gathered before the head view; 16 heads keep their split; a plain
-    tensor passes as it is."""
+    """Heads that do not divide the axis are split unevenly, never
+    replicated: 15 heads of 64 (SmolLM-360M's 960) over 16 devices give
+    torch.chunk's blocks, one head a device and none on the last; 40
+    (RWKV6-3B's) give 3 heads on each of 13 devices and 1 on the 14th; 16 one each.
+    The projection's even blocks move to whole heads by one all-to-all
+    of uneven splits, charged what this device receives (15 heads: its
+    60 columns and 4 more, 4 rows x 4 float32; 40: its 160 and 32 more),
+    none where the blocks are whole heads already (16), and the merge
+    moves them back.  A plain tensor is reshaped."""
+    assert shd.chunk_ranges(15, 16) == [(i, i + 1) for i in range(15)] + [
+        (15, 15)]
+    assert [b - a for a, b in shd.chunk_ranges(40, 16)] == [3] * 13 + [
+        1, 0, 0]
     mesh = dryrun.production_mesh("pod")
     with dctx.fake_process_group(mesh.size):
         dmesh = dctx.device_mesh(mesh)
-        for heads, want in ((15, Replicate()), (16, Shard(2))):
+        for heads, wire in ((15, 4 * 4 * 4.0), (16, 0.0), (40, 4 * 32 * 4.0)):
             x = DTensor.from_local(_meta(1, 4, heads * 64 // 16), dmesh,
                                    [Replicate(), Shard(2)])
-            y = shd.split_ready(x, -1, heads)
-            assert y.placements[1] == want
-            assert y.reshape(1, 4, heads, 64).shape[2] == heads
+            cost = op_cost.count(shd.heads_view, x, 2, (1, 4, heads, 64))
+            y = shd.heads_view(x, 2, (1, 4, heads, 64))
+            assert list(y.placements) == [Replicate(), Shard(2)]
+            assert y.shape == (1, 4, heads, 64)
+            assert y.to_local().shape == (1, 4, -(-heads // 16), 64)
+            assert cost.coll_wire_bytes == wire, (heads, cost.coll_breakdown)
+            back = shd.heads_view(y, 2, (1, 4, heads * 64))
+            assert list(back.placements) == [Replicate(), Shard(2)]
+            assert back.to_local().shape == x.to_local().shape
     plain = torch.zeros(2, 960)
-    assert shd.split_ready(plain, -1, 15) is plain
+    assert shd.heads_view(plain, 1, (2, 15, 64)).shape == (2, 15, 64)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
@@ -458,35 +539,56 @@ def test_one_device_mesh_counts_the_plain_step_at_full_width(arch):
 
 # Real values on a (2, 2) mesh of four gloo ranks: the scaled() train,
 # prefill and decode steps on DTensors against the same steps on plain
-# tensors.  The heads (H, KH) of each case: SmolLM's scaled 2 and 1 do
-# not divide "model" (the projections replicated before the head view);
-# 4 and 2 split with their KV groups (flash on each device's heads);
-# Gemma2's window and softcap take the chunked attention on each device's
-# head blocks.  The cache (L = 32) splits its positions over "model": the
-# decode at position 16 writes into the second block only and reads both
-# split-K.  The tied embedding's vocab splits over "model": the lookup and
-# the loss are vocab-parallel.  The train step takes one SGD step
-# without momentum, whose new momentum is the gradient.
-# Everything runs in float32.
+# tensors.  The heads (H, KH) of each case over the 2 model devices:
+# SmolLM's scaled 2 and 1 (q one head a device, the KV head's columns
+# moved to both: "moved"); 4 and 2 split evenly with their KV groups;
+# 3 and 3 split unevenly (2 and 1 heads); 4 and 1 (the q heads divide
+# the axis, the KV head does not).  Gemma2's window and softcap take the
+# chunked attention on each device's head blocks.  RWKV-6's 3 heads
+# split 2 and 1, each device running the recurrence on its heads; Jamba
+# (Mamba, MoE and attention layers, H = 4, KH = 1) reduces x_proj's
+# partial sums once a layer before the scan.  The cache (L = 32) splits
+# its positions over "model": the decode at position 16 writes into the
+# second block only and reads both split-K.  The tied embedding's vocab
+# splits over "model": the lookup and the loss are vocab-parallel.  The
+# train step takes one SGD step without momentum, whose new momentum is
+# the gradient.  Everything runs in float32.
 REAL_MESH = ((2, 2), ("data", "model"))
-REAL_CASES = {"smollm-360m": ("smollm-360m", None),
-              "smollm-360m-h4": ("smollm-360m", (4, 2)),
-              "gemma2-2b-h4": ("gemma2-2b", (4, 2)),
-              "olmoe-1b-7b": ("olmoe-1b-7b", None)}
+_ATTN = ("_split_k_decode", "split_write", "head_blocks")
+_LM = ("_vocab_parallel_lse_gold", "sharded_embedding")
+# case: (arch, (H, KH) or None for the scaled config's, the DTensor-only
+# paths it takes: every other path of REAL_PATHS must stay untaken)
+REAL_CASES = {
+    "smollm-360m": ("smollm-360m", None, _LM + _ATTN + ("flash", "moved")),
+    "smollm-360m-h4": ("smollm-360m", (4, 2), _LM + _ATTN + ("flash",)),
+    "smollm-360m-h3": ("smollm-360m", (3, 3),
+                       _LM + _ATTN + ("flash", "moved")),
+    "smollm-360m-h4-kv1": ("smollm-360m", (4, 1),
+                           _LM + _ATTN + ("flash", "moved")),
+    "gemma2-2b-h4": ("gemma2-2b", (4, 2), _LM + _ATTN),
+    "olmoe-1b-7b": ("olmoe-1b-7b", None, _LM + _ATTN + ("flash",)),
+    "rwkv6-3b": ("rwkv6-3b", None, _LM + ("moved", "wkv_blocks")),
+    "jamba-v0.1-52b": ("jamba-v0.1-52b", None,
+                       _LM + _ATTN + ("flash", "moved")),
+}
 REAL_B, REAL_S, REAL_L = 4, 16, 32
 # float32 sums taken in another order (the vocab blocks' partial sums,
 # split-K's partial softmax, the gradients' all-reduce): 1e-5 of each
 # leaf's largest entry
 REAL_TOL = 1e-5
-# the DTensor-only paths each case must take, counted in the ranks
-# ("flash" where the config's prefill takes the flash op)
+# the DTensor-only paths counted in the ranks: "flash" the op on a
+# device's blocks, "moved" an all-to-all of uneven splits
+# (sharding.move_blocks: heads that do not fill the devices evenly),
+# "wkv_blocks" RWKV-6's recurrence on each device's heads
 REAL_PATHS = ("_split_k_decode", "_vocab_parallel_lse_gold",
-              "sharded_embedding", "split_write", "head_blocks", "flash")
+              "sharded_embedding", "split_write", "head_blocks", "flash",
+              "moved", "wkv_blocks")
 
 
 def _real_cfg(case):
-    arch, heads = REAL_CASES[case]
-    cfg = dryrun.cell_config(arch).scaled().with_(dtype="float32")
+    arch, heads, _ = REAL_CASES[case]
+    cfg = dryrun.cell_config(arch).scaled().with_(dtype="float32",
+                                                  param_dtype="float32")
     if heads is not None:
         cfg = cfg.with_(num_heads=heads[0], num_kv_heads=heads[1])
     if cfg.moe:
@@ -527,9 +629,9 @@ def _real_steps(case, mesh=None, seen=None):
             (cache, shd.cache_specs)))
         seen["sharded_embedding"] += shd.sharded_axis(
             state["params"]["embed"]["table"], 0) is not None
-        seen["split_write"] += all(
-            shd.sharded_axis(t, t.ndim - 3) is not None
-            for _, t in shd.leaves_with_path(cache))
+        seen["split_write"] += any(
+            shd.sharded_axis(t, 2) is not None
+            for path, t in shd.leaves_with_path(cache) if t.ndim == 5)
         run = dctx.sharded_step(mesh)
     with run:
         new, metrics = steps.build_train_step(cfg, sgd)(state, batch)
@@ -553,18 +655,28 @@ def _real_steps(case, mesh=None, seen=None):
 
 @contextlib.contextmanager
 def _counting_dtensor_paths(seen):
-    """Count in ``seen`` the calls of the DTensor-only functions, and the
-    chunked attention's and the flash op's calls on DTensors."""
+    """Count in ``seen`` the calls of the DTensor-only functions: the
+    head blocks' and RWKV-6's on DTensors, the flash op's (only a
+    device's blocks reach it in a sharded step) and the moves of uneven
+    blocks."""
     wrapped = {(attention, "_split_k_decode"): "_split_k_decode",
                (steps, "_vocab_parallel_lse_gold"):
                    "_vocab_parallel_lse_gold",
                (attention, "_on_head_blocks"): "head_blocks",
-               (ops, "flash_attention"): "flash"}
+               (ops, "flash_attention"): "flash",
+               (shd, "move_blocks"): "moved",
+               (shd, "on_blocks"): "wkv_blocks"}
     saved = {key: getattr(*key) for key in wrapped}
+    taken = {
+        "flash": lambda a: True,
+        "moved": lambda a: not all(map(shd.holds, a[2], a[3])),
+        "wkv_blocks": lambda a: "wkv" in a[0].__qualname__,
+    }
 
     def counter(fn, name):
         def counted(*a, **kw):
-            seen[name] += any(hasattr(x, "placements") for x in a)
+            seen[name] += taken.get(name, lambda a: any(
+                hasattr(x, "placements") for x in a))(a)
             return fn(*a, **kw)
         return counted
     try:
@@ -607,10 +719,9 @@ def test_sharded_steps_on_four_ranks_equal_the_plain_steps(real_ranks,
         tol = REAL_TOL * max(float(np.abs(w).max()), 1e-30)
         np.testing.assert_allclose(got[key], w, rtol=0, atol=tol,
                                    err_msg=f"{case}: {key}")
-    flash = attention.uses_flash(_real_cfg(case), "attn")
+    taken = REAL_CASES[case][2]
     for path in REAL_PATHS:
-        assert (seen[path] > 0) == (path != "flash" or flash), (
-            case, path, seen)
+        assert (seen[path] > 0) == (path in taken), (case, path, seen)
 
 if __name__ == "__main__":
     # repro's own dry run on an Auto mesh, the counts PERF.md sets beside
