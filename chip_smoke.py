@@ -308,7 +308,19 @@ SHARDED_HEADS = (8, 4)
 # 2, 2, 2 and 0 of the 6 q heads, the first device's two reading KV head 0
 SHARDED_UNEVEN_HEADS = (6, 2)
 SHARDED_PREFILL = (8, 256)
+# and Gemma2-2B's scaled() config at 2 q heads over 1 KV head: its softcap
+# takes the chunked attention, each head's query rows shared by 2 of the 4
+# model devices (zig-zag halves of the causal triangle)
+SHARDED_ROWS = ("gemma2-2b", 2, 1)
+# a decode step of SmolLM-360M's scaled() config at a batch of one (cache
+# of this many positions) on the same fake group: the batch leaves "data"
+# idle, so the weights' free dims split over it and the outputs gather
+SHARDED_DECODE_LEN = 256
 POD_CELL = (LM_ARCH, "train_4k")
+# this cell's FLOPs a device on pod as this tree counts it on an 8-core
+# x86_64 CPU with torch 2.13.0+cpu (PERF.md section 5), beside the card's
+# torch's count: the products are placed by hand, so the two should agree
+POD_CELL_CPU_FLOPS = 1.35958e13
 # row 10 at SmolLM's prefill (bf16, probs_bf16=True), a call in a CUDA
 # graph before the padded head dims (PERF.md's kernel table): the D = 64
 # path they leave as it was
@@ -1428,13 +1440,17 @@ def mesh_phase(dev) -> int:
     return n_flash
 
 
-def fake_group_prefill(dev, h: int, kh: int) -> int:
-    """A prefill of SmolLM-360M's scaled() config at ``h`` q and ``kh`` KV
+def fake_group_prefill(dev, h: int, kh: int, arch: str = LM_ARCH) -> int:
+    """A prefill of ``arch``'s scaled() config at ``h`` q and ``kh`` KV
     heads on a fake group of 8 ranks over SHARDED_MESH, its blocks on the
-    card: counted == on meta, exactly (FLOPs, bytes, wire bytes), the
-    flash kernel launched once an attention layer on this rank's blocks
-    (the batch over "data", torch.chunk's blocks of the heads over
-    "model", each with the KV heads it reads).  Returns the launches."""
+    card: counted == on meta, exactly (FLOPs, bytes, wire bytes).  Where
+    the config takes flash, the kernel launched once an attention layer
+    on this rank's blocks (the batch over "data", torch.chunk's blocks of
+    the heads over "model", each with the KV heads it reads); where its
+    heads divide the model devices m > 1 ways on the chunked path, each
+    layer's attention through ``attention.query_row_attention`` (each
+    head's query rows shared by its m devices).  Returns the flash
+    launches."""
     from repro_torch.configs import shapes as shp
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed import context as dctx
@@ -1442,14 +1458,21 @@ def fake_group_prefill(dev, h: int, kh: int) -> int:
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun, op_cost
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.models import transformer
+    from repro_torch.models import attention, transformer
     from repro_torch.train import serve
 
-    scfg = get_config(LM_ARCH).scaled().with_(num_heads=h, num_kv_heads=kh)
+    scfg = get_config(arch).scaled().with_(num_heads=h, num_kv_heads=kh)
     b, sq = SHARDED_PREFILL
     shape = shp.ShapeSpec("prefill_sharded", sq, b, "prefill")
     smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
                                    SHARDED_MESH[1], abstract=True)
+    flash = all(attention.uses_flash(scfg, k) for k in scfg.pattern)
+    rows = [0]
+    by_rows = attention.query_row_attention
+
+    def counted(*a, **kw):
+        rows[0] += 1
+        return by_rows(*a, **kw)
     with dctx.fake_process_group(smesh.size):
         dmesh = shd.device_mesh(smesh)
         step_fn, meta_args, _ = dryrun.sharded_step_and_args(
@@ -1466,8 +1489,13 @@ def fake_group_prefill(dev, h: int, kh: int) -> int:
         blocks = {t.to_local().device.type
                   for _, t in shd.leaves_with_path(args)}
         ops.reset_launch_counts()
-        with dctx.sharded_step(smesh):
-            on_card = op_cost.count(serve.build_prefill_step(scfg), *args)
+        attention.query_row_attention = counted
+        try:
+            with dctx.sharded_step(smesh):
+                on_card = op_cost.count(serve.build_prefill_step(scfg),
+                                        *args)
+        finally:
+            attention.query_row_attention = by_rows
         torch.cuda.synchronize()
         n_flash = ops.launch_counts()["flash_attention"]
     if blocks != {"cuda"}:
@@ -1475,24 +1503,100 @@ def fake_group_prefill(dev, h: int, kh: int) -> int:
     if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
             != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
         raise AssertionError(
-            f"the sharded prefill (H={h}, KH={kh}) counted on the card "
-            f"({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
+            f"the sharded {arch} prefill (H={h}, KH={kh}) counted on the "
+            f"card ({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
             f"{on_card.coll_wire_bytes} wire) != on meta "
             f"({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
             f"{on_meta.coll_wire_bytes})")
-    if n_flash != attn_layers(scfg):
-        raise AssertionError(f"{n_flash} flash launches in the sharded "
-                             f"prefill, {attn_layers(scfg)} attention layers")
+    m = SHARDED_MESH[1] // h if SHARDED_MESH[1] % h == 0 else 1
+    want = ((attn_layers(scfg), 0) if flash
+            else (0, attn_layers(scfg) if m > 1 else 0))
+    if (n_flash, rows[0]) != want:
+        raise AssertionError(f"{n_flash} flash launches and {rows[0]} "
+                             f"query-row attentions in the sharded prefill, "
+                             f"want {want}")
     q_heads = shd.chunk_ranges(h, SHARDED_MESH[1])
-    print(f"  {LM_ARCH} scaled() H={h} KH={kh} prefill {b} x {sq} on a fake "
+    split = (f"each head's query rows over {m} model devices "
+             f"({rows[0]} layers)" if rows[0] else
+             f"q heads {[y - x for x, y in q_heads]} over the model devices")
+    print(f"  {arch} scaled() H={h} KH={kh} prefill {b} x {sq} on a fake "
           f"group of {smesh.size} over {dict(smesh.shape)}, blocks on the "
           f"card: one device's {on_card.flops:.6e} FLOPs, "
           f"{on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes:.6e} wire "
           f"bytes {({k: v for k, v in on_card.coll_breakdown.items() if v})}"
           f" == on meta; flash launched {n_flash} times on each rank's "
-          f"blocks (batch / {SHARDED_MESH[0]}, q heads "
-          f"{[y - x for x, y in q_heads]} over the model devices)")
+          f"blocks (batch / {SHARDED_MESH[0]}, {split})")
     return n_flash
+
+
+def fake_group_decode(dev) -> None:
+    """A decode step of SmolLM-360M's scaled() config at a batch of one
+    (cache SHARDED_DECODE_LEN) on a fake group of 8 ranks over
+    SHARDED_MESH, its blocks on the card: the batch leaves "data" idle,
+    so each linear layer's weight splits its free dim over it and the
+    output gathers (``sharding.gather_blocks``, counted); counted on the
+    card == on meta, exactly."""
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.train import serve
+
+    scfg = get_config(LM_ARCH).scaled()
+    shape = shp.ShapeSpec("decode_b1", SHARDED_DECODE_LEN, 1, "decode")
+    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
+                                   SHARDED_MESH[1], abstract=True)
+    gathers = [0]
+    gather = shd.gather_blocks
+
+    def counted(*a, **kw):
+        gathers[0] += 1
+        return gather(*a, **kw)
+    with dctx.fake_process_group(smesh.size):
+        dmesh = shd.device_mesh(smesh)
+        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
+            scfg, shape, smesh)
+        with dctx.sharded_step(smesh):
+            on_meta = op_cost.count(step_fn, *meta_args)
+        params = transformer.init_params(scfg, seed=0, device=dev)
+        cache = transformer.init_cache(scfg, 1, SHARDED_DECODE_LEN,
+                                       device=dev)
+        tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        place = lambda tree, specs: shd.distribute(
+            tree, shd.to_named(smesh, specs, dmesh))
+        args = (place(params, shd.param_specs(scfg, smesh, params)),
+                place(cache, shd.cache_specs(scfg, smesh, cache)),
+                place({"t": tok}, shd.batch_specs(scfg, smesh,
+                                                  {"t": tok}))["t"],
+                SHARDED_DECODE_LEN - 1)
+        shd.gather_blocks = counted
+        try:
+            with dctx.sharded_step(smesh):
+                on_card = op_cost.count(serve.build_decode_step(scfg), *args)
+        finally:
+            shd.gather_blocks = gather
+        torch.cuda.synchronize()
+    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
+            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
+        raise AssertionError(
+            f"the sharded decode at B=1 counted on the card "
+            f"({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
+            f"{on_card.coll_wire_bytes} wire) != on meta "
+            f"({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
+            f"{on_meta.coll_wire_bytes})")
+    if not gathers[0]:
+        raise AssertionError("the decode at B=1 split no weight over the "
+                             "idle data axis")
+    print(f"  {LM_ARCH} scaled() decode at B=1 (cache "
+          f"{SHARDED_DECODE_LEN}) on the fake group, blocks on the card: "
+          f"{gathers[0]} products split over the idle \"data\" axis and "
+          f"gathered; one device's {on_card.flops:.6e} FLOPs, "
+          f"{on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes:.6e} wire "
+          f"bytes {({k: v for k, v in on_card.coll_breakdown.items() if v})}"
+          f" == on meta")
 
 
 def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
@@ -1504,9 +1608,13 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
     SmolLM-360M's scaled() config on a fake group of 8 ranks over the
     (2, 4) mesh, its blocks on the card (:func:`fake_group_prefill`), at
     SHARDED_HEADS and at SHARDED_UNEVEN_HEADS, whose q heads do not
-    divide the model axis; and flash on a block of no heads, returned
-    empty with no launch.  (3) The dry run's POD_CELL on the 256-chip
-    mesh, on meta, printed.  Returns (2)'s flash launches."""
+    divide the model axis, and Gemma2-2B's at SHARDED_ROWS, whose heads
+    share the model devices by query rows; a decode step at a batch of
+    one, the weights split over the idle "data" axis
+    (:func:`fake_group_decode`); and flash on a block of no heads,
+    returned empty with no launch.  (3) The dry run's POD_CELL on the
+    256-chip mesh, on meta, printed beside this tree's count on the CPU
+    (POD_CELL_CPU_FLOPS).  Returns (2)'s flash launches."""
     from repro_torch.distributed import context as dctx
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import flash_attention as fa
@@ -1554,6 +1662,9 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
     n_flash = 0
     for h, kh in (SHARDED_HEADS, SHARDED_UNEVEN_HEADS):
         n_flash += fake_group_prefill(dev, h, kh)
+    arch, h, kh = SHARDED_ROWS
+    n_flash += fake_group_prefill(dev, h, kh, arch)
+    fake_group_decode(dev)
     # the block of no heads a device holds where the heads do not fill
     # the devices: returned empty, nothing launched
     ops.reset_launch_counts()
@@ -1580,6 +1691,11 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
           f"{rec['t_memory']:.4f} s, t_collective {rec['t_collective']:.4f}"
           f" s ({rec['bottleneck']}), roofline_fraction "
           f"{rec['roofline_fraction']:.4f}")
+    flops = rec["hlo_flops"] / rec["chips"]
+    print(f"  {POD_CELL[0]} {POD_CELL[1]} pod FLOPs a device: "
+          f"{flops:.6e} with torch {torch.__version__} here, "
+          f"{POD_CELL_CPU_FLOPS:.6e} with torch 2.13.0+cpu on the CPU "
+          f"(ratio {flops / POD_CELL_CPU_FLOPS:.4f})")
     return n_flash
 
 
@@ -4505,7 +4621,9 @@ def main() -> None:
              "shapes, a step under the mesh == the step without; the "
              "sharded step counted (a (1, 1) DTensor step == the plain "
              "one, a fake (2, 4) group's blocks on the card == on meta at "
-             "even and uneven head splits, a pod cell on meta)")
+             "even and uneven head splits, heads shared by query rows and "
+             "a decode at a batch of one, a pod cell on meta beside the "
+             "CPU's count)")
     n9 = mesh_phase(dev)
     by_phase["flash_attention"]["9"] = n9
     rows["flash_attention"]["launches"] += n9

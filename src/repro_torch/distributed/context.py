@@ -307,20 +307,23 @@ def _is_dtensor(x) -> bool:
     return type(x).__name__ == "DTensor"
 
 
-def local_block(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+def local_block(x: torch.Tensor, mesh, spec, repeated=()) -> torch.Tensor:
     """This rank's block of the global ``x`` under ``spec`` (a
     ``sharding.P``); its gradient, summed over every rank, is the whole
     tensor's.  A DTensor ``x`` is redistributed to ``spec``'s placements
     and its local block taken; the block's gradient is a partial sum
-    over the mesh dims the spec does not split, and comes back through
-    DTensor's redistribution."""
+    over the mesh dims the spec does not split, except the axes named in
+    ``repeated``, on whose devices the body runs alike (a batch that does
+    not split there): whole there.  It comes back through DTensor's
+    redistribution."""
     if _is_dtensor(x):
         from torch.distributed.tensor import Partial
         from repro_torch.distributed.sharding import placements
         place = list(placements(spec, mesh))
         return x.redistribute(x.device_mesh, place).to_local(
-            grad_placements=[Partial() if p.is_replicate() else p
-                             for p in place])
+            grad_placements=[
+                Partial() if p.is_replicate() and name not in repeated
+                else p for p, name in zip(place, mesh.axis_names)])
     return _LocalBlock.apply(x, mesh, spec)
 
 

@@ -21,8 +21,10 @@ a ``torch.distributed`` ``DeviceMesh`` (:class:`NamedSharding`), and
 :func:`constrain` is the in-model constraint: the identity without a mesh
 or on a mesh of one device, else a DTensor redistributed to the spec.
 Inside the model, :func:`heads_view` splits heads that do not divide the
-axis in ``torch.chunk``'s blocks of whole heads, and :func:`on_blocks`
-runs a per-head computation on each device's blocks.
+axis in ``torch.chunk``'s blocks of whole heads, :func:`on_blocks`
+runs a per-head computation on each device's blocks, and
+:func:`placed_matmul` a linear layer's product, its placements written
+down in both directions.
 
 The serving half (``SERVE_AXIS`` through ``gather_frames``) mirrors the
 chip's LD-once/CONV-many schedule, lifted one level: every device of a
@@ -38,6 +40,7 @@ then one copy.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, List, Sequence, Tuple
 
@@ -361,14 +364,24 @@ def move_blocks(block: torch.Tensor, dim: int, have, want, group,
     lo = have[rank][0]
     if all(holds(h, w) for h, w in zip(have, want)):
         return _take(block, dim, lo, want[rank]).contiguous()
-    import torch.distributed._functional_collectives as fc
-    from repro_torch.distributed.context import _wait
     sends = [_overlap(have[rank], w) for w in want]
     recvs = [_overlap(want[rank], h) for h in have]
-    out = torch.cat([_take(block, dim, lo, part) for part in sends], dim)
-    out = _wait(fc.all_to_all_single_autograd(
-        out.movedim(dim, 0).contiguous(), [b - a for a, b in recvs],
-        [b - a for a, b in sends], group))
+    return send_pieces([_take(block, dim, lo, part) for part in sends],
+                       [b - a for a, b in recvs], dim, group)
+
+
+def send_pieces(pieces, recv, dim: int, group) -> torch.Tensor:
+    """Each rank of ``group`` sends ``pieces[p]`` to rank p and receives
+    ``recv[p]`` entries of dim ``dim`` from rank p (pieces to and from
+    ranks outside an exchange empty), by one all-to-all of uneven splits;
+    the pieces received, concatenated on ``dim`` in rank order.  Its
+    gradient goes back the same way."""
+    import torch.distributed._functional_collectives as fc
+    dim %= pieces[0].ndim
+    out = torch.cat(pieces, dim)
+    out = dctx._wait(fc.all_to_all_single_autograd(
+        out.movedim(dim, 0).contiguous(), list(recv),
+        [t.shape[dim] for t in pieces], group))
     return out.movedim(0, dim).contiguous()
 
 
@@ -476,6 +489,207 @@ def on_blocks(fn, like: torch.Tensor, args, outs, split_heads=True):
         stride=make_contiguous_strides_for(shape))
         for block, (shape, batch, heads) in zip(got, outs))
     return wrapped[0] if single else wrapped
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """This device's block of dim ``dim`` gathered over ``groups`` (the
+    innermost mesh dim's first, so the blocks join in mesh order); the
+    backward hands each device its own block of a gradient every device
+    holds whole and alike (``at``: the block's index), with no
+    collective."""
+
+    @staticmethod
+    def forward(ctx, y, dim, groups, at):
+        import torch.distributed._functional_collectives as fc
+        # all_gather_single is all_gather_tensor's newer name
+        gather = getattr(fc, "all_gather_single", None) or fc.all_gather_tensor
+        ctx.dim, ctx.width, ctx.at = dim, y.shape[dim], at
+        for group in reversed(groups):
+            y = dctx._wait(gather(y.contiguous(), dim, group))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.at * ctx.width, ctx.width).contiguous(),
+                None, None, None)
+
+
+def gather_blocks(y: torch.Tensor, dim: int, groups, at: int):
+    """``y``, this device's block ``at`` of dim ``dim``, gathered over the
+    process ``groups`` of mesh dims (outermost first); the gradient, held
+    whole and alike on every device, comes back as this block's, with no
+    collective."""
+    return _GatherBlocks.apply(y, dim, groups, at)
+
+
+class _FromBlock(torch.autograd.Function):
+    """``DTensor.from_local(block, dmesh, place)`` whose backward
+    redistributes the cotangent to the placements ``grad`` and hands back
+    its block; where ``grad`` is a partial sum, a whole cotangent is made
+    one by a local division (DTensor's own redistribution declines it)."""
+
+    @staticmethod
+    def forward(ctx, block, dmesh, place, grad, shape):
+        from torch.distributed.tensor import DTensor
+        ctx.grad = grad
+        return DTensor.from_local(block, dmesh, place, shape=shape,
+                                  stride=make_contiguous_strides_for(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        kept = [w.is_partial() and (p.is_partial() or p.is_replicate())
+                for p, w in zip(g.placements, ctx.grad)]
+        want = [p if keep else Replicate() if w.is_partial() else w
+                for p, w, keep in zip(g.placements, ctx.grad, kept)]
+        if list(g.placements) != want:
+            g = g.redistribute(g.device_mesh, want)
+        whole = math.prod(g.device_mesh.size(i) for i, w in enumerate(ctx.grad)
+                          if w.is_partial() and want[i].is_replicate())
+        block = g.to_local()
+        return (block / whole if whole > 1 else block), None, None, None, \
+            None
+
+
+def idle_dims(x: torch.Tensor) -> List[int]:
+    """The mesh dims of several devices other than "model" on which
+    DTensor ``x`` is whole (a batch that does not split over them)."""
+    dmesh = x.device_mesh
+    return [i for i, p in enumerate(x.placements)
+            if p.is_replicate() and dmesh.size(i) > 1
+            and dmesh.mesh_dim_names[i] != "model"]
+
+
+def share_of(dmesh, dims, width: int):
+    """Of the mesh dims ``dims``, those (innermost first) whose product
+    divides ``width``, this device's index in their product (mesh order)
+    and that product: how ``width`` columns split over them."""
+    chosen, n = [], 1
+    for i in reversed(dims):
+        if width % (n * dmesh.size(i)) == 0:
+            chosen.insert(0, i)
+            n *= dmesh.size(i)
+    at = 0
+    for i in chosen:
+        at = at * dmesh.size(i) + dmesh.get_local_rank(i)
+    return chosen, at, n
+
+
+def _plan(x, w):
+    """The role of each mesh dim in ``x @ w`` (:func:`placed_matmul`),
+    and the weight's placements for the product; None where a pair of
+    placements has no role here."""
+    from torch.distributed.tensor import Replicate, Shard
+    dmesh = x.device_mesh
+    last = x.ndim - 1
+    kinds, gather = [], list(w.placements)
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        if any(not p.is_replicate() and type(p) is not Shard
+               for p in (px, pw)):
+            return None                 # partial sums, strided shards
+        if dmesh.size(i) == 1:
+            kind = "one"
+        elif px.is_shard() and px.dim != last:
+            kind = "batch"
+            if pw.is_shard():
+                gather[i] = Replicate()             # FSDP: gathered here
+        elif px.is_replicate() and pw.is_shard(1):
+            kind = "col"
+        elif px.is_shard(last) and pw.is_shard(0):
+            kind = "row"
+        elif px.is_replicate() and pw.is_shard(0):
+            kind = "contract"
+        elif px.is_replicate() and pw.is_replicate():
+            kind = "whole" if dmesh.mesh_dim_names[i] == "model" else "idle"
+        else:
+            return None
+        kinds.append(kind)
+    return kinds, gather
+
+
+def placed_matmul(x: torch.Tensor, w: torch.Tensor, product):
+    """``x @ w`` as ``product(x_block, w_block)`` on each device's blocks
+    of DTensors ``x`` (..., K) and ``w`` (K, N), every placement written
+    down in both directions (Megatron's f and g: ``to_local``'s gradient
+    placements, ``from_local``'s output placements, whose backward
+    redistributes the cotangent to them), never left to DTensor's
+    propagation, which for a cotangent that is a partial sum over "model"
+    gathers a row-split weight whole.  Each mesh dim of several devices
+    plays one role:
+
+      batch     x split on a dim before K, w whole there (split by FSDP:
+                gathered first, its gradient reduce-scattered back): y
+                split alike, dw a partial sum over the dim
+      col       x whole, w split on N: y split on N, dx a partial sum
+      row       x split on K, w split on K: y a partial sum, which the
+                caller reduces; its cotangent is reduced once (to whole)
+                in the backward
+      contract  x whole, w split on K (FSDP at a batch that does not
+                split): x's block of K, y and dx partial sums
+      idle      x and w whole on a data axis (a batch that does not
+                split): w's block of N split over it, a local slice, and
+                the smaller product's output gathered; dx and dw partial
+                sums
+      whole     x and w whole on "model" (or on a data axis whose split
+                would not divide w's block of N): the product on every
+                device, dx and dw partial sums
+
+    Returns None (the caller takes DTensor's own product) where a
+    placement plays none of these roles, or the mesh has one device."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_box
+    if (not isinstance(x, DTensor) or not isinstance(w, DTensor)
+            or x.ndim < 2 or w.ndim != 2 or x.device_mesh != w.device_mesh
+            or x.device_mesh.size() == 1):
+        return None
+    plan = _plan(x, w)
+    if plan is None:
+        return None
+    kinds, gather = plan
+    dmesh = x.device_mesh
+    if "contract" in kinds:
+        # x's columns of the weight block's rows of K
+        _, x_at = local_box(x.shape, dmesh, x.placements)
+        w_len, w_at = local_box(w.shape, dmesh, w.placements)
+        lo = w_at[0] - x_at[-1]
+        if lo < 0 or lo + w_len[0] > x.to_local().shape[-1]:
+            return None
+    if gather != list(w.placements):
+        w = w.redistribute(dmesh, gather)
+    idle, at, n_idle = share_of(
+        dmesh, [i for i, k in enumerate(kinds) if k == "idle"],
+        w.to_local().shape[1])
+    kinds = ["whole" if k == "idle" and i not in idle else k
+             for i, k in enumerate(kinds)]
+    part = Partial()
+    x_grad = {"col": part, "contract": part, "idle": part, "whole": part}
+    w_grad = {"batch": part, "idle": part, "whole": part}
+    xl = x.to_local(grad_placements=[x_grad.get(k, p) for k, p in
+                                     zip(kinds, x.placements)])
+    wl = w.to_local(grad_placements=[w_grad.get(k, p) for k, p in
+                                     zip(kinds, w.placements)])
+    if "contract" in kinds:
+        xl = xl.narrow(-1, lo, w_len[0])
+    if idle:
+        width = wl.shape[1] // n_idle
+        y = product(xl, wl.narrow(1, at * width, width))
+        y = gather_blocks(y, y.ndim - 1, [dmesh.get_group(i) for i in idle],
+                          at)
+    else:
+        y = product(xl, wl)
+    out = {"col": Shard(y.ndim - 1), "row": part, "contract": part}
+    place = [px if k == "batch" else out.get(k, Replicate())
+             for k, px in zip(kinds, x.placements)]
+    # the cotangent: a partial sum is reduced where the product needs it
+    # whole (row, contract: once, Megatron's g), and made one where the
+    # product is whole on "model", so that dx and dw are partial sums
+    # there (a local division where it arrives whole, never a reduction
+    # of activations)
+    grad = [part if k == "whole" else Replicate() if p.is_partial() else p
+            for k, p in zip(kinds, place)]
+    shape = torch.Size(tuple(x.shape[:-1]) + (w.shape[1],))
+    return _FromBlock.apply(y, dmesh, place, grad, shape)
 
 
 def built_like(make, shape, like: torch.Tensor, dims=None):

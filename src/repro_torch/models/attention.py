@@ -10,6 +10,9 @@ kernel on the TPU.
 
 ``repro``'s sharding constraints stand where it puts them
 (``sharding.constrain``: the identity without a mesh or on one device).
+On DTensors each device attends on its blocks of the batch and the
+heads (:func:`_on_head_blocks`), or, where a mesh dim has m devices a
+head, on its share of a head's query rows (:func:`query_row_attention`).
 """
 
 from __future__ import annotations
@@ -81,17 +84,19 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       softcap: Optional[float] = None,
                       chunk_q: int = 1024, chunk_k: int = 1024,
                       scale: Optional[float] = None,
-                      probs_bf16: bool = False):
-    """q: (B,S,H,D), k/v: (B,S,KH,D) -> (B,S,H,D).  Causal within the same
-    sequence (q and k aligned at position 0); query chunk ``i`` visits only
-    the KV chunks its causal/window horizon allows.  ``probs_bf16`` rounds
-    the exp'd probabilities to bf16 for the p@v matmul (running max and
-    denominator stay float32)."""
+                      probs_bf16: bool = False, q0: int = 0):
+    """q: (B,Sq,H,D), k/v: (B,S,KH,D) -> (B,Sq,H,D).  Causal within the
+    same sequence: q's rows are its positions q0 to q0 + Sq - 1 and k's
+    start at 0 (q0 = 0 and Sq = S: the whole sequence); query chunk ``i``
+    visits only the KV chunks its causal/window horizon allows, KV chunks
+    of the sequence's own size whatever rows q holds.  ``probs_bf16``
+    rounds the exp'd probabilities to bf16 for the p@v matmul (running
+    max and denominator stay float32)."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     cq = min(chunk_q, s)
-    ck = min(chunk_k, s)
+    ck = min(chunk_k, k.shape[1])
     sp = (-s) % cq
     if sp:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, sp))
@@ -105,7 +110,7 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     outs = []
     for i in range(nq):
         qi = q[:, i * cq:(i + 1) * cq]
-        q_lo, q_hi = i * cq, i * cq + cq - 1
+        q_lo, q_hi = q0 + i * cq, q0 + i * cq + cq - 1
         j_hi = min(nk - 1, q_hi // ck) if causal else nk - 1
         j_lo = 0
         if window is not None:
@@ -276,6 +281,85 @@ def _on_head_blocks(fn, q, k, v, **kw):
                          [(q.shape, 0, 2)])
 
 
+def row_shares(q: torch.Tensor, heads: int) -> int:
+    """m where a mesh dim of m * ``heads`` devices, m > 1, splits the
+    columns of ``q``, a projection's output (B, S, heads * D) as a
+    DTensor, in blocks of a head's D / m columns, and the batch is its
+    only other split: each head's query rows are then shared by its m
+    devices (:func:`query_row_attention`); else 0."""
+    axes = shd.split_axes(q, 2)
+    if len(axes) != 1:
+        return 0
+    n = q.device_mesh.size(axes[0])
+    m = n // heads
+    d = q.shape[2] // heads
+    if (m < 2 or n % heads or d % m or q.shape[1] % (2 * m)
+            or any(i != axes[0] and not (p.is_replicate() or p.is_shard(0))
+                   for i, p in enumerate(q.placements))):
+        return 0
+    return m
+
+
+def query_row_attention(q, k, v, m: int, rotate, cos, sin, **kw):
+    """Causal chunked attention on DTensors where m devices share each
+    head (:func:`row_shares`): ``q`` the projection's output (B, S, H * D)
+    in blocks of D / m columns, ``k`` and ``v`` (B, S, KH, D) rotated.
+    Device j of a head's m takes the head's query rows of the zig-zag
+    pair of the sequence's 2m equal parts j and 2m - 1 - j, so each has
+    the same (query, key) pairs under the causal mask: its rows of the
+    head's columns move to it from its partners (one all-to-all of
+    uneven splits), are rotated there (``rotate(q, cos, sin, local)``,
+    ``local`` the parameters' blocks), and attend over the head's whole
+    KV (:func:`sharding.gather_ranges`: the KV head, every row), each
+    part through :func:`chunked_attention` at its offset, every row's
+    softmax whole on one device.  The output rows move back to the
+    column blocks ``wo`` reads (the exchange reversed).  Returns that
+    (B, S, H * D) DTensor, placed as ``q``."""
+    from torch.distributed.tensor import DTensor, Partial
+    axis = shd.split_axes(q, 2)[0]
+    dmesh = q.device_mesh
+    n, rank = dmesh.size(axis), dmesh.get_local_rank(axis)
+    group = dmesh.get_group(axis)
+    head, mine = divmod(rank, m)
+    group_size = (n // m) // k.shape[2]              # q heads a KV head
+    s = q.shape[1]
+    part = s // (2 * m)
+
+    def rows(t, j):
+        """The rows of share j: parts j and 2m - 1 - j."""
+        return torch.cat([t.narrow(1, j * part, part),
+                          t.narrow(1, (2 * m - 1 - j) * part, part)], 1)
+
+    ql = q.to_local()
+    width = ql.shape[2]
+    partners = [p // m == head for p in range(n)]
+    share = [rows(ql, p % m) if on else ql.narrow(1, 0, 2 * part).narrow(
+        2, 0, 0) for p, on in enumerate(partners)]
+    ql = shd.send_pieces(share, [width if on else 0 for on in partners], 2,
+                         group)
+    split = [Partial() if p.is_shard() else p for p in q.placements]
+    ql = rotate(ql.unsqueeze(2), rows(cos.to_local(), mine),
+                rows(sin.to_local(), mine), split)
+    want = [((p // m) // group_size, (p // m) // group_size + 1)
+            for p in range(n)]
+    kl, vl = (shd.gather_ranges(t, 2, want, axis) for t in (k, v))
+    yl = torch.cat([chunked_attention(ql.narrow(1, i * part, part), kl, vl,
+                                      causal=True, q0=j * part, **kw)
+                    for i, j in enumerate((mine, 2 * m - 1 - mine))], 1)
+    yl = yl.flatten(2)
+    back = [yl.narrow(2, (p % m) * width, width) if on
+            else yl.narrow(1, 0, 0).narrow(2, 0, width)
+            for p, on in enumerate(partners)]
+    yl = shd.send_pieces(back, [2 * part if on else 0 for on in partners],
+                         1, group)
+    # the shares' rows back in the sequence's order: part t is in share
+    # min(t, 2m - 1 - t), first or second of its two
+    yl = torch.cat([yl.narrow(1, (2 * min(t, 2 * m - 1 - t) + (t >= m))
+                              * part, part) for t in range(2 * m)], 1)
+    return DTensor.from_local(yl, dmesh, list(q.placements), shape=q.shape,
+                              stride=q.stride())
+
+
 # ---------------------------------------------------------------------------
 # Full block-level apply
 # ---------------------------------------------------------------------------
@@ -311,29 +395,48 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     quant = cfg.quant
     bfg = cfg.bf16_grads
-    # a head axis split over devices keeps whole heads on each device:
-    # torch.chunk's blocks of q's heads by their count, of k's and v's by
-    # theirs (sharding.heads_view; plain tensors are reshaped)
-    q, k, v = (shd.heads_view(common.linear_apply(
-        params[w], x, quant=quant, bf16_grads=bfg), 2, (b, s, n, dh))
-        for w, n in (("wq", h), ("wk", kv), ("wv", kv)))
-    if cfg.qk_norm:
-        q = common.rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
-        k = common.rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
-    q = common.apply_rope(q, cos, sin)
-    k = common.apply_rope(k, cos, sin)
-
     window = cfg.sliding_window if kind == "local" else None
+    flash = mode == "prefill" and uses_flash(cfg, kind)
+    qf, k, v = (common.linear_apply(params[w], x, quant=quant, bf16_grads=bfg)
+                for w in ("wq", "wk", "wv"))
+    # m devices a head of a mesh dim of m * H share its query rows (the
+    # chunked path; flash takes no query offset), else a head axis split
+    # over devices keeps whole heads on each device: torch.chunk's blocks
+    # of q's heads by their count, of k's and v's by theirs
+    # (sharding.heads_view; plain tensors are reshaped)
+    m = row_shares(qf, h) if mode in ("train", "prefill") and not flash \
+        else 0
+    q = None if m else shd.heads_view(qf, 2, (b, s, h, dh))
+    k, v = (shd.heads_view(t, 2, (b, s, kv, dh)) for t in (k, v))
+
+    def norm(t, name, split=None):
+        if not cfg.qk_norm:
+            return t
+        p = params[name]
+        if split is not None:        # a device's rows: a partial gradient
+            p = {"scale": p["scale"].to_local(grad_placements=split)}
+        return common.rmsnorm_apply(p, t, cfg.norm_eps)
+
+    if q is not None:
+        q = common.apply_rope(norm(q, "q_norm"), cos, sin)
+    k = common.apply_rope(norm(k, "k_norm"), cos, sin)
+
     if mode in ("train", "prefill"):
-        kq, vq = _kv_of_q_heads(q, k), _kv_of_q_heads(q, v)
-        if mode == "prefill" and uses_flash(cfg, kind):
-            y = _on_head_blocks(ops.flash_attention, q, kq, vq, causal=True,
-                                probs_bf16=cfg.attn_probs_bf16)
+        kw = dict(window=window, softcap=cfg.attn_softcap, chunk_q=chunk_q,
+                  chunk_k=chunk_k, probs_bf16=cfg.attn_probs_bf16)
+        if m:
+            y = query_row_attention(
+                qf, k, v, m, lambda t, c, sn, split: common.apply_rope(
+                    norm(t, "q_norm", split), c, sn), cos, sin, **kw)
         else:
-            y = _on_head_blocks(chunked_attention, q, kq, vq, causal=True,
-                                window=window, softcap=cfg.attn_softcap,
-                                chunk_q=chunk_q, chunk_k=chunk_k,
-                                probs_bf16=cfg.attn_probs_bf16)
+            kq, vq = _kv_of_q_heads(q, k), _kv_of_q_heads(q, v)
+            if flash:
+                y = _on_head_blocks(ops.flash_attention, q, kq, vq,
+                                    causal=True,
+                                    probs_bf16=cfg.attn_probs_bf16)
+            else:
+                y = _on_head_blocks(chunked_attention, q, kq, vq,
+                                    causal=True, **kw)
         if mode == "prefill":              # cache leaves: sequence-sharded
             k = shd.constrain(k, ("dp", "sp", None, None))
             v = shd.constrain(v, ("dp", "sp", None, None))
@@ -348,6 +451,7 @@ def apply(params, cfg, x, cos, sin, *, kind: str = "attn",
         y = decode_attention(q, kc, vc, idx + 1, window=window,
                              softcap=cfg.attn_softcap)
         new_kv = (kc, vc)
-    y = shd.heads_view(y, 2, (b, s, h * dh))
+    if not m:
+        y = shd.heads_view(y, 2, (b, s, h * dh))
     return common.linear_apply(params["wo"], y, quant=quant,
                                bf16_grads=bfg), new_kv

@@ -7,7 +7,9 @@ weights are the port's own (``convert.lm_params_from_numpy`` carries
 ``repro``'s across).  Projections honor ``quant="binary"`` (BinaryNet W1A1
 with the straight-through estimator).  ``bf16_grads`` keeps the forward
 and casts the cotangent to bf16 before both gradient matmuls
-(:class:`MatmulBF16Grads`, ``repro``'s custom VJP).
+(:class:`MatmulBF16Grads`, ``repro``'s custom VJP).  Their products
+(:func:`matmul`) on DTensors run on each device's blocks
+(``sharding.placed_matmul``).
 """
 
 from __future__ import annotations
@@ -90,6 +92,21 @@ class MatmulBF16Grads(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor, *,
+           bf16_grads: bool = False) -> torch.Tensor:
+    """``x @ w`` in x's type (:class:`MatmulBF16Grads` with
+    ``bf16_grads``).  DTensors on a mesh of several devices take the
+    product on each device's blocks, placed by hand
+    (``sharding.placed_matmul``), where their placements allow."""
+    def product(a, b):
+        b = b.to(a.dtype)
+        if bf16_grads:
+            return MatmulBF16Grads.apply(a, b)
+        return torch.matmul(a, b)
+    y = shd.placed_matmul(x, w, product)
+    return product(x, w) if y is None else y
+
+
 def linear_apply(params, x: torch.Tensor, *, quant: str = "none",
                  bf16_grads: bool = False) -> torch.Tensor:
     w = params["w"]
@@ -100,12 +117,10 @@ def linear_apply(params, x: torch.Tensor, *, quant: str = "none",
         dt = torch.promote_types(x.dtype, w.dtype)
         xb = binarize.ste_sign(x).to(dt)
         wb = binarize.ste_sign(w).to(dt)
-        y = torch.matmul(xb, wb) * (1.0 / math.sqrt(x.shape[-1]))
+        y = matmul(xb, wb) * (1.0 / math.sqrt(x.shape[-1]))
         y = y.to(x.dtype)
-    elif bf16_grads:
-        y = MatmulBF16Grads.apply(x, w.to(x.dtype))
     else:
-        y = torch.matmul(x, w.to(x.dtype))
+        y = matmul(x, w, bf16_grads=bf16_grads)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y

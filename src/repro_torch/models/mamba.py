@@ -87,7 +87,7 @@ def _ssm_inputs(params, cfg, xc):
     dt = common.rmsnorm_apply(params["dt_norm"], dt, cfg.norm_eps)
     bm = common.rmsnorm_apply(params["b_norm"], bm, cfg.norm_eps)
     cm = common.rmsnorm_apply(params["c_norm"], cm, cfg.norm_eps)
-    dt = torch.matmul(dt, params["dt_proj"]["w"].to(dt.dtype))
+    dt = common.matmul(dt, params["dt_proj"]["w"])
     dt = F.softplus(dt.float() + params["dt_proj"]["b"].float())
     return dt, bm.float(), cm.float()
 

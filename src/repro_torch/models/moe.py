@@ -212,10 +212,13 @@ def _ep_local(xf, router_w, wi, wg, wo, *, cfg, n_shards, mesh, ep_axis):
     return out, dctx.pmean(aux, mesh, ep_axis)
 
 
-def _expert_blocks(params, mesh):
-    """This rank's router (whole) and its experts' weights."""
-    return ((dctx.local_block(params["router"], mesh, P(None, None)),)
-            + tuple(dctx.local_block(params[n], mesh, P("model", None, None))
+def _expert_blocks(params, mesh, repeated=()):
+    """This rank's router (whole) and its experts' weights (``repeated``:
+    the mesh axes whose devices run the experts alike)."""
+    return ((dctx.local_block(params["router"], mesh, P(None, None),
+                              repeated),)
+            + tuple(dctx.local_block(params[n], mesh, P("model", None, None),
+                                     repeated)
                     for n in ("wi", "wg", "wo")))
 
 
@@ -299,10 +302,14 @@ def apply_ep_decode(params, cfg, x: torch.Tensor, mesh):
     n_shards = mesh.shape["model"]
     dp_size = math.prod(mesh.shape[a] for a in dp)
     spec = P(dp if b % dp_size == 0 else None, None, None)
-    xl = dctx.local_block(x, mesh, spec)
+    # a batch that does not split over the data axes: their devices run
+    # the experts alike, and its gradients are whole there
+    repeated = () if spec[0] else dp
+    xl = dctx.local_block(x, mesh, spec, repeated)
     bl, sl, _ = xl.shape
     out, aux = _ep_decode_local(xl.reshape(-1, d),
-                                *_expert_blocks(params, mesh), cfg=cfg,
+                                *_expert_blocks(params, mesh, repeated),
+                                cfg=cfg,
                                 n_shards=n_shards, mesh=mesh,
                                 ep_axis="model")
     for ax in dp:

@@ -152,12 +152,16 @@ def _wkv_chunked(rh, kh, vh, wh, u, S0, chunk: int, sub_chunk: int = 16):
     return S, y
 
 
-def _wkv_scan(rh, kh, vh, wh, u, S):
-    """The per-token WKV recurrence: (B, S, H, hs) inputs -> (S, y)."""
+def _wkv_scan(rh, kh, vh, wh, u, S, cols=None):
+    """The per-token WKV recurrence: (B, S, H, hs) inputs -> (S, y).
+    ``cols`` (start, width): y only at those of its hs columns, the state
+    whole."""
     def step(S, t):
         kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]   # (B, H, hs, hs)
+        read, kv_read = ((S, kv) if cols is None else
+                         (S.narrow(3, *cols), kv.narrow(3, *cols)))
         y = torch.einsum("bhi,bhij->bhj", rh[:, t],
-                         S + u[None, :, :, None] * kv)
+                         read + u[None, :, :, None] * kv_read)
         return wh[:, t, :, :, None] * S + kv, y
 
     return scan(step, S, rh.shape[1], dim=1)
@@ -174,16 +178,22 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
     xs = _shifted(x, state[0] if state is not None else None)
     dx = xs - x
     xxx = x + dx * params["mu_x"].to(x.dtype)
-    lora = torch.tanh(torch.matmul(xxx, params["mix_w1"].to(x.dtype)))
+    # the LoRA products through common.matmul: on DTensors each on the
+    # devices' blocks (split over a data axis the batch leaves idle)
+    lora = torch.tanh(common.matmul(xxx, params["mix_w1"]))
     lora = shd.heads_view(lora, 2, (b, s, 5, rc.mix_lora))
-    mods = torch.einsum("bsfm,fmd->bsfd", lora, params["mix_w2"].to(x.dtype))
+    if hasattr(lora, "placements"):
+        # one product a mix: the einsum's batched product is DTensor's
+        mods = torch.stack([common.matmul(lora[:, :, i], params["mix_w2"][i])
+                            for i in range(len(_MIX_KEYS))], dim=2)
+    else:
+        mods = torch.einsum("bsfm,fmd->bsfd", lora,
+                            params["mix_w2"].to(x.dtype))
     feeds = {k: x + dx * (params["mu"][k].to(x.dtype) + mods[:, :, i])
              for i, k in enumerate(_MIX_KEYS)}
 
-    decay_in = torch.tanh(torch.matmul(feeds["w"],
-                                       params["w1"].to(x.dtype)))
-    wraw = params["w0"] + torch.matmul(decay_in,
-                                       params["w2"].to(x.dtype)).float()
+    decay_in = torch.tanh(common.matmul(feeds["w"], params["w1"]))
+    wraw = params["w0"] + common.matmul(decay_in, params["w2"]).float()
     w = torch.exp(-torch.exp(wraw))                      # (B, S, d) in (0, 1)
 
     r = common.linear_apply(params["wr"], feeds["r"], **kw)
@@ -214,11 +224,21 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
         # where the cache keeps the state's heads whole (they do not divide
         # the axis) the recurrence stays whole too: a decode step would
         # otherwise gather the new state every token
+        split = state is None or bool(shd.split_axes(S0, 1))
+        dims, at, n = shd.share_of(rh.device_mesh, shd.idle_dims(rh), hs)
+        if not split and mode == "decode" and dims:
+            # a batch the data axes leave idle: each of their devices
+            # reads y at its hs / n columns, gathered (a decode step: no
+            # gradient), the state whole on every device
+            groups = [rh.device_mesh.get_group(i) for i in dims]
+
+            def wkv(*xs):
+                S, y = _wkv_scan(*xs, cols=(at * (hs // n), hs // n))
+                return S, shd.gather_blocks(y, 3, groups, at)
         S, y = shd.on_blocks(
             wkv, rh, [(rh, 0, 2), (kh, 0, 2), (vh, 0, 2), (wh, 0, 2),
                       (u, None, 0), (S0, 0, 1)],
-            [(S0.shape, 0, 1), (rh.shape, 0, 2)],
-            split_heads=state is None or bool(shd.split_axes(S0, 1)))
+            [(S0.shape, 0, 1), (rh.shape, 0, 2)], split_heads=split)
     else:
         S, y = wkv(rh, kh, vh, wh, u, S0)
     y = shd.heads_view(y, 2, (b, s, d)).to(x.dtype)

@@ -288,16 +288,17 @@ def lm_logits(params, cfg, hidden):
     if cfg.num_codebooks > 1:
         w = params["lm_head"]["w"]                       # (ncb, D, V)
         if hasattr(hidden, "placements"):
-            # a product a codebook: the einsum's one batched product
-            # would merge the batch's mesh dims with the codebooks'
-            logits = torch.stack([torch.matmul(hidden, w[c].to(hidden.dtype))
+            # a product a codebook (common.matmul: on each device's
+            # blocks): the einsum's one batched product would merge the
+            # batch's mesh dims with the codebooks'
+            logits = torch.stack([common.matmul(hidden, w[c].to(hidden.dtype))
                                   for c in range(cfg.num_codebooks)], dim=2)
         else:
             logits = torch.einsum("bsd,cdv->bscv", hidden,
                                   w.to(hidden.dtype))
     elif cfg.tie_embeddings:
-        logits = torch.matmul(hidden,
-                              params["embed"]["table"].to(hidden.dtype).t())
+        logits = common.matmul(hidden,
+                               params["embed"]["table"].to(hidden.dtype).t())
     else:
         logits = common.linear_apply(params["lm_head"], hidden)
     if cfg.logit_softcap:

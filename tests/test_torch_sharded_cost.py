@@ -9,17 +9,19 @@ DTensors, ``dryrun.count_sharded``), on the CPU.
   equal the unsharded step's at a quarter of the batch, apart from the
   scalars listed at the test, and its all-reduce wire bytes are the
   gradients' ring all-reduce, by hand.
-* The dense archs at full width on ``pod``: unsharded / chips <= one
-  device's FLOPs <= unsharded.
+* The products placed by hand (``sharding.placed_matmul``): the scaled
+  Qwen3-8B step's matmul FLOPs on fake (1, 4), (2, 4) and (16, 16)
+  groups == the unsharded step's share, no product taking a model-split
+  dim whole.
 * ``repro``'s own dry run (``lower_cell``) on an Auto (2, 4) host mesh,
   in a subprocess of 8 host devices, against the port's count on the
-  same mesh shape: the measured ratios held at ``VS_REPRO``; on ``pod``,
-  the prefills whose heads split unevenly and the cells once furthest
-  from ``repro``'s, held at ``VS_REPRO_POD`` against ``repro``'s counts
-  as measured.
+  same mesh shape: the measured ratios held at ``VS_REPRO``
+  (``tests/test_torch_sharded_pod.py`` holds ``pod``'s).
 * Real values on four gloo ranks: the scaled() train, prefill and
   decode steps on DTensors over a (2, 2) mesh == the plain steps, heads
-  that do not divide "model" (q, KV or RWKV-6's) and Jamba among them.
+  that do not divide "model" (q, KV or RWKV-6's), heads that share the
+  model devices by query rows, a batch of one and Jamba among them;
+  each role ``placed_matmul`` gives a mesh dim, product and gradients.
 * The pieces the sharded step needs: the flash op's sharding (blocks on
   batch and heads, even or not) and a block of no heads,
   ``local_block`` / ``global_value`` on DTensors, the head views
@@ -55,8 +57,6 @@ from repro_torch.train import steps
 
 META = torch.device("meta")
 MESH_2X4 = Mesh.abstract((2, 4), ("data", "model"))
-DENSE = ("smollm-360m", "rwkv6-3b", "qwen2-vl-2b", "musicgen-medium",
-         "gemma2-2b", "qwen3-8b", "qwen1.5-110b")
 
 
 def _meta(*shape):
@@ -126,21 +126,61 @@ def test_data_parallel_step_is_the_unsharded_step_at_a_quarter_batch():
     assert per_device["params"] == grad_bytes
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_dense_arch_device_flops_within_bounds_on_pod(arch):
-    """decode_32k at full width on the 256-chip mesh: one device's FLOPs
-    at least the unsharded step's over 256 (no device can do less than
-    its share) and at most the unsharded step's (none redoes the
-    whole)."""
-    cfg = dryrun.cell_config(arch)
-    shape = tshapes.SHAPES["decode_32k"]
-    step_fn, args = dryrun.step_and_args(cfg, shape)
-    whole = op_cost.count(step_fn, *args).flops
-    mesh = dryrun.production_mesh("pod")
+MATMULS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm)
+
+
+def _matmul_charges(monkeypatch) -> list:
+    """The list every matmul (``MATMULS``) the counter charges from now
+    on is appended to: (FLOPs, its operands' shapes)."""
+    seen = []
+    charge = op_cost._flops
+
+    def spy(func, packet, args, kwargs, out, ins, outs):
+        flops = charge(func, packet, args, kwargs, out, ins, outs)
+        if packet in MATMULS:
+            seen.append((flops, [tuple(t.shape) for t in ins]))
+        return flops
+    monkeypatch.setattr(op_cost, "_flops", spy)
+    return seen
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 4), (2, 4), (16, 16)],
+                         ids=lambda shape: "x".join(map(str, shape)))
+def test_sharded_step_matmuls_are_the_devices_share(mesh_shape,
+                                                    monkeypatch):
+    """Fault 3.10: the scaled() Qwen3-8B training step (H = 4, KH = 1,
+    F = 192, vocab 512: every model-split dim divides the model axis) at
+    S = 64 on a fake group: one device's matmul FLOPs (mm, bmm, addmm)
+    == the unsharded step's at the device's batch (B = 8 over the data
+    devices; 16 on (16, 16)) over the model devices, within 2% (1.331x on
+    (1, 4) and (2, 4) while DTensor's propagation placed the backward's
+    products: it gathered the row-split weights whole for a cotangent
+    that is a partial sum over "model"), and no product takes F or the
+    vocab whole.  On (16, 16) the 4 heads share the 16 model devices by
+    query rows."""
+    cfg = dryrun.cell_config("qwen3-8b").scaled()
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
+            cfg.vocab_size) == (4, 1, 192, 512)
+    dp, tp = mesh_shape
+    batch = 16 if dp == 16 else 8
+    seen = _matmul_charges(monkeypatch)
+    step_fn, args = dryrun.step_and_args(
+        cfg, tshapes.ShapeSpec("t", 64, batch // dp, "train"))
+    op_cost.count(step_fn, *args)
+    whole = sum(f for f, _ in seen)
+    seen.clear()
+    mesh = Mesh.abstract(mesh_shape, ("data", "model"))
     with dctx.fake_process_group(mesh.size):
-        cost, _ = dryrun.count_sharded(cfg, shape, mesh)
-    assert whole / mesh.size <= cost.flops <= whole, (cost.flops, whole)
-    assert cost.coll_wire_bytes > 0
+        dryrun.count_sharded(cfg, tshapes.ShapeSpec("t", 64, batch,
+                                                    "train"), mesh)
+    device = sum(f for f, _ in seen)
+    print(f"{mesh_shape}: matmul FLOPs a device / (unsharded / {tp}) "
+          f"{device / (whole / tp):.4f}")
+    assert abs(device / (whole / tp) - 1) <= 0.02, (device, whole)
+    tokens = batch // dp * 64
+    split = {cfg.d_ff, cfg.vocab_size} - {tokens}
+    assert not [shapes for _, shapes in seen
+                if split & {d for shape in shapes for d in shape}]
 
 
 # repro's lower_cell on an Auto mesh of host devices: argv[1] the mesh
@@ -197,10 +237,13 @@ def repro_counts(mesh: str, cells, timeout: float = 600):
 # * FLOPs: decode and SmolLM's prefill_32k agree (0.997-1.04; the port
 #   splits SmolLM's 15 q and 5 KV heads over the 4 model devices in
 #   torch.chunk's blocks, 4, 4, 4 and 3, each with the KV heads it reads);
-#   XLA replicates more of a training step over "model" (0.52, 0.77).
+#   XLA replicates more of a training step over "model" (0.42, 0.77;
+#   SmolLM's 0.52 while DTensor placed the backward's products, some on
+#   whole weights).
 # * gathers, 0-0.64: XLA gathers the FSDP'd and model-split weights at
-#   each use, forward and backward, where DTensor gathers once; the port's
-#   SmolLM prefill gathers nothing.
+#   each use, forward and backward, where the port gathers only FSDP'd
+#   ones: its SmolLM training step (products placed by hand) and prefill
+#   gather nothing.
 # * reductions, 0.06-0.67: XLA's partitioning reduces more partial sums
 #   than DTensor's (in SmolLM's prefill it reduces the attention scores
 #   over the head dim it splits); the kinds are not broken down further.
@@ -211,8 +254,8 @@ def repro_counts(mesh: str, cells, timeout: float = 600):
 # Where repro's family carries less than 1%, the port's must stay under
 # VS_REPRO_STRAY of its own wire bytes.
 VS_REPRO = {
-    "smollm-360m:train_4k": {"flops": 0.5218, "gathers": 0.1162,
-                             "reductions": 0.3584},
+    "smollm-360m:train_4k": {"flops": 0.4173, "gathers": 0.0,
+                             "reductions": 0.2542},
     "smollm-360m:decode_32k": {"flops": 0.9965, "gathers": 0.6400,
                                "reductions": 0.6735},
     "smollm-360m:prefill_32k": {"flops": 1.0080, "gathers": 0.0,
@@ -271,79 +314,6 @@ def test_counts_against_repros_dry_run_on_an_auto_2x4_mesh():
                 assert theirs[family] < 0.01 * their_total
                 assert mine[family] <= VS_REPRO_STRAY * total, (
                     cell, family, mine[family], total)
-
-
-# repro's counts on pod, one device's (lower_cell on an Auto (16, 16) mesh
-# of 256 host devices: ``python tests/test_torch_sharded_cost.py pod
-# CELL``; minutes a cell, so measured once and written here), for the
-# prefills whose heads split unevenly and the cells that were furthest
-# from repro's: "flops" and "wire" are port / repro as measured, held
-# within VS_REPRO_HOLD.  The port splits heads that do not divide the 16
-# model devices in torch.chunk's blocks; XLA splits them gcd(H, 16) ways
-# and the rest of the axis over the head dim where it divides it, or
-# not at all: SmolLM (15 heads: XLA the head dim 16 ways), Qwen3, Kimi
-# and Qwen1.5 (32 or 64 q heads, 8 KV heads) agree within 2%; Gemma2's 8
-# heads leave half the port's model devices without a head where XLA
-# splits the head dim in two (1.37x; ROADMAP section 3, fault 3.8);
-# MusicGen's 24 and Qwen2-VL's 12 heads XLA splits only 8 and 4 ways,
-# computing 3 heads a device where the port computes 2 and 1 (0.73x,
-# 0.44x).  Jamba reduces Mamba's x_proj once a layer before the scan
-# (0.83x and 1.97x repro's wire bytes, from 31.5x and 10.9x); RWKV6's
-# long_500k (B = 1) charges 8.9x repro's FLOPs: its 16 data devices
-# repeat the model devices' matmuls, which XLA splits over them too
-# (fault 3.9).
-VS_REPRO_POD = {
-    "smollm-360m:prefill_32k": {"repro_flops": 11294511302659.0,
-                                "repro_wire": 281316578880,
-                                "flops": 1.0093, "wire": 0.062389},
-    "qwen3-8b:prefill_32k": {"repro_flops": 98245597058224.0,
-                             "repro_wire": 177912639488,
-                             "flops": 0.98336, "wire": 0.43524},
-    "gemma2-2b:prefill_32k": {"repro_flops": 26157059079655.0,
-                              "repro_wire": 187309608704,
-                              "flops": 1.3671, "wire": 0.82171},
-    "musicgen-medium:prefill_32k": {"repro_flops": 56676164465284.0,
-                                    "repro_wire": 137084570112,
-                                    "flops": 0.72864, "wire": 0.30327},
-    "kimi-k2-1t-a32b:prefill_32k": {"repro_flops": 446636627210200.0,
-                                    "repro_wire": 1399827219456,
-                                    "flops": 0.98737, "wire": 0.29164},
-    "qwen2-vl-2b:prefill_32k": {"repro_flops": 58952669039403.0,
-                                "repro_wire": 47359783680,
-                                "flops": 0.44383, "wire": 0.58646},
-    "qwen1.5-110b:prefill_32k": {"repro_flops": 1074415696461062.0,
-                                 "repro_wire": 976284696576,
-                                 "flops": 0.99319, "wire": 0.35191},
-    "olmoe-1b-7b:prefill_32k": {"repro_flops": 19653696516195.0,
-                                "repro_wire": 440442271744,
-                                "flops": 0.98127, "wire": 0.042282},
-    "jamba-v0.1-52b:prefill_32k": {"repro_flops": 111268998229405.0,
-                                   "repro_wire": 150881304576,
-                                   "flops": 0.99712, "wire": 0.82563},
-    "jamba-v0.1-52b:train_4k": {"repro_flops": 438309244593097.0,
-                                "repro_wire": 408621240721.5,
-                                "flops": 1.7502, "wire": 1.9650},
-    "rwkv6-3b:long_500k": {"repro_flops": 53256870.0,
-                           "repro_wire": 695047,
-                           "flops": 8.9291, "wire": 2.5116},
-}
-
-
-@pytest.mark.parametrize("cell", list(VS_REPRO_POD))
-def test_pod_ratios_to_repro_hold(cell):
-    """One device's FLOPs and wire bytes on pod over repro's, within
-    VS_REPRO_HOLD of the ratios measured (PERF.md section 5)."""
-    arch, shape = cell.split(":")
-    mesh = dryrun.production_mesh("pod")
-    with dctx.fake_process_group(mesh.size):
-        cost, _ = dryrun.count_sharded(dryrun.cell_config(arch),
-                                       tshapes.SHAPES[shape], mesh)
-    want = VS_REPRO_POD[cell]
-    flops = cost.flops / want["repro_flops"]
-    wire = cost.coll_wire_bytes / want["repro_wire"]
-    print(f"{cell}: FLOPs {flops:.4f}, wire {wire:.4f}")
-    assert _held(flops, want["flops"]), (cell, flops)
-    assert _held(wire, want["wire"]), (cell, wire)
 
 
 def test_flash_op_runs_on_blocks_of_batch_and_heads():
@@ -570,8 +540,15 @@ REAL_CASES = {
     "rwkv6-3b": ("rwkv6-3b", None, _LM + ("moved", "wkv_blocks")),
     "jamba-v0.1-52b": ("jamba-v0.1-52b", None,
                        _LM + _ATTN + ("flash", "moved")),
+    "gemma2-2b-h1": ("gemma2-2b", (1, 1),
+                     _LM + ("_split_k_decode", "split_write", "moved",
+                            "query_rows")),
+    "rwkv6-3b-b1": ("rwkv6-3b", None,
+                    _LM + ("moved", "wkv_blocks", "idle_split")),
 }
 REAL_B, REAL_S, REAL_L = 4, 16, 32
+# the cases at a batch of one, which does not split over "data"
+REAL_BATCH = {"rwkv6-3b-b1": 1}
 # float32 sums taken in another order (the vocab blocks' partial sums,
 # split-K's partial softmax, the gradients' all-reduce): 1e-5 of each
 # leaf's largest entry
@@ -582,7 +559,7 @@ REAL_TOL = 1e-5
 # "wkv_blocks" RWKV-6's recurrence on each device's heads
 REAL_PATHS = ("_split_k_decode", "_vocab_parallel_lse_gold",
               "sharded_embedding", "split_write", "head_blocks", "flash",
-              "moved", "wkv_blocks")
+              "moved", "wkv_blocks", "query_rows", "idle_split")
 
 
 def _real_cfg(case):
@@ -611,8 +588,9 @@ def _real_steps(case, mesh=None, seen=None):
     rng = np.random.default_rng(0)
     ids = lambda *shape: torch.from_numpy(rng.integers(
         0, cfg.vocab_size, shape).astype(np.int32))
-    batch = {"tokens": ids(REAL_B, REAL_S), "labels": ids(REAL_B, REAL_S)}
-    tok = ids(REAL_B, 1)
+    rows = REAL_BATCH.get(case, REAL_B)
+    batch = {"tokens": ids(rows, REAL_S), "labels": ids(rows, REAL_S)}
+    tok = ids(rows, 1)
     sgd = opt.sgdm(lambda step: torch.ones(()), momentum=0.0)
     state = steps.create_state(cfg, 0, sgd, device="cpu")
     _, cache = serve.build_prefill_step(cfg, max_len=REAL_L)(
@@ -665,12 +643,15 @@ def _counting_dtensor_paths(seen):
                (attention, "_on_head_blocks"): "head_blocks",
                (ops, "flash_attention"): "flash",
                (shd, "move_blocks"): "moved",
-               (shd, "on_blocks"): "wkv_blocks"}
+               (shd, "on_blocks"): "wkv_blocks",
+               (attention, "query_row_attention"): "query_rows",
+               (shd, "gather_blocks"): "idle_split"}
     saved = {key: getattr(*key) for key in wrapped}
     taken = {
         "flash": lambda a: True,
         "moved": lambda a: not all(map(shd.holds, a[2], a[3])),
         "wkv_blocks": lambda a: "wkv" in a[0].__qualname__,
+        "idle_split": lambda a: True,
     }
 
     def counter(fn, name):
@@ -688,6 +669,51 @@ def _counting_dtensor_paths(seen):
             setattr(*key, fn)
 
 
+# sharding.placed_matmul's roles on the (2, 2) mesh, (data, model): x
+# (2, 3, 8) and w (8, 12) placed so, each product and both gradients held
+# to the plain ones; "fsdp" a weight split over the batch's data axis
+# (gathered for the product), "contract" and "idle" a batch of one on
+# "data" (x's block of K; w's block of N split again there)
+MATMUL_ROLES = {
+    "batch+col": ((Shard(0), Replicate()), (Replicate(), Shard(1))),
+    "batch+row": ((Shard(0), Shard(2)), (Replicate(), Shard(0))),
+    "fsdp+col": ((Shard(0), Replicate()), (Shard(0), Shard(1))),
+    "fsdp+row": ((Shard(0), Shard(2)), (Shard(1), Shard(0))),
+    "contract+col": ((Replicate(), Replicate()), (Shard(0), Shard(1))),
+    "col+row": ((Replicate(), Shard(2)), (Shard(1), Shard(0))),
+    "idle+col": ((Replicate(), Replicate()), (Replicate(), Shard(1))),
+    "idle+whole": ((Replicate(), Replicate()), (Replicate(), Replicate())),
+}
+
+
+def _matmul_operands():
+    rng = np.random.default_rng(1)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((2, 3, 8), (8, 12), (2, 3, 12))]
+
+
+def _matmul_roles(mesh):
+    """Each of MATMUL_ROLES through placed_matmul on real DTensors: the
+    product, x's and w's gradients of <product, a fixed cotangent>, whole,
+    and whether the product was placed by hand."""
+    from torch.distributed.tensor import distribute_tensor
+    dmesh = shd.device_mesh(mesh)
+    x0, w0, r0 = _matmul_operands()
+    out = {}
+    for role, (px, pw) in MATMUL_ROLES.items():
+        x = distribute_tensor(x0, dmesh, list(px)).requires_grad_()
+        w = distribute_tensor(w0, dmesh, list(pw)).requires_grad_()
+        y = shd.placed_matmul(x, w, torch.matmul)
+        if y is None:
+            out[role] = None
+            continue
+        r = distribute_tensor(r0, dmesh, [Replicate(), Replicate()])
+        (y * r).sum().backward()
+        out[role] = tuple(t.full_tensor().detach().numpy()
+                          for t in (y, x.grad, w.grad))
+    return out
+
+
 def _real_body(rank, world):
     from repro_torch.checkpoint.ckpt import make_mesh
     mesh = make_mesh(*REAL_MESH, devices=["cpu"] * world)
@@ -696,6 +722,7 @@ def _real_body(rank, world):
         seen = dict.fromkeys(REAL_PATHS, 0)
         with _counting_dtensor_paths(seen):
             got[case] = (_real_steps(case, mesh, seen), seen)
+    got["matmul_roles"] = _matmul_roles(mesh)
     return got if rank == 0 else None
 
 
@@ -722,6 +749,22 @@ def test_sharded_steps_on_four_ranks_equal_the_plain_steps(real_ranks,
     taken = REAL_CASES[case][2]
     for path in REAL_PATHS:
         assert (seen[path] > 0) == (path in taken), (case, path, seen)
+
+@pytest.mark.parametrize("role", list(MATMUL_ROLES))
+def test_placed_matmul_roles_on_four_ranks(real_ranks, role):
+    """x @ w placed by hand (sharding.placed_matmul) on real DTensors over
+    the (2, 2) mesh, each role of a mesh dim: the product and both
+    gradients == the plain ones within REAL_TOL."""
+    got = real_ranks["matmul_roles"][role]
+    assert got is not None, f"{role}: not placed by hand"
+    x, w, r = _matmul_operands()
+    want = (x @ w, r @ w.t(), x.reshape(-1, 8).t() @ r.reshape(-1, 12))
+    for name, g, ww in zip(("y", "dx", "dw"), got, want):
+        ww = ww.numpy()
+        np.testing.assert_allclose(g, ww, rtol=0,
+                                   atol=REAL_TOL * float(np.abs(ww).max()),
+                                   err_msg=f"{role}: {name}")
+
 
 if __name__ == "__main__":
     # repro's own dry run on an Auto mesh, the counts PERF.md sets beside
