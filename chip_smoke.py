@@ -287,12 +287,16 @@ VLM_SERVE = (4, 512, 32)
 CB_TRAIN = ("--steps", "3", "--global-batch", "8", "--seq-len", "256")
 # phase 8: the cost model.  SmolLM-360M's four dry-run cells on meta, then
 # whole steps at full width in the configs' own dtypes, each counted on
-# the card and on meta at the same shape: (arch, step, seq_len, batch),
-# the decode step's cache the prefill's, padded by LM_GEN
-COST_STEPS = ((LM_ARCH, "prefill", LM_PROMPT, LM_BATCH),
-              (LM_ARCH, "decode", LM_PROMPT + LM_GEN, LM_BATCH),
-              (LM_ARCH, "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH),
-              (MOE_ARCH, "prefill", 512, 4))
+# the card and on meta at the same shape: (arch, step, seq_len, batch,
+# config overrides), the decode step's cache the prefill's, padded by
+# LM_GEN; the training step with the config's remat (each pattern repeat
+# recomputed in the backward), and beside it without
+COST_STEPS = ((LM_ARCH, "prefill", LM_PROMPT, LM_BATCH, {}),
+              (LM_ARCH, "decode", LM_PROMPT + LM_GEN, LM_BATCH, {}),
+              (LM_ARCH, "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, {}),
+              (LM_ARCH, "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+               {"remat": False}),
+              (MOE_ARCH, "prefill", 512, 4, {}))
 # phase 9: the training meshes at world size 1, one full-width step of
 # SmolLM-360M (batch, sequence) under the host mesh and outside it, then
 # on DTensors of the state's specs on a one-rank NCCL group
@@ -308,6 +312,9 @@ SHARDED_HEADS = (8, 4)
 # 2, 2, 2 and 0 of the 6 q heads, the first device's two reading KV head 0
 SHARDED_UNEVEN_HEADS = (6, 2)
 SHARDED_PREFILL = (8, 256)
+# and a training step of that config at remat=True (batch, sequence) on
+# the same fake group: each pattern repeat recomputed in the backward
+SHARDED_TRAIN = (8, 128)
 # and Gemma2-2B's scaled() config at 2 q heads over 1 KV head: its softcap
 # takes the chunked attention, each head's query rows shared by 2 of the 4
 # model devices (zig-zag halves of the causal triangle)
@@ -320,7 +327,7 @@ POD_CELL = (LM_ARCH, "train_4k")
 # this cell's FLOPs a device on pod as this tree counts it on an 8-core
 # x86_64 CPU with torch 2.13.0+cpu (PERF.md section 5), beside the card's
 # torch's count: the products are placed by hand, so the two should agree
-POD_CELL_CPU_FLOPS = 1.35958e13
+POD_CELL_CPU_FLOPS = 1.69547e13
 # row 10 at SmolLM's prefill (bf16, probs_bf16=True), a call in a CUDA
 # graph before the padded head dims (PERF.md's kernel table): the D = 64
 # path they leave as it was
@@ -1529,6 +1536,71 @@ def fake_group_prefill(dev, h: int, kh: int, arch: str = LM_ARCH) -> int:
     return n_flash
 
 
+def fake_group_train(dev) -> int:
+    """One training step of SmolLM-360M's scaled() config at
+    SHARDED_HEADS with ``remat`` on (each pattern repeat recomputed in
+    the backward, ``placed_matmul``'s Functions and the collectives of a
+    repeat run again there) on a fake group of 8 ranks over SHARDED_MESH,
+    its blocks on the card: counted == on meta, exactly (FLOPs, bytes,
+    wire bytes).  Returns the flash launches."""
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import steps
+
+    h, kh = SHARDED_HEADS
+    scfg = get_config(LM_ARCH).scaled().with_(num_heads=h, num_kv_heads=kh,
+                                              remat=True)
+    b, sq = SHARDED_TRAIN
+    shape = shp.ShapeSpec("train_sharded", sq, b, "train")
+    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
+                                   SHARDED_MESH[1], abstract=True)
+    with dctx.fake_process_group(smesh.size):
+        dmesh = shd.device_mesh(smesh)
+        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
+            scfg, shape, smesh)
+        with dctx.sharded_step(smesh):
+            on_meta = op_cost.count(step_fn, *meta_args)
+        optimizer = dryrun.build_optimizer(scfg)
+        state = steps.create_state(scfg, 0, optimizer, device=dev)
+        toks = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                for k, v in shp.input_specs(scfg, shape).items()}
+        args = (shd.distribute(state, shd.to_named(
+                    smesh, steps.state_specs(scfg, smesh, optimizer), dmesh)),
+                shd.distribute(toks, shd.to_named(
+                    smesh, shd.batch_specs(scfg, smesh, toks), dmesh)))
+        blocks = {t.to_local().device.type
+                  for _, t in shd.leaves_with_path(args)}
+        ops.reset_launch_counts()
+        with dctx.sharded_step(smesh):
+            on_card = op_cost.count(step_fn, *args)
+        torch.cuda.synchronize()
+        n_flash = ops.launch_counts()["flash_attention"]
+    if blocks != {"cuda"}:
+        raise AssertionError(f"the fake group's blocks lie on {blocks}")
+    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
+            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
+        raise AssertionError(
+            f"the sharded train step at remat=True counted on the card "
+            f"({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
+            f"{on_card.coll_wire_bytes} wire) != on meta "
+            f"({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
+            f"{on_meta.coll_wire_bytes})")
+    print(f"  {LM_ARCH} scaled() H={h} KH={kh} adamw train step {b} x {sq} "
+          f"at remat=True on the fake group, blocks on the card: one "
+          f"device's {on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
+          f"{on_card.coll_wire_bytes:.6e} wire bytes "
+          f"{({k: v for k, v in on_card.coll_breakdown.items() if v})} == "
+          f"on meta; flash launched {n_flash} times; peak_bytes card "
+          f"{on_card.peak_bytes / 1e6:.3f} MB, meta "
+          f"{on_meta.peak_bytes / 1e6:.3f} MB")
+    return n_flash
+
+
 def fake_group_decode(dev) -> None:
     """A decode step of SmolLM-360M's scaled() config at a batch of one
     (cache SHARDED_DECODE_LEN) on a fake group of 8 ranks over
@@ -1611,7 +1683,8 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
     divide the model axis, and Gemma2-2B's at SHARDED_ROWS, whose heads
     share the model devices by query rows; a decode step at a batch of
     one, the weights split over the idle "data" axis
-    (:func:`fake_group_decode`); and flash on a block of no heads,
+    (:func:`fake_group_decode`); a training step at ``remat=True``
+    (:func:`fake_group_train`); and flash on a block of no heads,
     returned empty with no launch.  (3) The dry run's POD_CELL on the
     256-chip mesh, on meta, printed beside this tree's count on the CPU
     (POD_CELL_CPU_FLOPS).  Returns (2)'s flash launches."""
@@ -1665,6 +1738,7 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
     arch, h, kh = SHARDED_ROWS
     n_flash += fake_group_prefill(dev, h, kh, arch)
     fake_group_decode(dev)
+    n_flash += fake_group_train(dev)
     # the block of no heads a device holds where the heads do not fill
     # the devices: returned empty, nothing launched
     ops.reset_launch_counts()
@@ -1968,8 +2042,8 @@ def cost_phase(card, dev) -> int:
               f"{(rec['bytes_per_chip']['argument'] + rec['bytes_per_chip']['temp']) / 1e9:.2f} GB")
 
     flash, params = 0, {}
-    for arch, step, seq, batch in COST_STEPS:
-        cfg = get_config(arch)
+    for arch, step, seq, batch, over in COST_STEPS:
+        cfg = get_config(arch).with_(**over)
         shape = shp.ShapeSpec(f"{step} {batch}x{seq}", seq, batch, step)
         fn, meta_args = dryrun.step_and_args(cfg, shape)
         meta = op_cost.count(fn, *meta_args)
@@ -2002,7 +2076,8 @@ def cost_phase(card, dev) -> int:
         max_alloc = torch.cuda.max_memory_allocated()
         n_flash = ops.launch_counts()["flash_attention"]
         flash += n_flash
-        what = f"{arch} {shape.name}"
+        what = f"{arch} {shape.name}" + (
+            f" remat={cfg.remat}" if step == "train" else "")
         if (cost.flops, cost.bytes) != (meta.flops, meta.bytes):
             raise AssertionError(
                 f"{what}: the card counts {cost.flops:.6e} FLOPs, "
@@ -2035,7 +2110,8 @@ def cost_phase(card, dev) -> int:
               f"{rl.t_memory * 1e3:.4f} ms, {rl.bottleneck}-bound; measured "
               f"{ms:.4f} ms ({timed_by}); bound_share {share:.4f}, mfu "
               f"{mfu:.4f}, useful_flops_ratio {rl.useful_flops_ratio:.4f}; "
-              f"peak_bytes {cost.peak_bytes / 1e9:.3f} GB, "
+              f"peak_bytes {cost.peak_bytes / 1e9:.3f} GB (meta "
+              f"{meta.peak_bytes / 1e9:.3f} GB), "
               f"max_memory_allocated {max_alloc / 1e9:.3f} GB "
               f"[{card.smi}]")
         if share > BOUND_SHARE_MAX:
@@ -2929,6 +3005,8 @@ def lm_train_phase(card, dev):
                                    seq_len=LM_TRAIN_SEQ, device=dev)
                for i in range(LM_TRAIN_STEPS)]
     losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for batch in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2936,6 +3014,7 @@ def lm_train_phase(card, dev):
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"LM training losses {losses}")
     box = {"state": state}
@@ -2947,8 +3026,11 @@ def lm_train_phase(card, dev):
     busy = sum(kernels.values()) / 2 if kernels else None
     nparams = sum(p.numel() for p in opt.tree_leaves(state["params"]))
     print(f"  {LM_ARCH} quant=binary ({nparams / 1e6:.1f} M params, "
-          f"{cfg.dtype} activations, {cfg.param_dtype} params), adamw, "
-          f"batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: losses "
+          f"{cfg.dtype} activations, {cfg.param_dtype} params, remat "
+          f"{cfg.remat}), adamw, "
+          f"batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: peak memory "
+          f"{peak / 1e9:.3f} GB (max_memory_allocated over the steps); "
+          f"losses "
           f"{[round(v, 4) for v in losses]}; ms a step (host clock, "
           f"synchronised) {[round(v, 1) for v in ms]} (steady, steps 2-"
           f"{LM_TRAIN_STEPS}: {np.mean(ms[1:]):.1f} ms; the first warms the "
@@ -3010,7 +3092,7 @@ def lm_train_phase(card, dev):
           f"times at head dim {small.head_dim}; OK in "
           f"{time.perf_counter() - t0:.1f} s")
     return {"losses": losses, "ms": ms, "busy_ms": busy,
-            "profiled_ms": wall_ms / 2}
+            "profiled_ms": wall_ms / 2, "peak_bytes": peak}
 
 
 def main() -> None:

@@ -34,6 +34,7 @@ spawned ranks of a gloo group on this host and returns their results.
 from __future__ import annotations
 
 import contextlib
+import math
 import queue
 import socket
 import threading
@@ -66,6 +67,19 @@ def mesh_context(mesh):
         yield mesh
     finally:
         _state.mesh = prev
+
+
+def under_current_mesh(fn):
+    """``fn`` run under the mesh current now (:func:`mesh_context`),
+    whichever thread calls it: a recompute (``torch.utils.checkpoint``)
+    runs in the backward, on CUDA in a thread of autograd's own, where
+    the mesh installed on this thread is not."""
+    mesh = current_mesh()
+
+    def run(*args, **kwargs):
+        with mesh_context(mesh):
+            return fn(*args, **kwargs)
+    return run
 
 
 @contextlib.contextmanager
@@ -286,11 +300,12 @@ def _wait(t):
 
 class _LocalBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, spec):
-        ctx.mesh, ctx.spec, ctx.shape = mesh, spec, x.shape
+    def forward(ctx, x, mesh, spec, repeated):
+        ctx.shape = x.shape
         ctx.where = _block_slices(mesh, spec,
                                   device_mesh(mesh).get_coordinate(),
                                   x.shape)
+        ctx.alike = math.prod(mesh.shape[a] for a in repeated)
         return x[ctx.where].contiguous()
 
     @staticmethod
@@ -299,8 +314,10 @@ class _LocalBlock(torch.autograd.Function):
         import torch.distributed._functional_collectives as fc
         whole = g.new_zeros(ctx.shape)
         whole[ctx.where] = g
-        return (_wait(fc.all_reduce(whole, "sum", dist.group.WORLD)),
-                None, None)
+        whole = _wait(fc.all_reduce(whole, "sum", dist.group.WORLD))
+        # the devices of the repeated axes gave the same gradient
+        return (whole / ctx.alike if ctx.alike > 1 else whole), None, \
+            None, None
 
 
 def _is_dtensor(x) -> bool:
@@ -310,12 +327,13 @@ def _is_dtensor(x) -> bool:
 def local_block(x: torch.Tensor, mesh, spec, repeated=()) -> torch.Tensor:
     """This rank's block of the global ``x`` under ``spec`` (a
     ``sharding.P``); its gradient, summed over every rank, is the whole
-    tensor's.  A DTensor ``x`` is redistributed to ``spec``'s placements
-    and its local block taken; the block's gradient is a partial sum
-    over the mesh dims the spec does not split, except the axes named in
-    ``repeated``, on whose devices the body runs alike (a batch that does
-    not split there): whole there.  It comes back through DTensor's
-    redistribution."""
+    tensor's.  The axes named in ``repeated`` are those on whose devices
+    the body runs alike (a batch that does not split there): their
+    devices' gradients are one and the same, counted once.  A DTensor
+    ``x`` is redistributed to ``spec``'s placements and its local block
+    taken; the block's gradient is a partial sum over the mesh dims the
+    spec does not split, except the ``repeated`` ones: whole there.  It
+    comes back through DTensor's redistribution."""
     if _is_dtensor(x):
         from torch.distributed.tensor import Partial
         from repro_torch.distributed.sharding import placements
@@ -324,7 +342,7 @@ def local_block(x: torch.Tensor, mesh, spec, repeated=()) -> torch.Tensor:
             grad_placements=[
                 Partial() if p.is_replicate() and name not in repeated
                 else p for p, name in zip(place, mesh.axis_names)])
-    return _LocalBlock.apply(x, mesh, spec)
+    return _LocalBlock.apply(x, mesh, spec, tuple(repeated))
 
 
 class _GlobalValue(torch.autograd.Function):

@@ -241,6 +241,15 @@ def shard_cell(cfg, shape: shp.ShapeSpec, arch: str, mesh_name: str) -> dict:
     return rec
 
 
+def site_rows(sites) -> list:
+    """:func:`op_cost.collective_sites`'s table as records, the most wire
+    bytes first."""
+    return [{"kind": kind, "site": site, "shape": list(shape),
+             "dtype": dtype, "issues": n, "wire_bytes": wire}
+            for (kind, site, shape, dtype), (n, wire) in
+            sorted(sites.items(), key=lambda kv: -kv[1][1])]
+
+
 def skipped(cfg, arch: str, shape_name: str, mesh_name: str = MESH):
     """The SKIPPED record of a cell ``cell_supported`` refuses, else None."""
     ok, reason = shp.cell_supported(cfg, shape_name)
@@ -287,6 +296,10 @@ def main(argv=None):
                     help="bf16 attention probabilities (perf knob)")
     ap.add_argument("--bf16-grads", action="store_true",
                     help="bf16 cotangents into the gradient matmuls (perf knob)")
+    ap.add_argument("--collective-sites", type=int, default=0, metavar="N",
+                    help="print each cell's N sites that issue the most "
+                         "wire bytes of each collective kind, and record "
+                         "every site (op_cost.collective_sites)")
     args = ap.parse_args(argv)
     if args.dump_hlo:
         raise SystemExit("--dump-hlo: an eager step is not compiled to HLO")
@@ -313,7 +326,10 @@ def main(argv=None):
         for sn in shape_names:
             cell_id = f"{arch}__{sn}__{args.mesh}{args.tag}"
             try:
-                res = lower_cell(arch, sn, overrides, args.mesh)
+                with op_cost.collective_sites() as sites:
+                    res = lower_cell(arch, sn, overrides, args.mesh)
+                if args.collective_sites and res["status"] == "OK":
+                    res["coll_sites"] = site_rows(sites)
             except Exception as e:  # a failing cell is a bug: record it
                 res = {"arch": arch, "shape": sn, "mesh": args.mesh,
                        "status": "FAIL", "error": f"{type(e).__name__}: {e}",
@@ -335,6 +351,14 @@ def main(argv=None):
             line = (f"[{res['status']:7s}] {arch:18s} {sn:12s} "
                     f"{args.mesh:8s}" + tail)
             print(line, flush=True)
+            for kind in op_cost.COLLECTIVES:
+                rows = [r for r in res.get("coll_sites", ())
+                        if r["kind"] == kind][:args.collective_sites]
+                total = res["coll_breakdown"][kind] if rows else 0
+                for r in rows:
+                    print(f"    {kind} {r['wire_bytes']:.4e} B "
+                          f"({r['wire_bytes'] / total:.1%}) x{r['issues']:g} "
+                          f"{r['shape']} {r['dtype']} {r['site']}")
     n_fail = sum(r["status"] == "FAIL" for r in results)
     print(f"\n{len(results)} cells: "
           f"{sum(r['status'] == 'OK' for r in results)} ok, "

@@ -61,7 +61,8 @@ splits (``sharding.move_blocks``: blocks moved between two layouts of a
 dim) is charged what this device sends to the others or receives from
 them, the larger; at even splits that is the ring rule's.  A step on
 one card issues none: ``coll_wire_bytes`` is 0 and ``coll_breakdown``
-lists the five kinds at 0.
+lists the five kinds at 0.  Inside :func:`collective_sites` the wire
+bytes are also tallied by the frame that issued each collective.
 
 DTensors (one device's share of a sharded step, ``dryrun --mesh``): an op
 on DTensors is charged by the ops its DTensor dispatch runs on this
@@ -80,7 +81,10 @@ its creation to its release.  A scaled :func:`scan` adds the bytes the
 n - 4 iterations it does not run would hold: their outputs until the
 loop's stack, and what each keeps for the backward until the backward
 of the middle iteration has run (an upper bound on the eager peak, which
-frees them one iteration at a time).
+frees them one iteration at a time).  Under ``torch.utils.checkpoint``
+they are kept as the iterations' own saved tensors are: not in the
+forward, and from the recompute in the backward to the middle
+iteration's backward.
 """
 
 from __future__ import annotations
@@ -89,6 +93,7 @@ import contextlib
 import dataclasses
 import math
 import threading
+import traceback
 import weakref
 from typing import Callable, Dict
 
@@ -225,6 +230,15 @@ class _Live:
             self.live += nbytes
             self.peak = max(self.peak, self.live)
 
+    def hold(self, t: torch.Tensor, nbytes: int) -> None:
+        """Charge ``nbytes`` more to ``t``'s tracked storage: live until it
+        is released."""
+        key = _storage_key(t)
+        with self.lock:
+            self.sizes[key] += nbytes
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+
     def shrink(self, nbytes: int) -> None:
         with self.lock:
             self.live -= nbytes
@@ -291,6 +305,7 @@ class _CountMode(TorchDispatchMode):
                                     + sum(span_bytes(t) for t in outs))
         if kind is None:
             return
+        sites = _SITES[0]
         functional = func.namespace != "c10d"
         # c10d's in-place ops take (output, input, group, ...), except
         # allreduce_ and send, which take the tensors they send first;
@@ -320,6 +335,47 @@ class _CountMode(TorchDispatchMode):
                                                     else second))
             wire = moved * ratio
         self.coll[kind] += self.scale * wire
+        if sites is not None:
+            key = (kind, _site(), tuple(first[0].shape) if first else (),
+                   str(first[0].dtype) if first else "")
+            got = sites.setdefault(key, [0, 0.0])
+            got[0] += self.scale
+            got[1] += self.scale * wire
+
+
+_SITES = [None]        # collective_sites()'s table, while one is open
+
+
+@contextlib.contextmanager
+def collective_sites():
+    """Within the block, every :func:`count` also tallies
+    its collectives by where they were issued: a dict, filled as they
+    run, of (kind, site, the first operand's shape, its dtype) ->
+    [issues, wire bytes], scaled as the charges are.  The site is the
+    innermost frame of the port's model or step code (else of any of the
+    port's code), and in a backward the autograd node running."""
+    prev, _SITES[0] = _SITES[0], {}
+    try:
+        yield _SITES[0]
+    finally:
+        _SITES[0] = prev
+
+
+def _site() -> str:
+    port = [f for f in traceback.extract_stack()
+            if "repro_torch" in f.filename
+            and not f.filename.endswith("op_cost.py")]
+    model = [f for f in port if "/models/" in f.filename
+             or "/train/" in f.filename]
+    where = ""
+    if model or port:
+        f = (model or port)[-1]
+        where = (f"{f.filename.split('repro_torch/')[-1]}:{f.lineno} "
+                 f"{f.name}")
+    node = torch._C._current_autograd_node()
+    if node is not None:
+        where += f" (backward: {node.name()})"
+    return where
 
 
 def _group(args):
@@ -458,10 +514,16 @@ def _scaled_scan(mode: _CountMode, step, carry, n: int, dim: int):
     k = n - 3
     grad = torch.is_grad_enabled()
     carry, y0 = step(carry, 0)
-    closing = None
-    if grad and carry.requires_grad:
-        carry, = _Window.apply(mode, None, k, carry)
-        closing = carry.grad_fn
+    # the bytes the iterations not run keep for the backward, charged to
+    # an empty tensor the closing window saves for its backward: so they
+    # live as the saved tensors of the iterations do, until the middle
+    # iteration's backward, or not at all where a recompute
+    # (``torch.utils.checkpoint``) drops the saved tensors, and then as
+    # long as its recompute's
+    held = torch.empty(0, device="meta")
+    closing = grad and carry.requires_grad
+    if closing:
+        carry, = _Window.apply(mode, None, k, held, carry)
     before = mode.live.live
     mode.scale *= k
     try:
@@ -473,24 +535,24 @@ def _scaled_scan(mode: _CountMode, step, carry, n: int, dim: int):
     one = _local(ym).untyped_storage().nbytes()
     out_bytes = one * (k - 1)
     kept = max(mode.live.live - before - one, 0) * (k - 1)
-    mode.live.grow(out_bytes + kept)
-    if grad and (carry.requires_grad or ym.requires_grad):
-        if closing is None:
-            raise RuntimeError("scan: a middle iteration whose input carry "
-                               "needs no gradient cannot be scaled")
-        carry, ym = _Window.apply(mode, k, None, carry, ym)
-    carry, y1 = step(carry, n - 2)
-    carry, y2 = step(carry, n - 1)
-    tail = (y0, ym, y1, y2)
-    if grad and any(y.requires_grad for y in tail):
-        ys = _Stack.apply(dim, n, *tail)
-    else:
-        ys = torch.stack([y0] + [ym] * k + [y1, y2], dim)
-    mode.live.shrink(out_bytes)
-    if closing is not None:
-        closing.kept = kept
-    else:
-        mode.live.shrink(kept)
+    mode.live.hold(held, kept)
+    mode.live.grow(out_bytes)
+    try:        # a recompute may stop here, once it has what it needs
+        if grad and (carry.requires_grad or ym.requires_grad):
+            if not closing:
+                raise RuntimeError("scan: a middle iteration whose input "
+                                   "carry needs no gradient cannot be "
+                                   "scaled")
+            carry, ym = _Window.apply(mode, k, None, None, carry, ym)
+        carry, y1 = step(carry, n - 2)
+        carry, y2 = step(carry, n - 1)
+        tail = (y0, ym, y1, y2)
+        if grad and any(y.requires_grad for y in tail):
+            ys = _Stack.apply(dim, n, *tail)
+        else:
+            ys = torch.stack([y0] + [ym] * k + [y1, y2], dim)
+    finally:
+        mode.live.shrink(out_bytes)
     return carry, ys
 
 
@@ -498,15 +560,18 @@ class _Window(torch.autograd.Function):
     """An identity whose backward multiplies (``mul``) or divides
     (``div``) the counter's scale.  On a scaled iteration's outputs it
     opens the window in the backward; on its input carry it closes it,
-    and releases the bytes the iterations not run kept.  Autograd runs
-    every node made between the two, the iteration's own, before the
-    closing one: it runs ready nodes latest-made first, and those nodes
-    feed only each other and the opening one."""
+    and saves ``held`` (the bytes the iterations not run kept) for its
+    backward, after which autograd frees it.  Autograd runs every node
+    made between the two, the iteration's own, before the closing one: it
+    runs ready nodes latest-made first, and those nodes feed only each
+    other and the opening one."""
 
     @staticmethod
-    def forward(ctx, mode, mul, div, *xs):
+    def forward(ctx, mode, mul, div, held, *xs):
         ctx.set_materialize_grads(False)
         ctx.mode, ctx.mul, ctx.div = mode, mul, div
+        if held is not None:
+            ctx.save_for_backward(held)
         return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
@@ -515,8 +580,7 @@ class _Window(torch.autograd.Function):
             ctx.mode.scale *= ctx.mul
         if ctx.div:
             ctx.mode.scale //= ctx.div
-            ctx.mode.live.shrink(getattr(ctx, "kept", 0))
-        return (None, None, None) + grads
+        return (None, None, None, None) + grads
 
 
 class _Stack(torch.autograd.Function):

@@ -303,7 +303,9 @@ def apply_ep_decode(params, cfg, x: torch.Tensor, mesh):
     dp_size = math.prod(mesh.shape[a] for a in dp)
     spec = P(dp if b % dp_size == 0 else None, None, None)
     # a batch that does not split over the data axes: their devices run
-    # the experts alike, and its gradients are whole there
+    # the experts alike, its gradients are whole there, and the aux loss
+    # is the same on each (its mean over them, the identity, would hand
+    # each a share of a gradient that is not summed there)
     repeated = () if spec[0] else dp
     xl = dctx.local_block(x, mesh, spec, repeated)
     bl, sl, _ = xl.shape
@@ -313,7 +315,8 @@ def apply_ep_decode(params, cfg, x: torch.Tensor, mesh):
                                 n_shards=n_shards, mesh=mesh,
                                 ep_axis="model")
     for ax in dp:
-        aux = dctx.pmean(aux, mesh, ax)
+        if ax not in repeated:
+            aux = dctx.pmean(aux, mesh, ax)
     out, aux = _global(out.reshape(bl, sl, d), aux, mesh, spec, x)
     if "shared" in params:
         out = out + _shared(params, cfg, x.reshape(-1, d)).reshape(b, s, d)

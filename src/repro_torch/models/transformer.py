@@ -14,7 +14,10 @@ config (MusicGen, ``num_codebooks > 1``) sums one embedding table a
 codebook and predicts with one head a codebook; a config without an
 input table (``embed_inputs=False``, the VLM stub) takes ``embeds``.
 ``forward`` returns final hidden states; ``lm_logits`` maps them to
-logits for serving.
+logits for serving.  In training with ``cfg.remat`` each repeat of the
+pattern runs under ``torch.utils.checkpoint``, its activations recomputed
+in the backward, as ``repro`` wraps its scan body in ``jax.checkpoint``;
+the prefix layers keep theirs.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs import base as cfgbase
+from repro_torch.distributed import context as dctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention, common, mamba, mlp, moe, rwkv6
 
@@ -230,6 +235,15 @@ def _rope(cfg, batch, x):
     return common.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
 
 
+def _train_repeat(block_params, cfg, x, aux_total, cos, sin):
+    """One repeat of the pattern in training: (x, aux_total) after it."""
+    for i, kind in enumerate(cfg.pattern):
+        x, _, aux = block_apply(block_params[f"pos{i}"], cfg, kind, x, cos,
+                                sin, mode="train")
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 def forward(params, cfg, batch, *, mode: str = "train",
             cache: Optional[dict] = None, cache_len=None):
     """Returns (hidden (B,S,D), new_cache, aux_loss).
@@ -258,7 +272,17 @@ def forward(params, cfg, batch, *, mode: str = "train",
 
     blk_cache = cache["blocks"] if cache is not None else None
     per_layer = {f"pos{i}": [] for i in range(len(cfg.pattern))}
+    repeat = dctx.under_current_mesh(_train_repeat)
     for r in range(cfg.num_pattern_repeats):
+        if cfg.remat and mode == "train":
+            # repro's jax.checkpoint of the scan body: one repeat's
+            # activations recomputed in the backward; its parameter slices
+            # taken outside, as lax.scan slices xs outside the body (no
+            # draws inside: no RNG state to stash and restore)
+            x, aux_total = checkpoint(
+                repeat, tree_index(params["blocks"], r), cfg, x, aux_total,
+                cos, sin, use_reentrant=False, preserve_rng_state=False)
+            continue
         for i, kind in enumerate(cfg.pattern):
             key = f"pos{i}"
             c = (tree_index(blk_cache[key], r) if blk_cache is not None

@@ -152,6 +152,15 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 # Adafactor (factored second moment, no momentum)
 # ---------------------------------------------------------------------------
 
+def _placed_as(x, ref):
+    """``x`` redistributed to ``ref``'s placements where both are DTensors
+    and they differ; else ``x``."""
+    if (not hasattr(x, "placements") or not hasattr(ref, "placements")
+            or x.placements == ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
 def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
               min_dim_size_to_factor: int = 128) -> Optimizer:
     """Shazeer & Stern (2018) as ``repro`` has it: ``beta = 1 - t^-decay``,
@@ -184,8 +193,13 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
             g = g.to(torch.float32)
             g2 = g * g + eps
             if "vr" in s:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+                # on DTensors the factors take their state's placements
+                # (vc's mean over a split dim reduced), so the factored
+                # product is placed as g, as XLA places it
+                vr = _placed_as(beta * s["vr"] + (1 - beta) * g2.mean(dim=-1),
+                                s["vr"])
+                vc = _placed_as(beta * s["vc"] + (1 - beta) * g2.mean(dim=-2),
+                                s["vc"])
                 denom = (vr[..., :, None] * vc[..., None, :]
                          / torch.clamp(vr.mean(dim=-1, keepdim=True)[
                              ..., None], min=eps))
@@ -195,8 +209,10 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
                 v = beta * s["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(v + eps)
                 ns = {"v": v}
-            # update clipping (RMS <= 1), as in the paper
-            rms = torch.sqrt(torch.mean(u * u) + eps)
+            # update clipping (RMS <= 1), as in the paper; the mean as a
+            # sum over the count (the same on the CPU), which on a DTensor
+            # split unevenly is a partial sum, never the whole of u
+            rms = torch.sqrt(torch.sum(u * u) / u.numel() + eps)
             u = u / torch.clamp(rms, min=1.0)
             return (p.to(torch.float32) - lr * u).to(p.dtype), ns
 

@@ -86,9 +86,10 @@ def chunked_ce(params, cfg, h, labels):
     if s % c:
         c = s                               # fallback: a single chunk
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    chunk = dctx.under_current_mesh(_ce_chunk)
     for i in range(0, s, c):
         # no draws in a chunk: no RNG state to stash and restore
-        tot = tot + checkpoint(_ce_chunk, params, cfg, h[:, i:i + c],
+        tot = tot + checkpoint(chunk, params, cfg, h[:, i:i + c],
                                labels[:, i:i + c], use_reentrant=False,
                                preserve_rng_state=False)
     return tot / max(labels.numel(), 1)

@@ -398,6 +398,35 @@ def test_scan_on_meta_counts_as_the_eager_loop(n, grad):
                                 op_cost.count(fn, *args("cpu")))
 
 
+@pytest.mark.parametrize("n", [5, 12])
+def test_scan_under_a_recompute_counts_as_the_eager_loop(n):
+    """The toy recurrence under ``torch.utils.checkpoint``, its gradient
+    taken: the forward keeps nothing of the scan, the recompute in the
+    backward all of it until the middle iteration's backward.  Scaled on
+    meta == eager on the CPU, the peak within PEAK_BAND (the iterations
+    not run were once charged again by the recompute and never
+    released)."""
+    from torch.utils.checkpoint import checkpoint
+
+    def fn(w, xs, c0):
+        def loop(w, xs, c0):
+            def step(c, t):
+                y = torch.tanh(c @ w + xs[:, t])
+                return c * 0.5 + y, y * c
+            return op_cost.scan(step, c0, n, dim=1)
+        c, ys = checkpoint(loop, w, xs, c0, use_reentrant=False,
+                           preserve_rng_state=False)
+        torch.autograd.grad((ys * ys).sum() + c.sum(), (w, xs))
+        return ys
+
+    def args(device):
+        return (torch.zeros(64, 64, device=device, requires_grad=True),
+                torch.zeros(8, n, 64, device=device, requires_grad=True),
+                torch.zeros(8, 64, device=device))
+    _assert_scaled_equals_eager(op_cost.count(fn, *args("meta")),
+                                op_cost.count(fn, *args("cpu")))
+
+
 def test_scan_without_a_counter_is_the_plain_loop():
     xs = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 9, 4)).astype(np.float32))
@@ -419,14 +448,19 @@ RECURRENT_CELLS = [("rwkv6-3b", {}, 32), ("rwkv6-3b", {}, 128),
                    ("jamba-v0.1-52b", {}, 64)]
 
 
-@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("step", ["train", "prefill", "decode",
+                                  "train_remat"])
 @pytest.mark.parametrize("arch,overrides,seq", RECURRENT_CELLS)
 def test_scaled_recurrent_steps_count_as_eager(arch, overrides, seq, step):
     """The per-token recurrences' steps on meta (scaled) against the same
     steps' every iteration on CPU tensors: FLOPs and bytes exactly, the
-    training step's backward included; peaks within PEAK_BAND."""
+    training step's backward included (with ``remat``, each pattern
+    repeat's recurrences recomputed in the backward); peaks within
+    PEAK_BAND."""
     from repro_torch.launch import dryrun
-    cfg = dryrun.cell_config(arch, overrides).scaled()
+    cfg = dryrun.cell_config(arch, overrides).scaled().with_(
+        remat=step == "train_remat")
+    step = step.split("_")[0]
     shape = tshapes.ShapeSpec(f"{step}_small", seq, 2, step)
     fn, args = dryrun.step_and_args(cfg, shape)
     _assert_scaled_equals_eager(op_cost.count(fn, *args),

@@ -267,18 +267,21 @@ def test_every_multipod_cell_is_ok_or_skipped(tmp_path, capsys):
             assert rec["trace_s"] < 1200
 
 
-# the card records' FLOPs and bytes as the tree before the sharded count
-# gave them (launch/dryrun.py on meta): counting DTensors leaves every
-# plain step's charges as they were, to the last digit
-CARD = {("smollm-360m", "train_4k"): (3387269026290636.0,
-                                      213312222422490.0),
+# the card records' FLOPs and bytes (launch/dryrun.py on meta): the
+# prefill and decode as the tree before the sharded count gave them
+# (counting DTensors leaves every plain step's charges as they were, to
+# the last digit); the training steps with each pattern repeat recomputed
+# in the backward (cfg.remat, as repro: 1.25-1.33x the FLOPs they counted
+# without it)
+CARD = {("smollm-360m", "train_4k"): (4219651623422924.0,
+                                      280845510863450.0),
         ("smollm-360m", "prefill_32k"): (2771463780234336.0,
                                          6525640981388.0),
         ("smollm-360m", "decode_32k"): (614123758944.0, 1277658475276.0),
-        ("rwkv6-3b", "train_4k"): (2.1749223186221124e+16,
-                                   3.4704094034495216e+16),
-        ("jamba-v0.1-52b", "train_4k"): (3.279079487113849e+17,
-                                         6.4075973341495e+16)}
+        ("rwkv6-3b", "train_4k"): (2.7586435056633924e+16,
+                                   4.061457999301972e+16),
+        ("jamba-v0.1-52b", "train_4k"): (4.351414623417602e+17,
+                                         7.62072226345809e+16)}
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
@@ -304,3 +307,30 @@ def test_recurrent_train_4k_cell_ends_ok(arch, tmp_path, capsys):
     assert (rec["hlo_flops"], rec["hlo_bytes"]) == CARD[(arch, "train_4k")]
     assert rec["trace_s"] < 300
     assert "1 cells: 1 ok" in capsys.readouterr().out
+
+
+def test_collective_sites_sum_to_the_breakdown(tmp_path, capsys):
+    """``--collective-sites N``: the record's ``coll_sites`` (every
+    collective's wire bytes by kind and the frame that issued it) sum to
+    the cell's ``coll_breakdown`` kind by kind, and each kind's N largest
+    sites are printed under the cell's line; without the flag the record
+    has none."""
+    args = ["--mesh", "pod", "--arch", "smollm-360m", "--shape",
+            "decode_32k", "--out", str(tmp_path)]
+    for flag in ([], ["--collective-sites", "2"]):
+        with pytest.raises(SystemExit) as done:
+            dryrun.main(args + flag)
+        assert done.value.code == 0
+        rec = json.loads((tmp_path / "dryrun_smollm-360m__decode_32k__pod"
+                                     ".json").read_text())
+        assert ("coll_sites" in rec) == bool(flag)
+    out = capsys.readouterr().out
+    sites = rec["coll_sites"]
+    for kind, want in rec["coll_breakdown"].items():
+        got = sum(s["wire_bytes"] for s in sites if s["kind"] == kind)
+        assert got == pytest.approx(want, rel=1e-12, abs=0), kind
+        rows = [s for s in sites if s["kind"] == kind]
+        assert len([line for line in out.splitlines()
+                    if line.startswith(f"    {kind} ")]) == min(2, len(rows))
+    assert sites and all(s["site"].startswith(("models/", "train/"))
+                         for s in sites)

@@ -57,10 +57,20 @@ def _arrays():
     return params, n(B, S, D), n(B, 1, D)
 
 
+def _batch_of_one():
+    """x (1, S, D), a batch that does not split over "data", and the
+    cotangent its output is held against."""
+    rng = np.random.default_rng(1)
+    return [rng.standard_normal((1, S, D)).astype(np.float32)
+            for _ in range(2)]
+
+
 def _ranks_body(rank, world):
     """One rank: every variant through ``moe.apply`` under the mesh (S=8:
-    apply_ep, S=1: apply_ep_decode), the no-drop gradients, and the
-    counted collectives of one apply_ep."""
+    apply_ep, S=1: apply_ep_decode), the no-drop gradients, the
+    gradients at a batch of one (``moe.apply`` takes apply_ep_decode,
+    the data axis running it alike), and the counted collectives of one
+    apply_ep."""
     mesh = make_mesh(*MESH, devices=["cpu"] * world)
     arrays, x, xd = _arrays()
     params = {k: torch.from_numpy(v) for k, v in arrays.items()}
@@ -78,6 +88,13 @@ def _ranks_body(rank, world):
         (y ** 2).sum().backward()
         out["grads"] = {k: v.grad.numpy() for k, v in leaves.items()}
         out["grads"]["x"] = xg.grad.numpy()
+        x1, cot = (torch.from_numpy(a) for a in _batch_of_one())
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        x1.requires_grad_()
+        y, aux = tmoe.apply(leaves, cfg, x1)
+        ((y * cot).sum() + aux).backward()
+        out["b1_grads"] = {k: v.grad.numpy() for k, v in leaves.items()}
+        out["b1_grads"]["x"] = x1.grad.numpy()
         cost = op_cost.count(tmoe.apply_ep, params, cfg, torch.from_numpy(x),
                              mesh)
         out["coll"] = dict(cost.coll_breakdown)
@@ -136,6 +153,26 @@ def oracle():
                 ys.append(y)
                 auxes.append(float(aux[0]))
             want[f"{what}_{name}"] = (np.concatenate(ys), float(np.mean(auxes)))
+    # the decode body's gradients at a batch of one: every model shard
+    # runs it on the whole batch, (y . cot) + aux differentiated through
+    # the vmap (x and the router summed over the shards, each expert
+    # from its shard)
+    x1, cot = _batch_of_one()
+    cfg = JCfg(**_cfg(moe_cfg=JMoE))
+    run = jax.vmap(functools.partial(jmoe._ep_decode_local, cfg=cfg,
+                                     n_shards=n, ep_axis="model"),
+                   in_axes=(0, None, 0, 0, 0), axis_name="model")
+
+    def loss(x, router, wi, wg, wo):
+        t = x.reshape(-1, D)
+        y, aux = run(jnp.broadcast_to(t, (n,) + t.shape), router,
+                     *(w.reshape((n, 8 // n) + w.shape[1:])
+                       for w in (wi, wg, wo)))
+        return jnp.sum(y[0].reshape(x.shape) * cot) + aux[0]
+    names = ("x", "router", "wi", "wg", "wo")
+    grads = jax.grad(loss, argnums=tuple(range(5)))(
+        jnp.asarray(x1), *(jp[k] for k in names[1:]))
+    want["b1_grads"] = {k: np.asarray(g) for k, g in zip(names, grads)}
     return want
 
 
@@ -200,6 +237,21 @@ def test_no_drop_gradients_equal_the_dense_paths(ranks):
         for k, v in leaves.items():
             _close(r["grads"][k], v.grad.numpy(), DENSE_TOL)
         _close(r["grads"]["x"], xg.grad.numpy(), DENSE_TOL)
+
+
+def test_decode_gradients_at_a_batch_of_one_equal_repros_body(ranks,
+                                                              oracle):
+    """Fault 3.11: a batch of one does not split over "data", so
+    moe.apply takes apply_ep_decode and the data devices run it alike.
+    The gradients of (y . cot) + aux (the load-balance and z losses
+    included) == repro's decode body differentiated under vmap, on every
+    rank (before the fix the aux loss's were halved by its mean over
+    "data" and the rest doubled by the sum over it)."""
+    want = oracle["b1_grads"]
+    for r in ranks:
+        assert set(r["b1_grads"]) == set(want)
+        for k, w in want.items():
+            _close(r["b1_grads"][k], w, ORACLE_TOL)
 
 
 def test_counted_collectives_follow_the_ring_rules(ranks):

@@ -237,9 +237,9 @@ def repro_counts(mesh: str, cells, timeout: float = 600):
 # * FLOPs: decode and SmolLM's prefill_32k agree (0.997-1.04; the port
 #   splits SmolLM's 15 q and 5 KV heads over the 4 model devices in
 #   torch.chunk's blocks, 4, 4, 4 and 3, each with the KV heads it reads);
-#   XLA replicates more of a training step over "model" (0.42, 0.77;
-#   SmolLM's 0.52 while DTensor placed the backward's products, some on
-#   whole weights).
+#   the training steps recompute each pattern repeat in the backward, as
+#   repro's jax.checkpoint does (OLMoE 1.00; 0.77 before); XLA replicates
+#   more of SmolLM's step over "model" (0.52).
 # * gathers, 0-0.64: XLA gathers the FSDP'd and model-split weights at
 #   each use, forward and backward, where the port gathers only FSDP'd
 #   ones: its SmolLM training step (products placed by hand) and prefill
@@ -254,14 +254,14 @@ def repro_counts(mesh: str, cells, timeout: float = 600):
 # Where repro's family carries less than 1%, the port's must stay under
 # VS_REPRO_STRAY of its own wire bytes.
 VS_REPRO = {
-    "smollm-360m:train_4k": {"flops": 0.4173, "gathers": 0.0,
-                             "reductions": 0.2542},
+    "smollm-360m:train_4k": {"flops": 0.5205, "gathers": 0.0,
+                             "reductions": 0.3162},
     "smollm-360m:decode_32k": {"flops": 0.9965, "gathers": 0.6400,
                                "reductions": 0.6735},
     "smollm-360m:prefill_32k": {"flops": 1.0080, "gathers": 0.0,
                                 "reductions": 0.0606, "reshards": 0.2489},
-    "olmoe-1b-7b:train_4k": {"flops": 0.7664, "gathers": 0.0800,
-                             "reductions": 0.1175, "reshards": 0.1515},
+    "olmoe-1b-7b:train_4k": {"flops": 0.9996, "gathers": 0.0800,
+                             "reductions": 0.1820, "reshards": 0.2273},
     "rwkv6-3b:decode_32k": {"flops": 1.0375, "gathers": 0.0830,
                             "reductions": 0.3686},
 }
@@ -438,13 +438,16 @@ def test_head_views_replicate_heads_that_do_not_divide_the_axis():
     assert shd.heads_view(plain, 1, (2, 15, 64)).shape == (2, 15, 64)
 
 
+@pytest.mark.parametrize("remat", [False, True], ids=["kept", "remat"])
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
-def test_recurrences_scale_with_dtensor_carries(arch, monkeypatch):
+def test_recurrences_scale_with_dtensor_carries(arch, remat, monkeypatch):
     """The scaled() training step on the (2, 4) mesh, its per-token
     recurrences through op_cost.scan on DTensor carries: scaled (four
     iterations, the middle one's charges x (n - 3)) == every iteration
-    run, FLOPs, bytes and wire bytes exactly."""
-    cfg = dryrun.cell_config(arch).scaled()
+    run, FLOPs, bytes and wire bytes exactly; with ``remat`` the
+    recurrences run again in the backward's recompute, on the carries'
+    placements."""
+    cfg = dryrun.cell_config(arch).scaled().with_(remat=remat)
     shape = tshapes.ShapeSpec("t", 16, 4, "train")
     with dctx.fake_process_group(8):
         scaled, _ = dryrun.count_sharded(cfg, shape, MESH_2X4)
@@ -545,10 +548,29 @@ REAL_CASES = {
                             "query_rows")),
     "rwkv6-3b-b1": ("rwkv6-3b", None,
                     _LM + ("moved", "wkv_blocks", "idle_split")),
+    "olmoe-1b-7b-b1": ("olmoe-1b-7b", None,
+                       _LM + _ATTN + ("flash", "idle_split")),
+    "jamba-v0.1-52b-remat": ("jamba-v0.1-52b", None,
+                             _LM + _ATTN + ("flash", "moved")),
 }
 REAL_B, REAL_S, REAL_L = 4, 16, 32
-# the cases at a batch of one, which does not split over "data"
-REAL_BATCH = {"rwkv6-3b-b1": 1}
+# the cases at a batch of one, which does not split over "data" (MoE's
+# training step takes the expert-parallel decode path there: fault 3.11)
+REAL_BATCH = {"rwkv6-3b-b1": 1, "olmoe-1b-7b-b1": 1,
+              "jamba-v0.1-52b-b1": 1}
+# the cases whose training step recomputes each pattern repeat in the
+# backward (cfg.remat, which scaled() turns off): placed_matmul's
+# Functions and the collectives of a repeat run again there
+REAL_REMAT = ("jamba-v0.1-52b-remat",)
+# Jamba at a batch of one, fault 3.11's case, held apart: its Mamba
+# layers' gradients differ from the plain step's by float32 rounding
+# alone, up to 1.37e-5 of a leaf's largest entry, past REAL_TOL (in
+# float64 the two steps agree within 2.8e-14, and the plain float32 step
+# is itself up to 1.69e-5 off float64 there); every other result of
+# the case is held at REAL_TOL
+REAL_EP_B1 = {"jamba-v0.1-52b-b1": ("jamba-v0.1-52b", None,
+                                    _LM + _ATTN + ("flash", "moved",
+                                                   "idle_split"))}
 # float32 sums taken in another order (the vocab blocks' partial sums,
 # split-K's partial softmax, the gradients' all-reduce): 1e-5 of each
 # leaf's largest entry
@@ -563,9 +585,9 @@ REAL_PATHS = ("_split_k_decode", "_vocab_parallel_lse_gold",
 
 
 def _real_cfg(case):
-    arch, heads, _ = REAL_CASES[case]
-    cfg = dryrun.cell_config(arch).scaled().with_(dtype="float32",
-                                                  param_dtype="float32")
+    arch, heads, _ = {**REAL_CASES, **REAL_EP_B1}[case]
+    cfg = dryrun.cell_config(arch).scaled().with_(
+        dtype="float32", param_dtype="float32", remat=case in REAL_REMAT)
     if heads is not None:
         cfg = cfg.with_(num_heads=heads[0], num_kv_heads=heads[1])
     if cfg.moe:
@@ -718,7 +740,7 @@ def _real_body(rank, world):
     from repro_torch.checkpoint.ckpt import make_mesh
     mesh = make_mesh(*REAL_MESH, devices=["cpu"] * world)
     got = {}
-    for case in REAL_CASES:
+    for case in {**REAL_CASES, **REAL_EP_B1}:
         seen = dict.fromkeys(REAL_PATHS, 0)
         with _counting_dtensor_paths(seen):
             got[case] = (_real_steps(case, mesh, seen), seen)
@@ -749,6 +771,30 @@ def test_sharded_steps_on_four_ranks_equal_the_plain_steps(real_ranks,
     taken = REAL_CASES[case][2]
     for path in REAL_PATHS:
         assert (seen[path] > 0) == (path in taken), (case, path, seen)
+
+def test_ep_decode_training_at_a_batch_of_one_on_four_ranks(real_ranks):
+    """Fault 3.11: Jamba's training step at B = 1, whose MoE layers take
+    the expert-parallel decode path, on DTensors over the (2, 2) mesh:
+    the loss, the logits, the caches and the gradients of the embedding,
+    the router, the experts, attention, the MLPs and the norms == the
+    plain step's within REAL_TOL (up to 2.2e-4 off while the aux loss's
+    gradient was halved by its mean over "data").  The Mamba layers'
+    gradients, which differ by float32 rounding alone (REAL_EP_B1), are
+    not held here."""
+    case = "jamba-v0.1-52b-b1"
+    got, seen = real_ranks[case]
+    want = _real_steps(case)
+    assert set(got) == set(want)
+    held = [key for key in want if "/mamba/" not in key]
+    assert len(held) > len(want) // 2
+    for key in held:
+        tol = REAL_TOL * max(float(np.abs(want[key]).max()), 1e-30)
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=tol,
+                                   err_msg=f"{case}: {key}")
+    taken = REAL_EP_B1[case][2]
+    for path in REAL_PATHS:
+        assert (seen[path] > 0) == (path in taken), (case, path, seen)
+
 
 @pytest.mark.parametrize("role", list(MATMUL_ROLES))
 def test_placed_matmul_roles_on_four_ranks(real_ranks, role):

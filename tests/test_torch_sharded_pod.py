@@ -59,8 +59,16 @@ def test_dense_arch_device_flops_within_bounds_on_pod(arch):
 #   (sharding.placed_matmul), forward and backward on each device's
 #   blocks, so no product runs on a whole weight (ROADMAP 3.10; 1.44-2.25x
 #   while DTensor's propagation gathered the row-split weights for the
-#   backward): 0.57-0.81x, XLA replicating more of a step over "model".
-#   Jamba's wire bytes 0.61x (1.97x).
+#   backward), and each pattern repeat recomputed in the backward as
+#   repro's jax.checkpoint does (ROADMAP 3.13; 0.57-0.81x before): Qwen3,
+#   Kimi and Jamba 1.00-1.04x, Gemma2 and MusicGen 0.92x and 0.89x,
+#   Qwen2-VL and Qwen1.5 0.75x and 0.70x, where one device of the port
+#   counts within 6.5% of the card's step over 256 and XLA replicates
+#   more of it over "model".  Gemma2's wire bytes 1.76x (the recompute's
+#   all-reduces run again).  Kimi's adafactor update keeps each factored
+#   leaf's update on its parameter's blocks (ROADMAP 3.14): its wire
+#   bytes 0.38x (1.71x while the RMS of each expert update was gathered
+#   whole).
 # * A batch of one (long_500k): the data axis it leaves idle splits the
 #   weights' free dims, and RWKV-6's decode reads its whole state's y in
 #   column blocks over it (ROADMAP 3.9): RWKV6 0.90x (8.93x), its wire
@@ -96,22 +104,25 @@ VS_REPRO_POD = {
                                    "flops": 0.99712, "wire": 0.82563},
     "qwen3-8b:train_4k": {"repro_flops": 258957770863958.0,
                           "repro_wire": 605808068837.5,
-                          "flops": 0.81227, "wire": 0.25659},
+                          "flops": 0.99924, "wire": 0.3194},
     "qwen1.5-110b:train_4k": {"repro_flops": 4912957269652078.0,
                               "repro_wire": 14459087550674.0,
-                              "flops": 0.5695, "wire": 0.047296},
+                              "flops": 0.70282, "wire": 0.059595},
     "gemma2-2b:train_4k": {"repro_flops": 103156371656131.0,
                            "repro_wire": 328084205582.5,
-                           "flops": 0.73867, "wire": 1.3088},
+                           "flops": 0.92201, "wire": 1.7563},
     "musicgen-medium:train_4k": {"repro_flops": 81856078678499.0,
                                  "repro_wire": 303030668641.5,
-                                 "flops": 0.70658, "wire": 0.25858},
+                                 "flops": 0.8947, "wire": 0.32104},
     "qwen2-vl-2b:train_4k": {"repro_flops": 76893382564586.0,
                              "repro_wire": 193942523504.5,
-                             "flops": 0.61527, "wire": 0.28109},
+                             "flops": 0.74585, "wire": 0.36526},
     "jamba-v0.1-52b:train_4k": {"repro_flops": 438309244593097.0,
                                 "repro_wire": 408621240721.5,
-                                "flops": 0.79041, "wire": 0.61015},
+                                "flops": 1.0351, "wire": 0.90723},
+    "kimi-k2-1t-a32b:train_4k": {"repro_flops": 1341408413019633.0,
+                                 "repro_wire": 3095363732077.5,
+                                 "flops": 1.0009, "wire": 0.37631},
     "rwkv6-3b:long_500k": {"repro_flops": 53256870.0,
                            "repro_wire": 695047,
                            "flops": 0.89989, "wire": 4.8693},
