@@ -323,6 +323,14 @@ SHARDED_ROWS = ("gemma2-2b", 2, 1)
 # of this many positions) on the same fake group: the batch leaves "data"
 # idle, so the weights' free dims split over it and the outputs gather
 SHARDED_DECODE_LEN = 256
+# and the faults' steps (ROADMAP 3.15, 3.16) on the same fake group:
+# (arch, step, batch, sequence).  RWKV-6's scaled() 3 heads do not divide
+# the 4 model devices, so its cache keeps the state whole and the decode
+# updates it whole, reading y at each device's heads; its LoRA products
+# run on each device's columns.  Gemma2's post norms take each sublayer's
+# sum reduced once, in the stream's dtype
+SHARDED_STEPS = (("rwkv6-3b", "train", 8, 64), ("rwkv6-3b", "decode", 8, 64),
+                 ("gemma2-2b", "train", 8, 128))
 POD_CELL = (LM_ARCH, "train_4k")
 # this cell's FLOPs a device on pod as this tree counts it on an 8-core
 # x86_64 CPU with torch 2.13.0+cpu (PERF.md section 5), beside the card's
@@ -1447,32 +1455,98 @@ def mesh_phase(dev) -> int:
     return n_flash
 
 
-def fake_group_prefill(dev, h: int, kh: int, arch: str = LM_ARCH) -> int:
-    """A prefill of ``arch``'s scaled() config at ``h`` q and ``kh`` KV
-    heads on a fake group of 8 ranks over SHARDED_MESH, its blocks on the
-    card: counted == on meta, exactly (FLOPs, bytes, wire bytes).  Where
-    the config takes flash, the kernel launched once an attention layer
-    on this rank's blocks (the batch over "data", torch.chunk's blocks of
-    the heads over "model", each with the KV heads it reads); where its
-    heads divide the model devices m > 1 ways on the chunked path, each
-    layer's attention through ``attention.query_row_attention`` (each
-    head's query rows shared by its m devices).  Returns the flash
-    launches."""
-    from repro_torch.configs import shapes as shp
-    from repro_torch.configs.registry import get_config
+def fake_group_counts(dev, scfg, shape, on_card_hook=None):
+    """``shape``'s step of config ``scfg`` on a fake group of 8 ranks over
+    SHARDED_MESH, counted on meta and then on arguments built on the card
+    (the state or parameters from seed 0, zero tokens, an empty cache;
+    the decode's token at the cache's last position), each placed as the
+    DTensors of its specs: the two counts equal, exactly (FLOPs, bytes,
+    wire bytes), and every block on the card.  ``on_card_hook`` wraps the
+    card's count (a context manager).  Returns the card's count and the
+    meta count."""
+    import contextlib
     from repro_torch.distributed import context as dctx
     from repro_torch.distributed import sharding as shd
-    from repro_torch.kernels import ops
+    from repro_torch.configs import shapes as shp
     from repro_torch.launch import dryrun, op_cost
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.models import attention, transformer
-    from repro_torch.train import serve
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+
+    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
+                                   SHARDED_MESH[1], abstract=True)
+    with dctx.fake_process_group(smesh.size):
+        dmesh = shd.device_mesh(smesh)
+        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
+            scfg, shape, smesh)
+        with dctx.sharded_step(smesh):
+            on_meta = op_cost.count(step_fn, *meta_args)
+        place = lambda tree, specs: shd.distribute(
+            tree, shd.to_named(smesh, specs, dmesh))
+        toks = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                for k, v in shp.input_specs(scfg, shape).items()}
+        if shape.step == "train":
+            optimizer = dryrun.build_optimizer(scfg)
+            state = steps.create_state(scfg, 0, optimizer, device=dev)
+            args = (place(state, steps.state_specs(scfg, smesh, optimizer)),
+                    place(toks, shd.batch_specs(scfg, smesh, toks)))
+        else:
+            params = transformer.init_params(scfg, seed=0, device=dev)
+            args = (place(params, shd.param_specs(scfg, smesh, params)),)
+            if shape.step == "prefill":
+                args += (place(toks, shd.batch_specs(scfg, smesh, toks)),)
+            else:
+                cache = transformer.init_cache(scfg, shape.global_batch,
+                                               shape.seq_len, device=dev)
+                tok = {"t": list(toks.values())[0]}
+                args += (place(cache, shd.cache_specs(scfg, smesh, cache)),
+                         place(tok, shd.batch_specs(scfg, smesh, tok))["t"],
+                         shape.seq_len - 1)
+        blocks = {t.to_local().device.type
+                  for _, t in shd.leaves_with_path(args)
+                  if hasattr(t, "to_local")}
+        with (on_card_hook or contextlib.nullcontext)():
+            with dctx.sharded_step(smesh):
+                on_card = op_cost.count(step_fn, *args)
+        torch.cuda.synchronize()
+    if blocks != {"cuda"}:
+        raise AssertionError(f"the fake group's blocks lie on {blocks}")
+    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
+            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
+        raise AssertionError(
+            f"the sharded {scfg.name} {shape.name} counted on the card "
+            f"({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
+            f"{on_card.coll_wire_bytes} wire) != on meta "
+            f"({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
+            f"{on_meta.coll_wire_bytes})")
+    return on_card, on_meta
+
+
+def _counts(cost) -> str:
+    return (f"one device's {cost.flops:.6e} FLOPs, {cost.bytes:.6e} "
+            f"bytes, {cost.coll_wire_bytes:.6e} wire bytes "
+            f"{({k: v for k, v in cost.coll_breakdown.items() if v})}")
+
+
+def fake_group_prefill(dev, h: int, kh: int, arch: str = LM_ARCH) -> int:
+    """A prefill of ``arch``'s scaled() config at ``h`` q and ``kh`` KV
+    heads on the fake group (:func:`fake_group_counts`, card == meta).
+    Where the config takes flash, the kernel launched once an attention
+    layer on this rank's blocks (the batch over "data", torch.chunk's
+    blocks of the heads over "model", each with the KV heads it reads);
+    where its heads divide the model devices m > 1 ways on the chunked
+    path, each layer's attention through
+    ``attention.query_row_attention`` (each head's query rows shared by
+    its m devices).  Returns the flash launches."""
+    import contextlib
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
 
     scfg = get_config(arch).scaled().with_(num_heads=h, num_kv_heads=kh)
     b, sq = SHARDED_PREFILL
-    shape = shp.ShapeSpec("prefill_sharded", sq, b, "prefill")
-    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
-                                   SHARDED_MESH[1], abstract=True)
     flash = all(attention.uses_flash(scfg, k) for k in scfg.pattern)
     rows = [0]
     by_rows = attention.query_row_attention
@@ -1480,41 +1554,19 @@ def fake_group_prefill(dev, h: int, kh: int, arch: str = LM_ARCH) -> int:
     def counted(*a, **kw):
         rows[0] += 1
         return by_rows(*a, **kw)
-    with dctx.fake_process_group(smesh.size):
-        dmesh = shd.device_mesh(smesh)
-        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
-            scfg, shape, smesh)
-        with dctx.sharded_step(smesh):
-            on_meta = op_cost.count(step_fn, *meta_args)
-        params = transformer.init_params(scfg, seed=0, device=dev)
-        toks = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
-                for k, v in shp.input_specs(scfg, shape).items()}
-        args = (shd.distribute(params, shd.to_named(
-                    smesh, shd.param_specs(scfg, smesh, params), dmesh)),
-                shd.distribute(toks, shd.to_named(
-                    smesh, shd.batch_specs(scfg, smesh, toks), dmesh)))
-        blocks = {t.to_local().device.type
-                  for _, t in shd.leaves_with_path(args)}
-        ops.reset_launch_counts()
+
+    @contextlib.contextmanager
+    def counting():
         attention.query_row_attention = counted
         try:
-            with dctx.sharded_step(smesh):
-                on_card = op_cost.count(serve.build_prefill_step(scfg),
-                                        *args)
+            yield
         finally:
             attention.query_row_attention = by_rows
-        torch.cuda.synchronize()
-        n_flash = ops.launch_counts()["flash_attention"]
-    if blocks != {"cuda"}:
-        raise AssertionError(f"the fake group's blocks lie on {blocks}")
-    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
-            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
-        raise AssertionError(
-            f"the sharded {arch} prefill (H={h}, KH={kh}) counted on the "
-            f"card ({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
-            f"{on_card.coll_wire_bytes} wire) != on meta "
-            f"({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
-            f"{on_meta.coll_wire_bytes})")
+    ops.reset_launch_counts()
+    on_card, _ = fake_group_counts(
+        dev, scfg, shp.ShapeSpec("prefill_sharded", sq, b, "prefill"),
+        counting)
+    n_flash = ops.launch_counts()["flash_attention"]
     m = SHARDED_MESH[1] // h if SHARDED_MESH[1] % h == 0 else 1
     want = ((attn_layers(scfg), 0) if flash
             else (0, attn_layers(scfg) if m > 1 else 0))
@@ -1527,12 +1579,10 @@ def fake_group_prefill(dev, h: int, kh: int, arch: str = LM_ARCH) -> int:
              f"({rows[0]} layers)" if rows[0] else
              f"q heads {[y - x for x, y in q_heads]} over the model devices")
     print(f"  {arch} scaled() H={h} KH={kh} prefill {b} x {sq} on a fake "
-          f"group of {smesh.size} over {dict(smesh.shape)}, blocks on the "
-          f"card: one device's {on_card.flops:.6e} FLOPs, "
-          f"{on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes:.6e} wire "
-          f"bytes {({k: v for k, v in on_card.coll_breakdown.items() if v})}"
-          f" == on meta; flash launched {n_flash} times on each rank's "
-          f"blocks (batch / {SHARDED_MESH[0]}, {split})")
+          f"group of {math.prod(SHARDED_MESH)} over {SHARDED_MESH}, blocks "
+          f"on the card: {_counts(on_card)} == on meta; flash launched "
+          f"{n_flash} times on each rank's blocks (batch / "
+          f"{SHARDED_MESH[0]}, {split})")
     return n_flash
 
 
@@ -1540,135 +1590,77 @@ def fake_group_train(dev) -> int:
     """One training step of SmolLM-360M's scaled() config at
     SHARDED_HEADS with ``remat`` on (each pattern repeat recomputed in
     the backward, ``placed_matmul``'s Functions and the collectives of a
-    repeat run again there) on a fake group of 8 ranks over SHARDED_MESH,
-    its blocks on the card: counted == on meta, exactly (FLOPs, bytes,
-    wire bytes).  Returns the flash launches."""
+    repeat run again there) on the fake group (:func:`fake_group_counts`,
+    card == meta).  Returns the flash launches."""
     from repro_torch.configs import shapes as shp
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed import context as dctx
-    from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import ops
-    from repro_torch.launch import dryrun, op_cost
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.train import steps
 
     h, kh = SHARDED_HEADS
     scfg = get_config(LM_ARCH).scaled().with_(num_heads=h, num_kv_heads=kh,
                                               remat=True)
     b, sq = SHARDED_TRAIN
-    shape = shp.ShapeSpec("train_sharded", sq, b, "train")
-    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
-                                   SHARDED_MESH[1], abstract=True)
-    with dctx.fake_process_group(smesh.size):
-        dmesh = shd.device_mesh(smesh)
-        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
-            scfg, shape, smesh)
-        with dctx.sharded_step(smesh):
-            on_meta = op_cost.count(step_fn, *meta_args)
-        optimizer = dryrun.build_optimizer(scfg)
-        state = steps.create_state(scfg, 0, optimizer, device=dev)
-        toks = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
-                for k, v in shp.input_specs(scfg, shape).items()}
-        args = (shd.distribute(state, shd.to_named(
-                    smesh, steps.state_specs(scfg, smesh, optimizer), dmesh)),
-                shd.distribute(toks, shd.to_named(
-                    smesh, shd.batch_specs(scfg, smesh, toks), dmesh)))
-        blocks = {t.to_local().device.type
-                  for _, t in shd.leaves_with_path(args)}
-        ops.reset_launch_counts()
-        with dctx.sharded_step(smesh):
-            on_card = op_cost.count(step_fn, *args)
-        torch.cuda.synchronize()
-        n_flash = ops.launch_counts()["flash_attention"]
-    if blocks != {"cuda"}:
-        raise AssertionError(f"the fake group's blocks lie on {blocks}")
-    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
-            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
-        raise AssertionError(
-            f"the sharded train step at remat=True counted on the card "
-            f"({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
-            f"{on_card.coll_wire_bytes} wire) != on meta "
-            f"({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
-            f"{on_meta.coll_wire_bytes})")
+    ops.reset_launch_counts()
+    on_card, on_meta = fake_group_counts(
+        dev, scfg, shp.ShapeSpec("train_sharded", sq, b, "train"))
+    n_flash = ops.launch_counts()["flash_attention"]
     print(f"  {LM_ARCH} scaled() H={h} KH={kh} adamw train step {b} x {sq} "
-          f"at remat=True on the fake group, blocks on the card: one "
-          f"device's {on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
-          f"{on_card.coll_wire_bytes:.6e} wire bytes "
-          f"{({k: v for k, v in on_card.coll_breakdown.items() if v})} == "
-          f"on meta; flash launched {n_flash} times; peak_bytes card "
-          f"{on_card.peak_bytes / 1e6:.3f} MB, meta "
+          f"at remat=True on the fake group, blocks on the card: "
+          f"{_counts(on_card)} == on meta; flash launched {n_flash} times; "
+          f"peak_bytes card {on_card.peak_bytes / 1e6:.3f} MB, meta "
           f"{on_meta.peak_bytes / 1e6:.3f} MB")
     return n_flash
 
 
 def fake_group_decode(dev) -> None:
     """A decode step of SmolLM-360M's scaled() config at a batch of one
-    (cache SHARDED_DECODE_LEN) on a fake group of 8 ranks over
-    SHARDED_MESH, its blocks on the card: the batch leaves "data" idle,
-    so each linear layer's weight splits its free dim over it and the
-    output gathers (``sharding.gather_blocks``, counted); counted on the
-    card == on meta, exactly."""
+    (cache SHARDED_DECODE_LEN) on the fake group (:func:`fake_group_counts`,
+    card == meta): the batch leaves "data" idle, so each linear layer's
+    weight splits its free dim over it and the output gathers
+    (``sharding.gather_blocks``, counted)."""
+    import contextlib
     from repro_torch.configs import shapes as shp
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed import context as dctx
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch import dryrun, op_cost
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.models import transformer
-    from repro_torch.train import serve
 
     scfg = get_config(LM_ARCH).scaled()
     shape = shp.ShapeSpec("decode_b1", SHARDED_DECODE_LEN, 1, "decode")
-    smesh = mesh_lib.make_mesh_for(math.prod(SHARDED_MESH),
-                                   SHARDED_MESH[1], abstract=True)
     gathers = [0]
     gather = shd.gather_blocks
 
     def counted(*a, **kw):
         gathers[0] += 1
         return gather(*a, **kw)
-    with dctx.fake_process_group(smesh.size):
-        dmesh = shd.device_mesh(smesh)
-        step_fn, meta_args, _ = dryrun.sharded_step_and_args(
-            scfg, shape, smesh)
-        with dctx.sharded_step(smesh):
-            on_meta = op_cost.count(step_fn, *meta_args)
-        params = transformer.init_params(scfg, seed=0, device=dev)
-        cache = transformer.init_cache(scfg, 1, SHARDED_DECODE_LEN,
-                                       device=dev)
-        tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-        place = lambda tree, specs: shd.distribute(
-            tree, shd.to_named(smesh, specs, dmesh))
-        args = (place(params, shd.param_specs(scfg, smesh, params)),
-                place(cache, shd.cache_specs(scfg, smesh, cache)),
-                place({"t": tok}, shd.batch_specs(scfg, smesh,
-                                                  {"t": tok}))["t"],
-                SHARDED_DECODE_LEN - 1)
+
+    @contextlib.contextmanager
+    def counting():
         shd.gather_blocks = counted
         try:
-            with dctx.sharded_step(smesh):
-                on_card = op_cost.count(serve.build_decode_step(scfg), *args)
+            yield
         finally:
             shd.gather_blocks = gather
-        torch.cuda.synchronize()
-    if ((on_card.flops, on_card.bytes, on_card.coll_wire_bytes)
-            != (on_meta.flops, on_meta.bytes, on_meta.coll_wire_bytes)):
-        raise AssertionError(
-            f"the sharded decode at B=1 counted on the card "
-            f"({on_card.flops:.6e} FLOPs, {on_card.bytes:.6e} bytes, "
-            f"{on_card.coll_wire_bytes} wire) != on meta "
-            f"({on_meta.flops:.6e}, {on_meta.bytes:.6e}, "
-            f"{on_meta.coll_wire_bytes})")
+    on_card, _ = fake_group_counts(dev, scfg, shape, counting)
     if not gathers[0]:
         raise AssertionError("the decode at B=1 split no weight over the "
                              "idle data axis")
     print(f"  {LM_ARCH} scaled() decode at B=1 (cache "
           f"{SHARDED_DECODE_LEN}) on the fake group, blocks on the card: "
           f"{gathers[0]} products split over the idle \"data\" axis and "
-          f"gathered; one device's {on_card.flops:.6e} FLOPs, "
-          f"{on_card.bytes:.6e} bytes, {on_card.coll_wire_bytes:.6e} wire "
-          f"bytes {({k: v for k, v in on_card.coll_breakdown.items() if v})}"
-          f" == on meta")
+          f"gathered; {_counts(on_card)} == on meta")
+
+
+def fake_group_step(dev, arch: str, step: str, b: int, sq: int) -> None:
+    """A ``step`` ("train" or "decode") of ``arch``'s scaled() config at
+    batch ``b`` and sequence (or cache) ``sq`` on the fake group
+    (:func:`fake_group_counts`, card == meta)."""
+    from repro_torch.configs import shapes as shp
+    from repro_torch.configs.registry import get_config
+
+    on_card, _ = fake_group_counts(
+        dev, get_config(arch).scaled(),
+        shp.ShapeSpec(f"{step}_sharded", sq, b, step))
+    print(f"  {arch} scaled() {step} {b} x {sq} on the fake group, blocks on "
+          f"the card: {_counts(on_card)} == on meta")
 
 
 def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
@@ -1684,7 +1676,9 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
     share the model devices by query rows; a decode step at a batch of
     one, the weights split over the idle "data" axis
     (:func:`fake_group_decode`); a training step at ``remat=True``
-    (:func:`fake_group_train`); and flash on a block of no heads,
+    (:func:`fake_group_train`); RWKV-6's and Gemma2-2B's steps of
+    SHARDED_STEPS (:func:`fake_group_step`); and flash on a block of no
+    heads,
     returned empty with no launch.  (3) The dry run's POD_CELL on the
     256-chip mesh, on meta, printed beside this tree's count on the CPU
     (POD_CELL_CPU_FLOPS).  Returns (2)'s flash launches."""
@@ -1739,6 +1733,8 @@ def sharded_checks(dev, cfg, optimizer, step, batch, mesh) -> int:
     n_flash += fake_group_prefill(dev, h, kh, arch)
     fake_group_decode(dev)
     n_flash += fake_group_train(dev)
+    for arch, kind, b, sq in SHARDED_STEPS:
+        fake_group_step(dev, arch, kind, b, sq)
     # the block of no heads a device holds where the heads do not fill
     # the devices: returned empty, nothing launched
     ops.reset_launch_counts()

@@ -454,26 +454,26 @@ def gather_ranges(x: torch.Tensor, dim: int, want, axis: int):
                        rank)
 
 
-def on_blocks(fn, like: torch.Tensor, args, outs, split_heads=True):
+def on_blocks(fn, like: torch.Tensor, args, outs):
     """``fn(*blocks)`` on each device's blocks, as ``shard_map`` over the
     batch and the heads.  ``like``, a DTensor with the batch at dim 0 and
     the heads at dim 2, names the layout: each mesh dim that splits its
-    batch or (unless ``split_heads`` is False) its heads splits every
-    argument's (``args``: (tensor, batch dim or None, heads dim)), and
-    each other dim is made whole.  An argument without a batch dim is
-    whole on the mesh dims that split the batch, and its gradient is a
-    partial sum there.  ``outs`` gives each result's (global shape, batch
-    dim, heads dim): the results are DTensors of the blocks ``fn``
+    batch or its heads splits every argument's (``args``: (tensor, batch
+    dim or None, heads dim or None)), and each other dim is made whole.
+    An argument without a batch (heads) dim is whole on the mesh dims
+    that split the batch (heads), and its gradient is a partial sum
+    there.  ``outs`` gives each result's (global shape, batch dim, heads
+    dim), None again whole: the results are DTensors of the blocks ``fn``
     returns (one, or a tuple)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     dmesh = like.device_mesh
-    roles = [0 if p.is_shard(0) else 2 if p.is_shard(2) and split_heads
-             else None for p in like.placements]
+    roles = [0 if p.is_shard(0) else 2 if p.is_shard(2) else None
+             for p in like.placements]
 
     def place(batch, heads):
         return [Shard(batch) if role == 0 and batch is not None
-                else Shard(heads) if role == 2 else Replicate()
-                for role in roles]
+                else Shard(heads) if role == 2 and heads is not None
+                else Replicate() for role in roles]
 
     blocks = []
     for t, batch, heads in args:
@@ -489,6 +489,34 @@ def on_blocks(fn, like: torch.Tensor, args, outs, split_heads=True):
         stride=make_contiguous_strides_for(shape))
         for block, (shape, batch, heads) in zip(got, outs))
     return wrapped[0] if single else wrapped
+
+
+def block_of(x: torch.Tensor, place) -> torch.Tensor:
+    """This device's block of DTensor ``x`` under the placements
+    ``place``, a plain tensor: where ``x`` is whole on a mesh dim that
+    ``place`` splits, each device narrows its own block, a local slice,
+    and the gradient is a partial sum over that dim (the block's, zeros
+    elsewhere), with no collective; every other mesh dim must place
+    ``x`` as ``place`` does."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_box
+    dmesh = x.device_mesh
+    narrowed = [i for i, (p, q) in enumerate(zip(x.placements, place))
+                if p.is_replicate() and q.is_shard() and dmesh.size(i) > 1]
+    if any(p != q for i, (p, q) in enumerate(zip(x.placements, place))
+           if i not in narrowed and dmesh.size(i) > 1):
+        raise ValueError(f"block_of: {x.placements} to {place} splits "
+                         f"nothing new")
+    block = x.to_local(grad_placements=[
+        Partial() if i in narrowed else p
+        for i, p in enumerate(x.placements)])
+    have_len, have_at = local_box(x.shape, dmesh, x.placements)
+    want_len, want_at = local_box(x.shape, dmesh, list(place))
+    for d, (n, a, b) in enumerate(zip(want_len, want_at, have_at)):
+        if n != block.shape[d]:
+            block = block.narrow(d, a - b, n)
+    return block
 
 
 class _GatherBlocks(torch.autograd.Function):

@@ -491,29 +491,39 @@ def _counter():
     return None
 
 
-def scan(step: Callable, carry: torch.Tensor, n: int, dim: int = 0):
-    """``for t in range(n): carry, y_t = step(carry, t)``; returns the
-    last carry and the y_t stacked on ``dim``.  ``repro``'s ``lax.scan``
-    over an index, as a Python loop.  Under :func:`count` on meta tensors
-    (n > 4), four iterations run: the first and the last two as they are,
-    and one middle one whose charges, forward and backward, count n - 3
-    times (the module docstring says why that is exact): the middle
-    iterations must be alike, so a step on a DTensor carry keeps its
-    placements (``sharding.carry_placed``)."""
+def scan(step: Callable, carry: torch.Tensor, n: int, dim: int = 0,
+         xs=()):
+    """``for t in range(n): carry, y_t = step(carry, t, *x_t)``; returns
+    the last carry and the y_t stacked on ``dim``, x_t each of ``xs``'s
+    slice t of ``dim``.  ``repro``'s ``lax.scan`` over an index and
+    ``xs``, as a Python loop.  ``xs`` are split once (``unbind``), so
+    their gradient is one stack of the slices' (a step that indexes a
+    captured tensor itself makes a gradient of its whole shape a step).
+    Under :func:`count` on meta tensors (n > 4), four iterations run: the
+    first and the last two as they are, and one middle one whose charges,
+    forward and backward, count n - 3 times (the module docstring says
+    why that is exact): the middle iterations must be alike, so a step on
+    a DTensor carry keeps its placements (``sharding.carry_placed``)."""
     mode = _counter()
     if mode is None or n <= 4 or carry.device.type != "meta":
+        parts = [x.unbind(dim) for x in xs]
         ys = []
         for t in range(n):
-            carry, y = step(carry, t)
+            carry, y = step(carry, t, *(p[t] for p in parts))
             ys.append(y)
         return carry, torch.stack(ys, dim)
-    return _scaled_scan(mode, step, carry, n, dim)
+    return _scaled_scan(mode, step, carry, n, dim, xs)
 
 
-def _scaled_scan(mode: _CountMode, step, carry, n: int, dim: int):
+def _scaled_scan(mode: _CountMode, step, carry, n: int, dim: int, xs=()):
     k = n - 3
     grad = torch.is_grad_enabled()
-    carry, y0 = step(carry, 0)
+    # the four iterations' slices of xs: x_0, x_1 (the middle one's),
+    # x_n-2 and x_n-1
+    box = {"grown": False}
+    at = list(zip(*[_Slices.apply(mode, box, dim, n, x) for x in xs])) or [
+        ()] * 4
+    carry, y0 = step(carry, 0, *at[0])
     # the bytes the iterations not run keep for the backward, charged to
     # an empty tensor the closing window saves for its backward: so they
     # live as the saved tensors of the iterations do, until the middle
@@ -527,7 +537,7 @@ def _scaled_scan(mode: _CountMode, step, carry, n: int, dim: int):
     before = mode.live.live
     mode.scale *= k
     try:
-        carry, ym = step(carry, 1)
+        carry, ym = step(carry, 1, *at[1])
     finally:
         mode.scale //= k
     # the n - 4 iterations not run: their outputs, live until the stack,
@@ -544,8 +554,13 @@ def _scaled_scan(mode: _CountMode, step, carry, n: int, dim: int):
                                    "carry needs no gradient cannot be "
                                    "scaled")
             carry, ym = _Window.apply(mode, k, None, None, carry, ym)
-        carry, y1 = step(carry, n - 2)
-        carry, y2 = step(carry, n - 1)
+            # the gradients of xs's slices the iterations not run hold,
+            # from the middle iteration's backward to xs's stack
+            carry = _Grow.apply(mode, box, sum(
+                x.select(dim, 0).numel() * x.element_size()
+                for x in xs if x.requires_grad) * (n - 4), carry)
+        carry, y1 = step(carry, n - 2, *at[2])
+        carry, y2 = step(carry, n - 1, *at[3])
         tail = (y0, ym, y1, y2)
         if grad and any(y.requires_grad for y in tail):
             ys = _Stack.apply(dim, n, *tail)
@@ -581,6 +596,53 @@ class _Window(torch.autograd.Function):
         if ctx.div:
             ctx.mode.scale //= ctx.div
         return (None, None, None, None) + grads
+
+
+class _Slices(torch.autograd.Function):
+    """Slices 0, 1, n - 2 and n - 1 of ``x`` on ``dim``, as a scaled
+    scan's iterations read them; the backward charged as the eager loop's
+    (``unbind``'s: one stack of every slice's gradient, slice 1's n - 3
+    times, a slice without one a zero expanded).  The n - 4 gradients of
+    the slices not read, grown by :class:`_Grow` (``box``) as the middle
+    iteration's backward starts, are released after the stack, as
+    autograd holds the eager slices' until every one has come."""
+
+    @staticmethod
+    def forward(ctx, mode, box, dim, n, x):
+        ctx.mode, ctx.box, ctx.dim, ctx.n = mode, box, dim, n
+        ctx.set_materialize_grads(False)
+        return tuple(x.select(dim, t) for t in (0, 1, n - 2, n - 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        like = next((g for g in grads if g is not None), None)
+        if like is None:
+            return None, None, None, None, None
+        # unbind's backward: a slice without a gradient a zero expanded
+        g0, gm, g1, g2 = (torch.zeros((), dtype=like.dtype,
+                                      device=like.device).expand(like.shape)
+                          if g is None else g for g in grads)
+        g = torch.stack([g0] + [gm] * (ctx.n - 3) + [g1, g2], ctx.dim)
+        if ctx.box["grown"]:
+            ctx.mode.live.shrink(like.numel() * like.element_size()
+                                 * (ctx.n - 4))
+        return None, None, None, None, g
+
+
+class _Grow(torch.autograd.Function):
+    """An identity whose backward grows the counter's live bytes by
+    ``nbytes`` (released by :class:`_Slices`) and marks ``box``."""
+
+    @staticmethod
+    def forward(ctx, mode, box, nbytes, x):
+        ctx.mode, ctx.box, ctx.nbytes = mode, box, nbytes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.mode.live.grow(ctx.nbytes)
+        ctx.box["grown"] = True
+        return None, None, None, g
 
 
 class _Stack(torch.autograd.Function):

@@ -191,8 +191,11 @@ def _split_k_decode(q, k_cache, v_cache, cache_len: int, axis: int, *,
     scores its block of the cache against every head of its rows of q
     (gathered over that dim), and the softmax's maxima and sums and the
     weighted values' partial sums, (B, KH, G[, D]) each, are all-reduced
-    over it; the cache is never gathered.  The output is placed as the
-    cache's rows, whole on every other mesh dim."""
+    over it; the cache is never gathered.  A batch the data axes leave
+    idle (a batch of one) splits the weighted values' head dim over them,
+    as XLA splits that product there, gathered after the reduction (a
+    decode step: no gradient).  The output is placed as the cache's
+    rows, whole on every other mesh dim."""
     from torch.distributed.tensor import DTensor, Replicate
     dmesh, mesh = k_cache.device_mesh, dctx.current_mesh()
     name = dmesh.mesh_dim_names[axis]
@@ -215,8 +218,12 @@ def _split_k_decode(q, k_cache, v_cache, cache_len: int, axis: int, *,
     m = dctx.pmax(s.amax(dim=-1, keepdim=True), mesh, name)
     e = torch.exp(s - m)
     z = dctx.psum(e.sum(dim=-1, keepdim=True), mesh, name)
-    out = dctx.psum(torch.einsum("bhgl,blhd->bhgd", e, vl.float()), mesh,
-                    name) / z
+    idle, at, parts = shd.share_of(dmesh, shd.idle_dims(k_cache), d)
+    vl = vl.float().narrow(3, at * (d // parts), d // parts)
+    out = dctx.psum(torch.einsum("bhgl,blhd->bhgd", e, vl), mesh, name) / z
+    if idle:
+        out = shd.gather_blocks(out, 3, [dmesh.get_group(i) for i in idle],
+                                at)
     return DTensor.from_local(out.reshape(b, 1, h, d).to(q.dtype), dmesh,
                               place)
 

@@ -152,19 +152,94 @@ def _wkv_chunked(rh, kh, vh, wh, u, S0, chunk: int, sub_chunk: int = 16):
     return S, y
 
 
-def _wkv_scan(rh, kh, vh, wh, u, S, cols=None):
+def _wkv_scan(rh, kh, vh, wh, u, S, cols=None, heads=None):
     """The per-token WKV recurrence: (B, S, H, hs) inputs -> (S, y).
-    ``cols`` (start, width): y only at those of its hs columns, the state
-    whole."""
-    def step(S, t):
-        kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]   # (B, H, hs, hs)
-        read, kv_read = ((S, kv) if cols is None else
-                         (S.narrow(3, *cols), kv.narrow(3, *cols)))
-        y = torch.einsum("bhi,bhij->bhj", rh[:, t],
+    ``cols`` (start, width): y only at those of its hs columns;
+    ``heads`` (start, stop): ``rh`` and ``u`` hold only those heads, and
+    y is theirs; the state whole either way."""
+    def step(S, t, r, k, v, w):                         # (B, H, hs) each
+        kv = k[..., :, None] * v[..., None, :]             # (B, H, hs, hs)
+        read, kv_read = S, kv
+        if heads is not None:
+            read, kv_read = (z.narrow(1, heads[0], heads[1] - heads[0])
+                             for z in (read, kv_read))
+        if cols is not None:
+            read, kv_read = (z.narrow(3, *cols) for z in (read, kv_read))
+        y = torch.einsum("bhi,bhij->bhj", r,
                          read + u[None, :, :, None] * kv_read)
-        return wh[:, t, :, :, None] * S + kv, y
+        return w[..., :, None] * S + kv, y
 
-    return scan(step, S, rh.shape[1], dim=1)
+    # the inputs scanned as lax.scan's xs: their gradient one stack of the
+    # tokens' (read in the step, each token's would be its whole shape)
+    return scan(step, S, rh.shape[1], dim=1, xs=(rh, kh, vh, wh))
+
+
+def _model_dim(x: torch.Tensor):
+    """The mesh dim named "model" of DTensor ``x``'s mesh, where it has
+    several devices, else None (and None for a plain tensor)."""
+    dmesh = getattr(x, "device_mesh", None)
+    names = (dmesh.mesh_dim_names or ()) if dmesh is not None else ()
+    if "model" not in names or dmesh.size(names.index("model")) == 1:
+        return None
+    return names.index("model")
+
+
+def _split(w: torch.Tensor, axis: int, dim: int):
+    """Weight DTensor ``w``, whole on mesh dim ``axis``, split there on
+    its ``dim`` (a local slice; the gradient gathered back), or None where
+    the split does not divide the dim."""
+    from torch.distributed.tensor import Shard
+    if (not w.placements[axis].is_replicate()
+            or w.shape[dim] % w.device_mesh.size(axis)):
+        return None
+    place = list(w.placements)
+    place[axis] = Shard(dim)
+    return w.redistribute(w.device_mesh, place)
+
+
+def _whole_on(x: torch.Tensor, axis: int):
+    """DTensor ``x`` made whole on mesh dim ``axis`` (an all-gather, or
+    an all-reduce of a partial sum; the backward reduce-scatters)."""
+    from torch.distributed.tensor import Replicate
+    place = list(x.placements)
+    place[axis] = Replicate()
+    return x.redistribute(x.device_mesh, place)
+
+
+def _mixes_on_model(params, cfg, x, dx, xxx, m):
+    """The ddlerp mixes and the decay on DTensors, each LoRA product on
+    this device's share of "model" (mesh dim ``m``), as XLA partitions
+    them: ``mix_w1``'s and the mixes' ``mix_w2`` output columns split
+    there, the mixes gathered whole for the projections but the decay's,
+    which stays split: ``w1`` contracts its columns (one all-reduce of the
+    rank-64 sums) and ``w2`` splits its output columns again.  Returns
+    (feeds, w), w split on its columns over "model"; None where a split
+    does not divide its dim."""
+    from torch.distributed.tensor import DTensor
+    rc = cfg.rwkv
+    b, s, d = x.shape
+    mix_w1 = _split(params["mix_w1"], m, 1)
+    mix_w2 = [_split(params["mix_w2"][i], m, 1)
+              for i in range(len(_MIX_KEYS))]
+    w1, w2 = _split(params["w1"], m, 0), _split(params["w2"], m, 1)
+    if any(t is None for t in [mix_w1, w1, w2] + mix_w2):
+        return None
+    lora = _whole_on(torch.tanh(common.matmul(xxx, mix_w1)), m)
+    lora = shd.heads_view(lora, 2, (b, s, len(_MIX_KEYS), rc.mix_lora))
+    mods = [common.matmul(lora[:, :, i], mix_w2[i])
+            for i in range(len(_MIX_KEYS))]
+    feeds = {k: x + dx * (params["mu"][k].to(x.dtype) + _whole_on(mods[i], m))
+             for i, k in enumerate(_MIX_KEYS) if k != "w"}
+    # the decay's mix on this device's columns: x's and dx's blocks (their
+    # gradients partial sums over "model"), never a gather
+    place = mods[0].placements
+    fw = shd.block_of(x, place) + shd.block_of(dx, place) * (
+        params["mu"]["w"].to(x.dtype) + mods[0]).to_local()
+    fw = DTensor.from_local(fw, x.device_mesh, place, shape=x.shape,
+                            stride=x.stride())
+    decay_in = torch.tanh(_whole_on(common.matmul(fw, w1), m))
+    wraw = params["w0"] + common.matmul(decay_in, w2).float()
+    return feeds, torch.exp(-torch.exp(wraw))
 
 
 def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
@@ -178,23 +253,29 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
     xs = _shifted(x, state[0] if state is not None else None)
     dx = xs - x
     xxx = x + dx * params["mu_x"].to(x.dtype)
-    # the LoRA products through common.matmul: on DTensors each on the
-    # devices' blocks (split over a data axis the batch leaves idle)
-    lora = torch.tanh(common.matmul(xxx, params["mix_w1"]))
-    lora = shd.heads_view(lora, 2, (b, s, 5, rc.mix_lora))
-    if hasattr(lora, "placements"):
-        # one product a mix: the einsum's batched product is DTensor's
-        mods = torch.stack([common.matmul(lora[:, :, i], params["mix_w2"][i])
-                            for i in range(len(_MIX_KEYS))], dim=2)
+    m = _model_dim(x)
+    placed = m is not None and _mixes_on_model(params, cfg, x, dx, xxx, m)
+    if placed:
+        feeds, w = placed
     else:
-        mods = torch.einsum("bsfm,fmd->bsfd", lora,
-                            params["mix_w2"].to(x.dtype))
-    feeds = {k: x + dx * (params["mu"][k].to(x.dtype) + mods[:, :, i])
-             for i, k in enumerate(_MIX_KEYS)}
-
-    decay_in = torch.tanh(common.matmul(feeds["w"], params["w1"]))
-    wraw = params["w0"] + common.matmul(decay_in, params["w2"]).float()
-    w = torch.exp(-torch.exp(wraw))                      # (B, S, d) in (0, 1)
+        # the LoRA products through common.matmul: on DTensors each on
+        # the devices' blocks (split over a data axis the batch leaves
+        # idle)
+        lora = torch.tanh(common.matmul(xxx, params["mix_w1"]))
+        lora = shd.heads_view(lora, 2, (b, s, 5, rc.mix_lora))
+        if hasattr(lora, "placements"):
+            # one product a mix: the einsum's batched product is DTensor's
+            mods = torch.stack([common.matmul(lora[:, :, i],
+                                              params["mix_w2"][i])
+                                for i in range(len(_MIX_KEYS))], dim=2)
+        else:
+            mods = torch.einsum("bsfm,fmd->bsfd", lora,
+                                params["mix_w2"].to(x.dtype))
+        feeds = {k: x + dx * (params["mu"][k].to(x.dtype) + mods[:, :, i])
+                 for i, k in enumerate(_MIX_KEYS)}
+        decay_in = torch.tanh(common.matmul(feeds["w"], params["w1"]))
+        wraw = params["w0"] + common.matmul(decay_in, params["w2"]).float()
+        w = torch.exp(-torch.exp(wraw))                  # (B, S, d) in (0, 1)
 
     r = common.linear_apply(params["wr"], feeds["r"], **kw)
     k = common.linear_apply(params["wk"], feeds["k"], **kw)
@@ -220,25 +301,32 @@ def time_mix(params, cfg, x: torch.Tensor, *, state=None, mode="train"):
     else:
         wkv = _wkv_scan
     if hasattr(rh, "placements"):
-        # each device runs the recurrence on its heads, as shard_map does;
-        # where the cache keeps the state's heads whole (they do not divide
-        # the axis) the recurrence stays whole too: a decode step would
-        # otherwise gather the new state every token
-        split = state is None or bool(shd.split_axes(S0, 1))
-        dims, at, n = shd.share_of(rh.device_mesh, shd.idle_dims(rh), hs)
-        if not split and mode == "decode" and dims:
-            # a batch the data axes leave idle: each of their devices
-            # reads y at its hs / n columns, gathered (a decode step: no
-            # gradient), the state whole on every device
-            groups = [rh.device_mesh.get_group(i) for i in dims]
+        # each device runs the recurrence on its heads, as shard_map does
+        args = [(rh, 0, 2), (kh, 0, 2), (vh, 0, 2), (wh, 0, 2), (u, None, 0),
+                (S0, 0, 1)]
+        outs = [(S0.shape, 0, 1), (rh.shape, 0, 2)]
+        if state is not None and not shd.split_axes(S0, 1):
+            # the cache keeps the state's heads whole (they do not divide
+            # the axis): each device updates the whole state, as the
+            # cache's spec holds it, and reads y at its own heads only; a
+            # batch the data axes leave idle splits y's hs columns over
+            # them too, gathered (a decode step: no gradient)
+            dmesh = rh.device_mesh
+            split = shd.split_axes(rh, 2)
+            heads = (shd.chunk_ranges(nh, dmesh.size(split[0]))[
+                dmesh.get_local_rank(split[0])] if split else None)
+            dims, at, n = shd.share_of(dmesh, shd.idle_dims(rh), hs)
+            groups = [dmesh.get_group(i) for i in dims]
+            cols = (at * (hs // n), hs // n) if dims else None
 
             def wkv(*xs):
-                S, y = _wkv_scan(*xs, cols=(at * (hs // n), hs // n))
-                return S, shd.gather_blocks(y, 3, groups, at)
-        S, y = shd.on_blocks(
-            wkv, rh, [(rh, 0, 2), (kh, 0, 2), (vh, 0, 2), (wh, 0, 2),
-                      (u, None, 0), (S0, 0, 1)],
-            [(S0.shape, 0, 1), (rh.shape, 0, 2)], split_heads=split)
+                S, y = _wkv_scan(*xs, cols=cols, heads=heads)
+                return S, (shd.gather_blocks(y, 3, groups, at) if dims
+                           else y)
+            args = [(rh, 0, 2), (kh, 0, None), (vh, 0, None),
+                    (wh, 0, None), (u, None, 0), (S0, 0, None)]
+            outs[0] = (S0.shape, 0, None)
+        S, y = shd.on_blocks(wkv, rh, args, outs)
     else:
         S, y = wkv(rh, kh, vh, wh, u, S0)
     y = shd.heads_view(y, 2, (b, s, d)).to(x.dtype)

@@ -151,7 +151,11 @@ def _stream(x):
 
 def _residual(x, y, params, which, cfg):
     if cfg.post_block_norm:
-        y = common.rmsnorm_apply(params[f"{which}_post"], y, cfg.norm_eps)
+        # a sublayer's partial sum reduced once, in its own dtype, before
+        # the norm: left to the norm, DTensor would reduce it after the
+        # norm's float32 cast, once for x * x and once for x * rsqrt
+        y = common.rmsnorm_apply(params[f"{which}_post"], _stream(y),
+                                 cfg.norm_eps)
     return _stream(x + y)
 
 

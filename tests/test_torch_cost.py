@@ -427,6 +427,40 @@ def test_scan_under_a_recompute_counts_as_the_eager_loop(n):
                                 op_cost.count(fn, *args("cpu")))
 
 
+@pytest.mark.parametrize("n", [4, 5, 12])
+def test_scan_over_xs_counts_as_the_eager_loop(n):
+    """Inputs scanned as ``xs`` (one read by the output, one only by the
+    carry, so its last slice gets no gradient): scaled on meta == eager
+    on the CPU; the gradients equal the loop's that indexes the captured
+    inputs itself, whose backward makes a gradient of their whole shape
+    a step, so it moves more bytes than the stack of slices."""
+    def fn(w, xs, zs, c0, scanned=True):
+        def step(c, t, x=None, z=None):
+            x = xs[:, t] if x is None else x
+            z = zs[:, t] if z is None else z
+            return c * z + x, torch.tanh(c @ w + x)
+        c, ys = op_cost.scan(step, c0, n, dim=1,
+                             xs=(xs, zs) if scanned else ())
+        return torch.autograd.grad((ys * ys).sum() + c.sum(), (w, xs, zs))
+
+    def args(device):
+        g = torch.Generator().manual_seed(n)
+        return (torch.randn(16, 16, generator=g).to(device).requires_grad_(),
+                torch.randn(3, n, 16, generator=g).to(device)
+                .requires_grad_(),
+                torch.rand(3, n, 16, generator=g).to(device)
+                .requires_grad_(),
+                torch.randn(3, 16, generator=g).to(device))
+    eager = op_cost.count(fn, *args("cpu"))
+    _assert_scaled_equals_eager(op_cost.count(fn, *args("meta")), eager)
+    for got, want in zip(fn(*args("cpu")), fn(*args("cpu"), scanned=False)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if n > 4:
+        indexed = op_cost.count(lambda *a: fn(*a, scanned=False),
+                                *args("cpu"))
+        assert eager.bytes < indexed.bytes
+
+
 def test_scan_without_a_counter_is_the_plain_loop():
     xs = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 9, 4)).astype(np.float32))

@@ -52,7 +52,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, op_cost
 from repro_torch.launch import mesh as tmesh
-from repro_torch.models import attention
+from repro_torch.models import attention, rwkv6
 from repro_torch.train import steps
 
 META = torch.device("meta")
@@ -239,7 +239,11 @@ def repro_counts(mesh: str, cells, timeout: float = 600):
 #   torch.chunk's blocks, 4, 4, 4 and 3, each with the KV heads it reads);
 #   the training steps recompute each pattern repeat in the backward, as
 #   repro's jax.checkpoint does (OLMoE 1.00; 0.77 before); XLA replicates
-#   more of SmolLM's step over "model" (0.52).
+#   more of SmolLM's step over "model" (0.52).  RWKV-6's decode runs its
+#   LoRA products on each model device's columns and reads y at its heads
+#   of the whole state (ROADMAP 3.15: 1.04 while the products ran whole),
+#   gathering the mixes whole for the projections (gathers 0.42; 0.08
+#   before).
 # * gathers, 0-0.64: XLA gathers the FSDP'd and model-split weights at
 #   each use, forward and backward, where the port gathers only FSDP'd
 #   ones: its SmolLM training step (products placed by hand) and prefill
@@ -262,8 +266,8 @@ VS_REPRO = {
                                 "reductions": 0.0606, "reshards": 0.2489},
     "olmoe-1b-7b:train_4k": {"flops": 0.9996, "gathers": 0.0800,
                              "reductions": 0.1820, "reshards": 0.2273},
-    "rwkv6-3b:decode_32k": {"flops": 1.0375, "gathers": 0.0830,
-                            "reductions": 0.3686},
+    "rwkv6-3b:decode_32k": {"flops": 1.0000, "gathers": 0.4198,
+                            "reductions": 0.3745},
 }
 VS_REPRO_HOLD, VS_REPRO_STRAY = 0.05, 0.10
 FAMILIES = {"gathers": ("all-gather",),
@@ -518,7 +522,10 @@ def test_one_device_mesh_counts_the_plain_step_at_full_width(arch):
 # 3 and 3 split unevenly (2 and 1 heads); 4 and 1 (the q heads divide
 # the axis, the KV head does not).  Gemma2's window and softcap take the
 # chunked attention on each device's head blocks.  RWKV-6's 3 heads
-# split 2 and 1, each device running the recurrence on its heads; Jamba
+# split 2 and 1, each device running the recurrence on its heads (the
+# decode, whose cache keeps the 3 heads whole, updating the whole state
+# and reading y at its heads), its LoRA products on each device's
+# columns (ROADMAP 3.15); Jamba
 # (Mamba, MoE and attention layers, H = 4, KH = 1) reduces x_proj's
 # partial sums once a layer before the scan.  The cache (L = 32) splits
 # its positions over "model": the decode at position 16 writes into the
@@ -540,14 +547,16 @@ REAL_CASES = {
                            _LM + _ATTN + ("flash", "moved")),
     "gemma2-2b-h4": ("gemma2-2b", (4, 2), _LM + _ATTN),
     "olmoe-1b-7b": ("olmoe-1b-7b", None, _LM + _ATTN + ("flash",)),
-    "rwkv6-3b": ("rwkv6-3b", None, _LM + ("moved", "wkv_blocks")),
+    "rwkv6-3b": ("rwkv6-3b", None, _LM + ("moved", "wkv_blocks",
+                                          "model_mixes")),
     "jamba-v0.1-52b": ("jamba-v0.1-52b", None,
                        _LM + _ATTN + ("flash", "moved")),
     "gemma2-2b-h1": ("gemma2-2b", (1, 1),
                      _LM + ("_split_k_decode", "split_write", "moved",
                             "query_rows")),
     "rwkv6-3b-b1": ("rwkv6-3b", None,
-                    _LM + ("moved", "wkv_blocks", "idle_split")),
+                    _LM + ("moved", "wkv_blocks", "idle_split",
+                           "model_mixes")),
     "olmoe-1b-7b-b1": ("olmoe-1b-7b", None,
                        _LM + _ATTN + ("flash", "idle_split")),
     "jamba-v0.1-52b-remat": ("jamba-v0.1-52b", None,
@@ -578,10 +587,13 @@ REAL_TOL = 1e-5
 # the DTensor-only paths counted in the ranks: "flash" the op on a
 # device's blocks, "moved" an all-to-all of uneven splits
 # (sharding.move_blocks: heads that do not fill the devices evenly),
-# "wkv_blocks" RWKV-6's recurrence on each device's heads
+# "wkv_blocks" RWKV-6's recurrence on each device's heads, "model_mixes"
+# RWKV-6's LoRA products on each device's columns of "model" (ROADMAP
+# 3.15: the cases "rwkv6-3b" and "rwkv6-3b-b1")
 REAL_PATHS = ("_split_k_decode", "_vocab_parallel_lse_gold",
               "sharded_embedding", "split_write", "head_blocks", "flash",
-              "moved", "wkv_blocks", "query_rows", "idle_split")
+              "moved", "wkv_blocks", "query_rows", "idle_split",
+              "model_mixes")
 
 
 def _real_cfg(case):
@@ -656,9 +668,9 @@ def _real_steps(case, mesh=None, seen=None):
 @contextlib.contextmanager
 def _counting_dtensor_paths(seen):
     """Count in ``seen`` the calls of the DTensor-only functions: the
-    head blocks' and RWKV-6's on DTensors, the flash op's (only a
-    device's blocks reach it in a sharded step) and the moves of uneven
-    blocks."""
+    head blocks' and RWKV-6's on DTensors (its recurrence and its LoRA
+    products), the flash op's (only a device's blocks reach it in a
+    sharded step) and the moves of uneven blocks."""
     wrapped = {(attention, "_split_k_decode"): "_split_k_decode",
                (steps, "_vocab_parallel_lse_gold"):
                    "_vocab_parallel_lse_gold",
@@ -667,13 +679,15 @@ def _counting_dtensor_paths(seen):
                (shd, "move_blocks"): "moved",
                (shd, "on_blocks"): "wkv_blocks",
                (attention, "query_row_attention"): "query_rows",
-               (shd, "gather_blocks"): "idle_split"}
+               (shd, "gather_blocks"): "idle_split",
+               (rwkv6, "_mixes_on_model"): "model_mixes"}
     saved = {key: getattr(*key) for key in wrapped}
     taken = {
         "flash": lambda a: True,
         "moved": lambda a: not all(map(shd.holds, a[2], a[3])),
         "wkv_blocks": lambda a: "wkv" in a[0].__qualname__,
         "idle_split": lambda a: True,
+        "model_mixes": lambda a: True,
     }
 
     def counter(fn, name):

@@ -54,7 +54,10 @@ def test_dense_arch_device_flops_within_bounds_on_pod(arch):
 #   and 4 ways, computing 3 heads a device where the port computes 2 and
 #   1 (0.73x, 0.44x).  Gemma2's 8 heads each take 2 of the 16 model
 #   devices by query rows (zig-zag halves of the causal triangle), 1.00x
-#   (1.37x while half the devices held no head; ROADMAP 3.8).
+#   (1.37x while half the devices held no head; ROADMAP 3.8); its post
+#   norms take each sublayer's sum reduced once, in the stream's dtype
+#   (ROADMAP 3.16): wire 0.21x (0.84x while DTensor reduced it after the
+#   norm's float32 cast, twice a norm).
 # * The training steps: the linear layers' products placed by hand
 #   (sharding.placed_matmul), forward and backward on each device's
 #   blocks, so no product runs on a whole weight (ROADMAP 3.10; 1.44-2.25x
@@ -64,16 +67,20 @@ def test_dense_arch_device_flops_within_bounds_on_pod(arch):
 #   Kimi and Jamba 1.00-1.04x, Gemma2 and MusicGen 0.92x and 0.89x,
 #   Qwen2-VL and Qwen1.5 0.75x and 0.70x, where one device of the port
 #   counts within 6.5% of the card's step over 256 and XLA replicates
-#   more of it over "model".  Gemma2's wire bytes 1.76x (the recompute's
-#   all-reduces run again).  Kimi's adafactor update keeps each factored
-#   leaf's update on its parameter's blocks (ROADMAP 3.14): its wire
-#   bytes 0.38x (1.71x while the RMS of each expert update was gathered
-#   whole).
+#   more of it over "model" (its attention: ROADMAP 3.17, held in
+#   tests/test_torch_sharded_pod_share.py).  Gemma2's wire bytes 0.34x
+#   (1.76x while its post norms reduced in float32, 3.16).  Kimi's
+#   adafactor update keeps each factored leaf's update on its parameter's
+#   blocks (ROADMAP 3.14): its wire bytes 0.38x (1.71x while the RMS of
+#   each expert update was gathered whole).
 # * A batch of one (long_500k): the data axis it leaves idle splits the
 #   weights' free dims, and RWKV-6's decode reads its whole state's y in
-#   column blocks over it (ROADMAP 3.9): RWKV6 0.90x (8.93x), its wire
-#   4.9x (2.5x: the outputs' gathers), Jamba 1.14x (its experts' FSDP
-#   gather, which XLA contracts instead).
+#   column blocks over it (ROADMAP 3.9): RWKV6 0.81x (8.93x; 0.90x while
+#   its LoRA products ran whole on every model device and its decode read
+#   y at every head, 3.15), where XLA repeats the products over the idle
+#   axis, its wire 4.1x (the outputs' gathers); Jamba 1.00x (1.14x while
+#   every data device weighed the values of its block of the cache whole,
+#   a product XLA splits over the idle axis, 3.12).
 VS_REPRO_POD = {
     "smollm-360m:prefill_32k": {"repro_flops": 11294511302659.0,
                                 "repro_wire": 281316578880,
@@ -83,7 +90,7 @@ VS_REPRO_POD = {
                              "flops": 0.98336, "wire": 0.43524},
     "gemma2-2b:prefill_32k": {"repro_flops": 26157059079655.0,
                               "repro_wire": 187309608704,
-                              "flops": 0.99673, "wire": 0.83801},
+                              "flops": 0.99643, "wire": 0.20923},
     "musicgen-medium:prefill_32k": {"repro_flops": 56676164465284.0,
                                     "repro_wire": 137084570112,
                                     "flops": 0.72864, "wire": 0.30327},
@@ -110,7 +117,7 @@ VS_REPRO_POD = {
                               "flops": 0.70282, "wire": 0.059595},
     "gemma2-2b:train_4k": {"repro_flops": 103156371656131.0,
                            "repro_wire": 328084205582.5,
-                           "flops": 0.92201, "wire": 1.7563},
+                           "flops": 0.92195, "wire": 0.34283},
     "musicgen-medium:train_4k": {"repro_flops": 81856078678499.0,
                                  "repro_wire": 303030668641.5,
                                  "flops": 0.8947, "wire": 0.32104},
@@ -125,10 +132,10 @@ VS_REPRO_POD = {
                                  "flops": 1.0009, "wire": 0.37631},
     "rwkv6-3b:long_500k": {"repro_flops": 53256870.0,
                            "repro_wire": 695047,
-                           "flops": 0.89989, "wire": 4.8693},
+                           "flops": 0.80926, "wire": 4.1245},
     "jamba-v0.1-52b:long_500k": {"repro_flops": 6877973113.0,
                                  "repro_wire": 10571409959.5,
-                                 "flops": 1.1436, "wire": 0.50354},
+                                 "flops": 0.99728, "wire": 0.50353},
 }
 
 
