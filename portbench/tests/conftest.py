@@ -1,0 +1,10 @@
+"""Puts the checkout's root and ``src`` on the path, so the tests import
+``portbench`` and the program however pytest is started."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT / "src", ROOT):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
